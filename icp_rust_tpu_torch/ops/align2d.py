@@ -1,0 +1,151 @@
+"""SE(2) robust Gauss-Newton alignment core, masked.
+
+Counterpart of the solver core of reference src/lib.rs:
+
+- ``jacobian``: J = [R | R (-a_y, a_x)^T] per point (src/lib.rs:176-184);
+- ``weighted_gauss_newton_update`` (src/lib.rs:218-261): robust sigma per
+  residual dimension, Huber IRLS weights, masked einsum sums, adjugate
+  3x3 solve;
+- ``estimate_transform`` (src/lib.rs:59-84): the inner IRLS loop, up to
+  ``inner_max_iter`` iterations with the reference's three stop
+  conditions in its order: singular/degenerate -> stop; |delta|^2 below
+  the tolerance, checked BEFORE the update is applied; the Huber error at
+  the pre-update transform exceeding the previous iteration's -> stop.  A
+  stopping iteration discards its delta.
+
+``estimate_transform`` dispatches to the one-launch ``irls_loop`` kernel
+(ops/align2d_cuda.py) when config.align_backend resolves to "cuda" (for
+"auto": float32), else runs the plain loop ``irls_loop_torch`` here, which
+is also the kernel's plain version.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import Tensor
+
+from icp_rust_tpu_torch.config import ICPConfig
+from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
+from icp_rust_tpu_torch.ops import huber, linalg, robust
+
+
+def residuals(transform: RigidTransform2, src: Tensor, dst: Tensor) -> Tensor:
+    """r_i = T(s_i) - d_i; (..., N, 2). Ref src/lib.rs:34-36."""
+    return transform.apply_points(src) - dst
+
+
+def jacobian(rot: Tensor, src: Tensor) -> Tensor:
+    """Per-point SE(2) Jacobian: rot (..., 2, 2), src (..., N, 2) ->
+    (..., N, 2, 3)."""
+    arm = torch.stack([-src[..., 1], src[..., 0]], dim=-1)
+    rot_arm = torch.einsum("...ij,...nj->...ni", rot, arm)
+    rot_cols = rot[..., None, :, :].expand(*rot_arm.shape[:-1], 2, 2)
+    return torch.cat([rot_cols, rot_arm[..., :, None]], dim=-1)
+
+
+def _count_gate(mask: Tensor) -> Tensor:
+    """check_input_size: n > 0 and n >= dim(=2). Ref src/lib.rs:186-189."""
+    return torch.sum(mask, dim=-1) >= 2
+
+
+class GNUpdate(NamedTuple):
+    delta: Tensor  # (..., 3) twist update (zeros where not ok)
+    ok: Tensor     # (...,) bool
+    err: Tensor    # (...,) Huber error at the PRE-update transform
+
+
+def weighted_gauss_newton_update(transform: RigidTransform2, src: Tensor,
+                                 dst: Tensor, mask: Tensor, huber_k: float,
+                                 det_rel_eps: float = 0.0) -> GNUpdate:
+    """Robust IRLS GN step. Ref src/lib.rs:218-261: per point and residual
+    dimension j, weight drho(r_ij^2, k) scaled by 1/sigma_j (the dimension
+    is skipped where sigma_j == 0)."""
+    maskf = mask.to(src.dtype)
+    r = residuals(transform, src, dst)
+    sigma, stats_valid = robust.calc_stddevs(r, mask)
+    dim_ok = sigma != 0.0
+    g = torch.where(dim_ok, 1.0 / torch.where(dim_ok, sigma,
+                                              torch.ones_like(sigma)),
+                    torch.zeros_like(sigma))
+    w = huber.drho(r * r, huber_k)
+    u = w * g[..., None, :] * maskf[..., :, None]
+    j = jacobian(transform.rot, src)
+    jtr = torch.einsum("...ni,...nik,...ni->...k", u, j, r)
+    jtj = torch.einsum("...ni,...nik,...nil->...kl", u, j, j)
+    err = torch.sum(huber.rho(torch.sum(r * r, dim=-1), huber_k) * maskf,
+                    dim=-1)
+    x, ok_solve = linalg.solve3x3(jtj, jtr, det_rel_eps)
+    ok = ok_solve & _count_gate(mask) & stats_valid
+    delta = torch.where(ok[..., None], -x, torch.zeros_like(x))
+    return GNUpdate(delta, ok, err)
+
+
+def _delta_sq_physical(delta: Tensor, point_scale: float) -> Tensor:
+    """|delta|^2 with translation components rescaled to physical units."""
+    s = point_scale
+    return ((delta[..., 0] * s) ** 2 + (delta[..., 1] * s) ** 2
+            + delta[..., 2] ** 2)
+
+
+def irls_loop_torch(src: Tensor, dst: Tensor, mask: Tensor, huber_k: float,
+                    det_rel_eps: float, tol_d2: float, max_iter: int,
+                    point_scale: float):
+    """The inner loop with FIXED correspondences, from identity, in plain
+    torch.  src/dst (..., N, 2) in solver units, mask (..., N), huber_k in
+    solver units.  Returns (rot, t, iterations); batch lanes freeze when
+    done and the loop exits when all are."""
+    dtype = src.dtype
+    batch = src.shape[:-2]
+    t = RigidTransform2.identity(batch, dtype, src.device)
+    prev_err = torch.full(batch, torch.finfo(dtype).max, dtype=dtype,
+                          device=src.device)
+    done = torch.zeros(batch, dtype=torch.bool, device=src.device)
+    it = 0
+    while it < max_iter and not bool(torch.all(done)):
+        upd = weighted_gauss_newton_update(t, src, dst, mask, huber_k,
+                                           det_rel_eps)
+        stop = ~upd.ok
+        stop = stop | (_delta_sq_physical(upd.delta, point_scale) < tol_d2)
+        stop = stop | (upd.err > prev_err)
+        keep = done | stop
+        t_step = RigidTransform2.from_twist(upd.delta).compose(t)
+        t = RigidTransform2(
+            rot=torch.where(keep[..., None, None], t.rot, t_step.rot),
+            t=torch.where(keep[..., None], t.t, t_step.t),
+        )
+        prev_err = torch.where(keep, prev_err, upd.err)
+        done = keep
+        it += 1
+    return t.rot, t.t, it
+
+
+def use_cuda_align(src: Tensor, backend: str) -> bool:
+    """Resolve the align backend: the kernel for "cuda", and for "auto"
+    on float32."""
+    if backend == "cuda":
+        return True
+    return backend == "auto" and src.dtype == torch.float32
+
+
+def estimate_transform(src: Tensor, dst: Tensor, mask: Tensor,
+                       config: ICPConfig) -> RigidTransform2:
+    """Inner alignment loop with FIXED correspondences. Ref
+    src/lib.rs:59-84.  src/dst (N, 2) in solver units; starts from
+    identity and left-composes Exp(delta)."""
+    huber_k = config.huber_k / config.point_scale
+    args = (huber_k, config.det_rel_eps, config.inner_delta_sq_tol,
+            config.inner_max_iter, config.point_scale)
+    if use_cuda_align(src, config.align_backend):
+        if src.ndim != 2:
+            raise NotImplementedError(
+                "a batched inner loop needs align2d_pallas."
+                "_inner_loop_batched_kernel, not yet ported; pass "
+                "align_backend='torch'")
+        from icp_rust_tpu_torch.ops import align2d_cuda
+
+        rot, t, _ = align2d_cuda.irls_loop(src, dst, mask, *args)
+    else:
+        rot, t, _ = irls_loop_torch(src, dst, mask, *args)
+    return RigidTransform2(rot, t)

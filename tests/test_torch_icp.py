@@ -1,0 +1,239 @@
+"""The port's ICP drivers (icp2d, icp3d_planar) against the JAX drivers and
+the NumPy oracle, on the synthetic ground-truth cases of
+tests/test_parity_oracle.py.
+
+Tolerances:
+- float64: <= 1e-9 against the JAX XLA path and the oracle, the JAX
+  package's own parity tolerance (20 outer iterations of sums taken in
+  another order).
+- float32 against the JAX float32 XLA path: 1e-5 (f32 roundoff of
+  few-hundred-point sums, compounded over the outer loop).
+- The kernel-structured CPU path (Morton sort, db pack, center bound,
+  survivor lists, the kernels' plain versions) against the unsorted plain
+  path: 1e-5 in rot and t.  Sorting permutes the points, so every sum is
+  taken in another order; the correspondences are exact either way.
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from icp_rust_tpu.config import REFERENCE_CONFIG as J_REF
+from icp_rust_tpu.config import ICPConfig as JaxConfig
+from icp_rust_tpu.geometry.transform2d import RigidTransform2 as JT
+from icp_rust_tpu.utils import oracle_np as oracle
+from icp_rust_tpu_torch.config import REFERENCE_CONFIG, ICPConfig
+from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2 as TT
+from icp_rust_tpu_torch.models import icp2d as m
+
+F64_TOL = 1e-9
+F32_TOL = 1e-5
+CPU = {"device": "cpu"}
+# The JAX package's models/__init__ re-exports the icp2d function under
+# the module's name.
+j_icp = importlib.import_module("icp_rust_tpu.models.icp2d")
+
+
+def _case2d(n=120):
+    rng = np.random.default_rng(1)
+    src = rng.uniform(-5, 5, (n, 2))
+    t_true = oracle.Transform.from_twist([0.05, -0.02, 0.03])
+    dst = t_true.apply(src) + rng.normal(0, 0.005, (n, 2))
+    return src, dst
+
+
+def _case3d(n=150):
+    rng = np.random.default_rng(2)
+    src = rng.uniform(-5, 5, (n, 3))
+    src[:, 2] = rng.uniform(0.2, 1.8, n)
+    t_true = oracle.Transform.from_twist([0.04, -0.03, 0.02])
+    dst = src.copy()
+    dst[:, :2] = t_true.apply(src[:, :2])
+    dst += rng.normal(0, 0.004, dst.shape)
+    return src, dst
+
+
+def _drivers(planar):
+    if planar:
+        return m.icp3d_planar, j_icp.icp3d_planar, oracle.Icp3d, _case3d
+    return m.icp2d, j_icp.icp2d, oracle.Icp2d, _case2d
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_float64_matches_jax_and_oracle(planar):
+    port, jax_fn, orc, case = _drivers(planar)
+    src, dst = case()
+    ones = np.ones(len(src), bool)
+    got = port(src, dst, ones, ones, TT.identity(dtype=torch.float64),
+               REFERENCE_CONFIG, **CPU)
+    want = jax_fn(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(ones),
+                  jnp.asarray(ones), JT.identity(dtype=jnp.float64), J_REF)
+    t_o = orc(dst).estimate(src, oracle.Transform.identity(), 20)
+    for ref_rot, ref_t in ((np.array(want.rot), np.array(want.t)),
+                           (t_o.rot, t_o.t)):
+        np.testing.assert_allclose(got.rot.numpy(), ref_rot, atol=F64_TOL)
+        np.testing.assert_allclose(got.t.numpy(), ref_t, atol=F64_TOL)
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_float64_stats_match_jax(planar):
+    port, jax_fn, _, case = _drivers(planar)
+    src, dst = case()
+    mask = np.ones(len(src), bool)
+    mask[::9] = False
+    warm = TT.from_twist(torch.tensor([0.01, 0.0, 0.01], dtype=torch.float64))
+    jwarm = JT.from_twist(jnp.asarray([0.01, 0.0, 0.01]))
+    _, st = port(src, dst, mask, mask, warm, REFERENCE_CONFIG,
+                 return_stats=True, **CPU)
+    _, jst = jax_fn(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask),
+                    jnp.asarray(mask), jwarm, J_REF, return_stats=True)
+    assert int(st.outer_iters) == int(jst.outer_iters)
+    for f in ("huber_error", "mean_nn_dist", "inlier_fraction"):
+        np.testing.assert_allclose(getattr(st, f).numpy(),
+                                   np.array(getattr(jst, f)), rtol=F64_TOL,
+                                   atol=F64_TOL)
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_float32_matches_jax_xla_path(planar):
+    port, jax_fn, _, case = _drivers(planar)
+    src, dst = (a.astype(np.float32) for a in case())
+    ones = np.ones(len(src), bool)
+    cfg = ICPConfig(nn_backend="torch", align_backend="torch",
+                    frame_backend="off", det_rel_eps=1e-9)
+    jcfg = JaxConfig(nn_backend="xla", align_backend="xla",
+                     frame_backend="off", det_rel_eps=1e-9)
+    got = port(src, dst, ones, ones, TT.identity(), cfg, **CPU)
+    want = jax_fn(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(ones),
+                  jnp.asarray(ones), JT.identity(dtype=jnp.float32), jcfg)
+    np.testing.assert_allclose(got.rot.numpy(), np.array(want.rot),
+                               atol=F32_TOL)
+    np.testing.assert_allclose(got.t.numpy(), np.array(want.t), atol=F32_TOL)
+
+
+def _frames3d(stride=16):
+    from icp_rust_tpu_torch.utils import io
+
+    frames, _ = io.synthesize_frames3d(2, seed=0)
+    pts, mask = io.pad_points([f[::stride] for f in frames])
+    return pts, mask
+
+
+def test_kernel_structured_cpu_path_tracks_plain_path():
+    pts, mask = _frames3d()
+    kern = ICPConfig(nn_dst_tile=256, det_rel_eps=1e-9)  # "auto": kernels
+    plain = kern.with_(nn_backend="torch", align_backend="torch")
+    assert m._sort_enabled(torch.as_tensor(pts[0], dtype=torch.float32),
+                           torch.as_tensor(pts[1]), kern) == "morton"
+    assert m._sort_enabled(torch.as_tensor(pts[0], dtype=torch.float32),
+                           torch.as_tensor(pts[1]), plain) is None
+    t0 = TT.identity()
+    got, st = m.icp3d_planar(pts[0], pts[1], mask[0], mask[1], t0, kern,
+                             return_stats=True, **CPU)
+    want, wst = m.icp3d_planar(pts[0], pts[1], mask[0], mask[1], t0, plain,
+                               return_stats=True, **CPU)
+    np.testing.assert_allclose(got.rot.numpy(), want.rot.numpy(),
+                               atol=F32_TOL)
+    np.testing.assert_allclose(got.t.numpy(), want.t.numpy(), atol=F32_TOL)
+    assert 1 < int(st.outer_iters) < kern.outer_iters
+    np.testing.assert_allclose(float(st.mean_nn_dist),
+                               float(wst.mean_nn_dist), rtol=1e-4)
+
+
+def test_stats_on_the_sorted_route_use_the_sorted_mask():
+    """Masked points in the middle of src: the Morton sort moves them last,
+    and the stats must follow the permuted mask."""
+    pts, mask = _frames3d()
+    mask = mask.copy()
+    mask[0, ::3] = False
+    kern = ICPConfig(nn_dst_tile=256, det_rel_eps=1e-9)
+    plain = kern.with_(nn_backend="torch", align_backend="torch")
+    t0 = TT.identity()
+    _, st = m.icp3d_planar(pts[0], pts[1], mask[0], mask[1], t0, kern,
+                           return_stats=True, **CPU)
+    _, wst = m.icp3d_planar(pts[0], pts[1], mask[0], mask[1], t0, plain,
+                            return_stats=True, **CPU)
+    for f in ("huber_error", "mean_nn_dist", "inlier_fraction"):
+        np.testing.assert_allclose(float(getattr(st, f)),
+                                   float(getattr(wst, f)), rtol=1e-4)
+
+
+def test_presorted_src_is_bitwise_identical():
+    pts, mask = _frames3d(stride=24)
+    cfg = ICPConfig(nn_dst_tile=256)
+    src = torch.as_tensor(pts[0], dtype=torch.float32)
+    smask = torch.as_tensor(mask[0])
+    s2, m2, pre = m.presort_src(src, smask, torch.as_tensor(pts[1]), cfg)
+    assert pre
+    a = m.icp3d_planar(src, pts[1], smask, mask[1], TT.identity(), cfg, **CPU)
+    b = m.icp3d_planar(s2, pts[1], m2, mask[1], TT.identity(), cfg,
+                       src_presorted=True, **CPU)
+    assert torch.equal(a.rot, b.rot) and torch.equal(a.t, b.t)
+
+
+def test_spatial_sort_prefix_mask():
+    rng = np.random.default_rng(3)
+    pts = torch.as_tensor(rng.uniform(-3, 3, (500, 3)))
+    mask = torch.as_tensor(rng.random(500) > 0.3)
+    srt, msk, (extra,) = m._spatial_sort(pts, mask, extras=(pts[:, 0],))
+    order = m.spatial_order(pts, mask, "morton").to(torch.int64)
+    assert torch.equal(msk, mask[order])
+    assert torch.equal(extra, pts[order, 0]) and torch.equal(srt, pts[order])
+
+
+def test_fixed_point_exit_is_exact():
+    """Exiting at dT == identity equals running every outer iteration."""
+    src, dst = _case2d()
+    ones = np.ones(len(src), bool)
+    cfg = REFERENCE_CONFIG
+    a, st = m.icp2d(src, dst, ones, ones, TT.identity(dtype=torch.float64),
+                    cfg, return_stats=True, **CPU)
+    assert int(st.outer_iters) < cfg.outer_iters
+    b = m.icp2d(src, dst, ones, ones, TT.identity(dtype=torch.float64),
+                cfg.with_(outer_iters=3 * cfg.outer_iters), **CPU)
+    assert torch.equal(a.rot, b.rot) and torch.equal(a.t, b.t)
+    dt = TT.identity(dtype=torch.float64)
+    assert bool(m._is_identity(dt))
+    assert not bool(m._is_identity(TT(dt.rot, dt.t + 1e-300)))
+
+
+def test_frame_kernel_gate_and_route():
+    src, dst = (a.astype(np.float32) for a in _case2d())
+    ones = np.ones(len(src), bool)
+    s, d = torch.as_tensor(src), torch.as_tensor(dst)
+    cfg = ICPConfig(det_rel_eps=1e-9)
+    assert m._use_frame_kernel(s, d, cfg, return_stats=False)
+    assert not m._use_frame_kernel(s, d, cfg, return_stats=True)
+    assert not m._use_frame_kernel(s.double(), d.double(), cfg, False)
+    assert not m._use_frame_kernel(s, d, cfg.with_(frame_backend="off"),
+                                   False)
+    assert not m._use_frame_kernel(
+        s, d, cfg.with_(align_backend="torch"), False)
+    assert not m._use_frame_kernel(s, d, cfg.with_(frame_kernel_max=100),
+                                   False)
+    frame = m.icp2d(src, dst, ones, ones, TT.identity(), cfg, **CPU)
+    unfused = m.icp2d(src, dst, ones, ones, TT.identity(),
+                      cfg.with_(frame_backend="off", nn_backend="torch",
+                                align_backend="torch"), **CPU)
+    assert torch.equal(frame.rot, unfused.rot)
+    assert torch.equal(frame.t, unfused.t)
+
+
+@pytest.mark.parametrize("planar", [False, True])
+def test_float64_point_scale_matches_jax(planar):
+    port, jax_fn, _, case = _drivers(planar)
+    src, dst = (a * 3000.0 for a in case())
+    ones = np.ones(len(src), bool)
+    cfg = REFERENCE_CONFIG.with_(point_scale=3000.0)
+    got = port(src, dst, ones, ones, TT.identity(dtype=torch.float64), cfg,
+               **CPU)
+    want = jax_fn(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(ones),
+                  jnp.asarray(ones), JT.identity(dtype=jnp.float64),
+                  J_REF.with_(point_scale=3000.0))
+    np.testing.assert_allclose(got.rot.numpy(), np.array(want.rot),
+                               atol=F64_TOL)
+    np.testing.assert_allclose(got.t.numpy(), np.array(want.t),
+                               atol=F64_TOL * 3000.0)
