@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the three Hopper kernels from ``icp_rust_tpu_torch/csrc`` (one
+Builds the seven Hopper kernels from ``icp_rust_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together; prints the ptxas register and
 spill lines), then runs these phases; any failure exits non-zero:
 
@@ -25,6 +25,30 @@ spill lines), then runs these phases; any failure exits non-zero:
    whose whole-frame kernel serves every frame; ATE < 0.05 m and within
    1 mm of the plain path.
 
+The batched multi-pair path runs on 209 consecutive pairs of 210 synthetic
+2D scans the size of the reference's scans/2d (the xy of synthetic
+frames, each subsampled to a seeded count in 411-670 points, padded to
+768):
+
+6. nn_pairs and nn_pairs_list (pair-grid exact 1-NN) vs their plain
+   versions at the batched path's shapes (xy payload, Morton-sorted): cold
+   +inf bounds, the warm bounds of one real outer step, a masked db, exact
+   ties, and 4 pairs at the 4096-point db limit.  Indices, distances and
+   payload must be bitwise equal, and equal to a brute-force sweep.
+7. irls_loop_batched vs its plain version on the 209 pairs' first-iteration
+   correspondences, plus an all-masked pair and a one-point pair: rot and
+   t within IRLS_TOL per pair; prints the iteration counts.
+8. icp2d_frame_pairs vs its plain version on the 209 unsorted pairs: rot
+   and t within FRAME_TOL per pair, equal outer iteration counts.
+9. The batched path: ``parallel.sharded.batched_icp2d`` with
+   ``frame_backend="auto"`` run twice (the second run is timed): pairs/s,
+   per-pair error against the ground-truth relative transforms (gate: max
+   translation error < 0.05 m), launch counts (1 nn_pairs, K - 1
+   nn_pairs_list, K irls_loop_batched for K outer iterations); the plain
+   path on the card within 1 mm per pair with no launch; then
+   ``frame_backend="pairs"``: one icp2d_frame_pairs launch, within 1 mm
+   per pair of the lockstep path.
+
 The launch counts of each path are zeroed just before it and read just
 after.  Prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Bounds:
@@ -33,8 +57,9 @@ operations / 67 TFLOP/s (H100 SXM float32 without tensor cores).
 
     python3 chip_smoke.py --profile
 
-adds a torch.profiler trace of the main path's first 16 frames: device
-time by kernel and the device's idle share, and the profiler's table.
+adds torch.profiler traces of the main path's first 16 frames and of the
+batched path: device time by kernel and the device's idle share, and the
+profiler's table.
 
 The phases take ``device`` and sizes, so a CPU test rehearses them at a
 tiny size with the kernels' plain versions.
@@ -42,6 +67,7 @@ tiny size with the kernels' plain versions.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -54,8 +80,10 @@ from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.models import icp2d as m_icp
 from icp_rust_tpu_torch.models.odometry import ate_rmse, run_odometry_fused
-from icp_rust_tpu_torch.ops import align2d, align2d_cuda, cuda_build, nn_cuda
+from icp_rust_tpu_torch.ops import align2d, align2d_cuda, cuda_build, \
+    nn_cuda, nn_pairs_cuda
 from icp_rust_tpu_torch.ops.nn import nearest_neighbor_matched, nn_torch
+from icp_rust_tpu_torch.parallel.sharded import batched_icp2d
 from icp_rust_tpu_torch.utils import io
 
 PEAK_BYTES_PER_S = 3.35e12
@@ -81,6 +109,11 @@ IRLS_OPS_PER_POINT = 194
 # icp2d_frame's 2D sweep 2 + 2 + 1 + 1.
 NN_OPS_PER_PAIR_3D = 10
 NN_OPS_PER_PAIR_2D = 6
+# The batched workload: 210 scans, the size of the reference's scans/2d
+# sequence (411-670 points per scan, padded to 768).
+BATCH_SCANS = 210
+BATCH_PAD = 768
+BATCH_COUNTS = (411, 670)
 
 
 def _sync(device):
@@ -436,6 +469,375 @@ def profile_main(device="cuda", n_frames: int = 16):
     print(avgs.table(sort_by="self_device_time_total", row_limit=30))
 
 
+@functools.lru_cache(maxsize=4)
+def scans2d(n_scans: int = BATCH_SCANS, pad: int = BATCH_PAD, seed: int = 6):
+    """Synthetic 2D scans the size of the reference's scans/2d: the xy of
+    ``n_scans`` synthetic frames, each subsampled to a seeded count in
+    BATCH_COUNTS and padded to ``pad``, and the ground-truth transform of
+    each consecutive pair (scan k onto scan k + 1) as (angle, t)."""
+    frames, traj = io.synthesize_frames3d(n_scans, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    xy = []
+    for f in frames:
+        k = int(rng.integers(BATCH_COUNTS[0], BATCH_COUNTS[1] + 1))
+        xy.append(f[rng.choice(len(f), min(k, pad), replace=False), :2])
+    pts, mask = io.pad_points(xy, pad_to=pad)
+    th = traj[:, 2]
+    c, s = np.cos(th[1:]), np.sin(th[1:])
+    d = traj[:-1, :2] - traj[1:, :2]
+    gt_t = np.stack([c * d[:, 0] + s * d[:, 1], -s * d[:, 0] + c * d[:, 1]],
+                    axis=-1)
+    return pts, mask, th[:-1] - th[1:], gt_t
+
+
+def _batch(device, n_scans: int, pad: int, sort: bool = False):
+    """Pairs (scan k, scan k + 1) on ``device``: src, src_mask, dst,
+    dst_mask, each Morton-sorted per pair when ``sort``."""
+    pts, mask, _, _ = scans2d(n_scans, pad)
+    p = torch.as_tensor(pts, dtype=torch.float32, device=device)
+    k = torch.as_tensor(mask, device=device)
+    src, smask, dst, dmask = p[:-1], k[:-1], p[1:], k[1:]
+    if sort:
+        src, smask, _ = m_icp._spatial_sort(src, smask)
+        dst, dmask, _ = m_icp._spatial_sort(dst, dmask)
+    return src, smask, dst, dmask
+
+
+def _equal_or_raise(got, want, what):
+    for a, b, name in zip(got, want, ("dist", "idx", "payload")):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"{what}: {name} differs from the plain "
+                               "version")
+
+
+def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
+                   pad: int = BATCH_PAD, big_pairs: int = 4,
+                   big_db: int = 4096, q_sub: int = nn_pairs_cuda.Q_SUB):
+    """Kernels 8 and 9 vs their plain versions and a brute-force sweep."""
+    src, smask, dst, dmask = _batch(device, n_scans, pad, sort=True)
+    eps = torch.finfo(torch.float32).eps
+    grp = min(nn_pairs_cuda.LIST_GRP, q_sub)
+    timed = {}
+    errs = {"static": 0.0, "list": 0.0}
+
+    def run_case(name, query, db, dm, bounds):
+        """bounds: {"static" | "list": (B, Nq) bound or None (+inf)}."""
+        n_q = query.shape[1]
+        brute = nn_torch(query, db, dm, tile=db.shape[1])
+        want_pay = torch.take_along_dim(db, brute.index[..., None].long(),
+                                        dim=1)
+        for kind, qb in bounds.items():
+            query_p, dbf, cbox, qb_p = nn_pairs_cuda.prepare(
+                query, db, dm, db, qb, q_sub)
+            if kind == "static":
+                qbox = nn_pairs_cuda._query_boxes(query_p, q_sub)
+                gb = nn_pairs_cuda._group_bounds(qb_p, q_sub)
+                args = (query_p, dbf, qbox, cbox, gb, 2, q_sub)
+                fn = nn_pairs_cuda.nn_pairs
+                plain = nn_pairs_cuda.nn_pairs_plain
+                walked = int((nn_pairs_cuda._box_lower_bound(qbox, cbox, 2)
+                              <= gb[..., None]).sum())
+            else:
+                lists, cnt = nn_pairs_cuda._survivor_lists(
+                    query_p, cbox, qb_p, 2, q_sub, grp)
+                args = (query_p, dbf, lists, cnt, 2, q_sub)
+                fn = nn_pairs_cuda.nn_pairs_list
+                plain = nn_pairs_cuda.nn_pairs_list_plain
+                walked = int(cnt.sum())
+            got = fn(*args)
+            want = plain(*args)
+            _sync(device)
+            what = f"nn_pairs {kind} {name}"
+            _equal_or_raise(got, want, what)
+            fin = torch.isfinite(got[0])
+            errs[kind] = max(errs[kind], float(torch.max(torch.abs(
+                got[0][fin] - want[0][fin]))) if bool(fin.any()) else 0.0)
+            dist = nn_cuda._trim_sentinel(got[0][:, :n_q])
+            hit = torch.isfinite(brute.dist_sq)
+            if not (torch.equal(got[1][:, :n_q], brute.index)
+                    and torch.equal(dist, brute.dist_sq)
+                    and torch.equal(got[2][:, :n_q][hit], want_pay[hit])):
+                raise RuntimeError(f"{what}: differs from brute force")
+            n_slots = query_p.shape[0] * (query_p.shape[1] // q_sub) \
+                * (dbf.shape[2] // 128)
+            case_ms = time_ms(lambda: fn(*args), device, reps=10)
+            print(f"# {what}: bitwise equal to plain and brute force; "
+                  f"{query.shape[0]} pairs x {n_q} queries x {db.shape[1]} "
+                  f"db points; chunks walked {walked} of {n_slots}; "
+                  f"{case_ms:.4f} ms")
+            timed[(kind, name)] = dict(fn=fn, plain=plain, args=args,
+                                       walked=walked, ms=case_ms)
+        return brute, want_pay
+
+    inf_b = {"static": None}
+    brute, matched = run_case("cold", src, dst, dmask, inf_b)
+    # One real outer step: the batched solve on the cold correspondences,
+    # then the warm bounds of the next iteration.
+    cfg = _config()
+    rot, t, _ = align2d_cuda.irls_loop_batched_plain(
+        src, matched, smask, cfg.huber_k, cfg.det_rel_eps,
+        cfg.inner_delta_sq_tol, cfg.inner_max_iter, cfg.point_scale)
+    xy = RigidTransform2(rot, t).apply_points(src)
+    move = torch.linalg.norm(xy - src, dim=-1)
+    qb_w = (torch.sqrt(brute.dist_sq) + move) ** 2 * (1.0 + 32.0 * eps)
+    run_case("warm", xy, dst, dmask, {"static": qb_w, "list": qb_w})
+
+    def tight(query, db, dm):
+        return nn_torch(query, db, dm, tile=db.shape[1]).dist_sq \
+            * (1.0 + 32.0 * eps)
+
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    drop = (torch.rand(dmask.shape, generator=gen) < 0.5).to(device)
+    dm2 = dmask & ~drop
+    run_case("masked-db", src, dst, dm2,
+             {"static": None, "list": tight(src, dst, dm2)})
+    # Exact ties: the first half of every db twice, queries on db points.
+    half = pad // 2
+    dup = torch.cat([dst[:, :half], dst[:, :half]], dim=1)
+    dup_m = torch.cat([dmask[:, :half], dmask[:, :half]], dim=1)
+    run_case("ties", dup, dup, dup_m,
+             {"static": None, "list": tight(dup, dup, dup_m)})
+    # The db-size limit of the pair-grid route: 4096-point dbs.
+    frames, _ = io.synthesize_frames3d(big_pairs + 1, seed=8)
+    rng = np.random.default_rng(8)
+    xy_b = [f[rng.choice(len(f), big_db, replace=False), :2] for f in frames]
+    pts_b = torch.as_tensor(np.stack(xy_b), dtype=torch.float32,
+                            device=device)
+    ones = torch.ones(pts_b.shape[:2], dtype=torch.bool, device=device)
+    q_b, qm_b, _ = m_icp._spatial_sort(pts_b[:-1, :pad], ones[:-1, :pad])
+    db_b, dm_b, _ = m_icp._spatial_sort(pts_b[1:], ones[1:])
+    run_case(f"db-{big_db}", q_b, db_b, dm_b,
+             {"static": None, "list": tight(q_b, db_b, dm_b)})
+
+    records = []
+    for kind, name, rec_name, src_file, line in (
+            ("static", "cold", "nn_pairs", "nn_pairs.cu", 1234),
+            ("list", "warm", "nn_pairs_list", "nn_pairs_list.cu", 1432)):
+        c = timed[(kind, name)]
+        args = c["args"]
+        ms = time_ms(lambda: c["fn"](*args), device, reps=50)
+        plain_ms = time_ms(lambda: c["plain"](*args), device, reps=3)
+        query_p, dbf = args[0], args[1]
+        tables = sum(x.numel() * 4 for x in args[2:-2])
+        n_bytes = (query_p.numel() * 4 + dbf.numel() * 4 + tables
+                   + query_p.shape[0] * query_p.shape[1]
+                   * (4 + 4 + 4 * (dbf.shape[1] - 2)))
+        pairs = float(c["walked"]) * 128 * q_sub
+        b, by = bound_ms(n_bytes, pairs * NN_OPS_PER_PAIR_2D)
+        records.append(dict(
+            name=rec_name, route="cuda",
+            source=f"icp_rust_tpu_torch/csrc/{src_file}",
+            replaces=f"icp_rust_tpu/ops/nn_pallas.py:{line}",
+            max_abs_err=errs[kind], ms=ms, plain_ms=plain_ms, bound_ms=b,
+            bound_by=by, library_ms=None))
+    return records
+
+
+def phase_irls_batched(device="cuda", n_scans: int = BATCH_SCANS,
+                       pad: int = BATCH_PAD):
+    """Kernel 7 vs its plain version on the pairs' first-iteration
+    correspondences, plus an all-masked and a one-point pair."""
+    cfg = _config()
+    src, smask, dst, dmask = _batch(device, n_scans, pad, sort=True)
+    _, matched = nearest_neighbor_matched(src, dst, dmask, backend="torch",
+                                          tile=pad)
+    extra = torch.zeros_like(smask[:2])
+    extra[1, 0] = True
+    s = torch.cat([src, src[:2]])
+    mt = torch.cat([matched, matched[:2]])
+    mk = torch.cat([smask, extra])
+    args = (s, mt, mk, cfg.huber_k, cfg.det_rel_eps, cfg.inner_delta_sq_tol,
+            cfg.inner_max_iter, cfg.point_scale)
+    rot, t, its = align2d_cuda.irls_loop_batched(*args)
+    rot_p, t_p, its_p = align2d_cuda.irls_loop_batched_plain(*args)
+    err = max(float(torch.max(torch.abs(rot - rot_p))),
+              float(torch.max(torch.abs(t - t_p))))
+    its_k = its.to(torch.int64).cpu()
+    its_pl = its_p.to(torch.int64).cpu()
+    print(f"# irls_loop_batched: {s.shape[0]} pairs of {s.shape[1]} points; "
+          f"iterations per pair kernel min {int(its_k.min())} median "
+          f"{float(its_k.double().median()):.1f} max {int(its_k.max())}, "
+          f"sum {int(its_k.sum())}; pairs whose count differs from the "
+          f"plain version's {int((its_k != its_pl).sum())}; degenerate "
+          f"pairs {its_k[-2:].tolist()}; max |diff| rot/t {err:.3e} "
+          f"(tol {IRLS_TOL})")
+    if not err <= IRLS_TOL:
+        raise RuntimeError(f"irls_loop_batched differs from its plain "
+                           f"version: {err}")
+    eye = torch.eye(2, device=rot.device)
+    if not (torch.equal(rot[-2:], torch.stack([eye, eye]))
+            and bool(torch.all(t[-2:] == 0))
+            and its_k[-2:].tolist() == [1, 1]):
+        raise RuntimeError("irls_loop_batched: a degenerate pair moved")
+    ms = time_ms(lambda: align2d_cuda.irls_loop_batched(*args), device,
+                 reps=20)
+    plain_ms = time_ms(lambda: align2d_cuda.irls_loop_batched_plain(*args),
+                       device, reps=2)
+    ops = float((its_k.double() * mk.sum(dim=1).double().cpu()).sum()) \
+        * IRLS_OPS_PER_POINT
+    b, by = bound_ms(5 * s.shape[0] * s.shape[1] * 4 + s.shape[0] * 8 * 4,
+                     ops)
+    return dict(name="irls_loop_batched", route="cuda",
+                source="icp_rust_tpu_torch/csrc/irls_loop_batched.cu",
+                replaces="icp_rust_tpu/ops/align2d_pallas.py:1127",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None)
+
+
+def phase_frame_pairs(device="cuda", n_scans: int = BATCH_SCANS,
+                      pad: int = BATCH_PAD):
+    """Kernel 10 vs its plain version on the unsorted pairs."""
+    cfg = _config()
+    src, smask, dst, dmask = _batch(device, n_scans, pad)
+    b = src.shape[0]
+    t0 = RigidTransform2.identity((b,), dtype=torch.float32, device=device)
+    args = (src, dst, smask, dmask, t0, cfg)
+    rot, t, its = align2d_cuda.icp2d_frame_pairs(*args)
+    rot_p, t_p, its_p = align2d_cuda.icp2d_frame_pairs_plain(*args)
+    err = max(float(torch.max(torch.abs(rot - rot_p))),
+              float(torch.max(torch.abs(t - t_p))))
+    its_k = its.to(torch.int64).cpu()
+    its_pl = its_p.to(torch.int64).cpu()
+    print(f"# icp2d_frame_pairs: {b} pairs; outer iterations per pair "
+          f"kernel min {int(its_k.min())} max {int(its_k.max())} sum "
+          f"{int(its_k.sum())}, plain sum {int(its_pl.sum())}; max |diff| "
+          f"rot/t {err:.3e} (tol {FRAME_TOL})")
+    if not err <= FRAME_TOL:
+        raise RuntimeError(f"icp2d_frame_pairs differs from its plain "
+                           f"version: {err}")
+    if not torch.equal(its_k, its_pl):
+        raise RuntimeError("icp2d_frame_pairs: outer iteration counts "
+                           "differ from the plain version's")
+    if torch.device(device).type == "cuda":
+        inner = align2d_cuda.icp2d_frame_raw(*args)[:, 7].double().cpu()
+        ms = time_ms(lambda: align2d_cuda.icp2d_frame_pairs(*args), device,
+                     reps=10)
+    else:
+        inner = torch.zeros(b, dtype=torch.float64)
+        ms = time_ms(lambda: align2d_cuda.icp2d_frame_pairs(*args), device,
+                     reps=1)
+    plain_ms = time_ms(lambda: align2d_cuda.icp2d_frame_pairs_plain(*args),
+                       device, reps=1)
+    n_src = smask.sum(dim=1).double().cpu()
+    n_dst = dmask.sum(dim=1).double().cpu()
+    ops = float((its_k.double() * n_src * (n_dst * NN_OPS_PER_PAIR_2D + 6)
+                 + inner * n_src * IRLS_OPS_PER_POINT).sum())
+    b_ms, by = bound_ms(b * (pad * 4 * 3 + pad * 4 * 2 + 14 * 4), ops)
+    return dict(name="icp2d_frame_pairs", route="cuda",
+                source="icp_rust_tpu_torch/csrc/icp2d_frame_pairs.cu",
+                replaces="icp_rust_tpu/ops/align2d_pallas.py:979",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                bound_by=by, library_ms=None)
+
+
+def _run_batched(batch, cfg, device):
+    """One timed ``batched_icp2d`` call with the launch counts zeroed just
+    before it; returns (transforms, seconds, launches)."""
+    src, smask, dst, dmask = batch
+    t0 = RigidTransform2.identity((src.shape[0],), dtype=torch.float32,
+                                  device=device)
+    _sync(device)
+    cuda_build.reset_launches()
+    start = time.perf_counter()
+    out = batched_icp2d(src, dst, smask, dmask, t0, cfg, device=device)
+    _sync(device)
+    return out, time.perf_counter() - start, dict(cuda_build.LAUNCHES)
+
+
+def _pair_diff(a: RigidTransform2, b: RigidTransform2) -> torch.Tensor:
+    """Per pair: the larger of |t_a - t_b| and |R_a - R_b| (max entry)."""
+    dt = torch.linalg.norm(a.t - b.t, dim=-1)
+    dr = torch.amax(torch.abs(a.rot - b.rot), dim=(-2, -1))
+    return torch.maximum(dt, dr)
+
+
+def phase_batched(device="cuda", n_scans: int = BATCH_SCANS,
+                  pad: int = BATCH_PAD):
+    """The batched path: all consecutive pairs in one batched_icp2d call,
+    once to warm up and once timed; then the plain path and the
+    pair-frame route."""
+    pts, mask, gt_th, gt_t = scans2d(n_scans, pad)
+    batch = _batch(device, n_scans, pad)
+    n_pairs = n_scans - 1
+    cfg = _config()
+    _, first_sec, _ = _run_batched(batch, cfg, device)
+    out, sec, launches = _run_batched(batch, cfg, device)
+    pps = n_pairs / sec
+    ang = torch.atan2(out.rot[:, 1, 0], out.rot[:, 0, 0]).double().cpu()
+    e_rot = np.abs(ang.numpy() - gt_th)
+    e_t = np.linalg.norm(out.t.double().cpu().numpy() - gt_t, axis=-1)
+    k = launches["irls_loop_batched"]
+    print(f"# batched path: {n_pairs} pairs of {pad} points "
+          f"({int(mask.sum(1).min())}-{int(mask.sum(1).max())} valid), "
+          f"{sec:.4f} s, {pps:.2f} pairs/s (host clock; first run "
+          f"{first_sec:.4f} s); error vs ground truth per pair: t max "
+          f"{e_t.max():.6f} m median {np.median(e_t):.6f} m, rot max "
+          f"{e_rot.max():.3e} rad median {np.median(e_rot):.3e} rad; "
+          f"outer iterations {k}; launches {launches}")
+    on_card = torch.device(device).type == "cuda"
+    want = {name: 0 for name in launches}
+    want.update(nn_pairs=1, nn_pairs_list=k - 1, irls_loop_batched=k)
+    if on_card and (k < 1 or launches != want):
+        raise RuntimeError(f"batched path launches {launches}, expected "
+                           f"{want}")
+    if not e_t.max() < ATE_GATE_M:
+        raise RuntimeError(f"batched path translation error {e_t.max()} "
+                           f">= {ATE_GATE_M}")
+    plain_cfg = cfg.with_(nn_backend="torch", align_backend="torch")
+    p_out, p_sec, p_launch = _run_batched(batch, plain_cfg, device)
+    d_plain = float(torch.max(_pair_diff(out, p_out)))
+    print(f"# batched plain path: {p_sec:.3f} s; max per-pair difference "
+          f"from the kernel path {d_plain:.3e} (gate {PLAIN_GATE_M})")
+    if any(p_launch.values()):
+        raise RuntimeError(f"batched plain path launched kernels: {p_launch}")
+    if not d_plain < PLAIN_GATE_M:
+        raise RuntimeError(f"batched kernel vs plain path {d_plain}")
+    pairs_cfg = cfg.with_(frame_backend="pairs")
+    _run_batched(batch, pairs_cfg, device)
+    f_out, f_sec, f_launch = _run_batched(batch, pairs_cfg, device)
+    d_frame = float(torch.max(_pair_diff(out, f_out)))
+    print(f"# batched pair-frame route: {f_sec:.4f} s, "
+          f"{n_pairs / f_sec:.2f} pairs/s; max per-pair difference from "
+          f"the lockstep path {d_frame:.3e} (gate {PLAIN_GATE_M}); "
+          f"launches {f_launch}")
+    want_f = {name: 0 for name in f_launch}
+    want_f["icp2d_frame_pairs"] = 1
+    if on_card and f_launch != want_f:
+        raise RuntimeError(f"pair-frame route launches {f_launch}")
+    if not d_frame < PLAIN_GATE_M:
+        raise RuntimeError(f"pair-frame vs lockstep path {d_frame}")
+    return dict(launches=launches, frame_launches=f_launch, pairs_per_s=pps,
+                seconds=sec, max_t_err=float(e_t.max()))
+
+
+def profile_batched(device="cuda", n_scans: int = BATCH_SCANS,
+                    pad: int = BATCH_PAD):
+    """torch.profiler over one batched_icp2d call (after a warm-up run):
+    device time by kernel and the device's idle share against an
+    unprofiled run's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = _batch(device, n_scans, pad)
+    cfg = _config()
+    _run_batched(batch, cfg, device)
+    _, wall, _ = _run_batched(batch, cfg, device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _run_batched(batch, cfg, device)
+    avgs = prof.key_averages()
+    kern = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    print(f"# profile batched: {n_scans - 1} pairs, unprofiled wall "
+          f"{wall * 1e3:.3f} ms; device busy {busy_ms:.3f} ms, idle share "
+          f"{1.0 - busy_ms / (wall * 1e3):.4f}")
+    for e in kern[:12]:
+        print(f"# profile batched kernel {e.self_device_time_total / 1e3:9.3f}"
+              f" ms {e.count:6d} calls  {e.key[:90]}")
+    print(avgs.table(sort_by="self_device_time_total", row_limit=20))
+
+
 def _ptxas_lines(report: dict):
     for name, log in sorted(report.items()):
         for line in log.splitlines():
@@ -464,11 +866,20 @@ def main() -> int:
     records = [phase_nn_list(device), phase_irls(device), phase_frame(device)]
     main_run = phase_main(device)
     run_2d = phase_2d(device)
+    records += phase_nn_pairs(device)
+    records += [phase_irls_batched(device), phase_frame_pairs(device)]
+    batched = phase_batched(device)
     if profile_run:
         profile_main(device)
+        profile_batched(device)
     launches = {"nn_list": main_run["launches"]["nn_list"],
                 "irls_loop": main_run["launches"]["irls_loop"],
-                "icp2d_frame": run_2d["launches"]["icp2d_frame"]}
+                "icp2d_frame": run_2d["launches"]["icp2d_frame"],
+                "nn_pairs": batched["launches"]["nn_pairs"],
+                "nn_pairs_list": batched["launches"]["nn_pairs_list"],
+                "irls_loop_batched": batched["launches"]["irls_loop_batched"],
+                "icp2d_frame_pairs":
+                    batched["frame_launches"]["icp2d_frame_pairs"]}
     for rec in records:
         rec["launches"] = launches[rec["name"]]
         if rec["launches"] <= 0:

@@ -21,9 +21,12 @@ Engine fields (no reference counterpart):
   ``"torch"`` is the plain tensor path on any device; ``"cuda"`` the
   hand-written kernels (their plain versions on a CPU tensor); ``"auto"``
   takes the kernels for float32 and the plain path for float64.
-- ``frame_backend``: ``"auto"`` runs a whole ``icp2d`` call as one kernel
-  launch for scans of at most ``frame_kernel_max`` points; ``"off"``
-  disables it.
+- ``frame_backend``: ``"auto"`` runs a whole unbatched ``icp2d`` call as
+  one kernel launch for scans of at most ``frame_kernel_max`` points;
+  ``"pairs"`` forces the whole-frame kernels, the single-frame one for an
+  unbatched call and the pair-frame one (one block per pair, each pair to
+  its own fixed point) for a batch; ``"off"`` disables both.  ``"auto"``
+  never takes the pair-frame kernel, as on the TPU.
 """
 
 from __future__ import annotations
@@ -34,7 +37,7 @@ from typing import Any
 import torch
 
 BACKENDS = ("auto", "torch", "cuda")
-FRAME_BACKENDS = ("auto", "off")
+FRAME_BACKENDS = ("auto", "off", "pairs")
 
 
 @dataclasses.dataclass(frozen=True)

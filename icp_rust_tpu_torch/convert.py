@@ -3,9 +3,10 @@
 The system has no weights; its state is a configuration and a transform.
 ``config_from_fields`` builds an ``ICPConfig`` from the fields of the JAX
 package's config (``dataclasses.asdict``), with the backend names mapped
-("xla" -> "torch", "pallas" -> "cuda") and the compute dtype taken by
-name; ``transform_from_numpy`` builds a ``RigidTransform2``.  Neither
-imports the JAX package: they take plain values.
+("xla" -> "torch", "pallas" and "pairs" -> "cuda") and the compute
+dtype taken by name; ``transform_from_numpy`` builds a
+``RigidTransform2``.  Neither imports the JAX package: they take plain
+values.
 """
 
 from __future__ import annotations
@@ -18,11 +19,14 @@ import torch
 from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 
+# "pairs" forced the pair-grid NN kernels for a batched query; here the
+# kernel route ("cuda") takes them for every batched query they serve.
 _BACKEND = {"auto": "auto", "xla": "torch", "pallas": "cuda",
-            "torch": "torch", "cuda": "cuda"}
-# "interpret" ran the whole-frame kernel in interpret mode on the CPU;
-# here "auto" runs the kernel's plain version on a CPU tensor.
-_FRAME_BACKEND = {"auto": "auto", "off": "off", "interpret": "auto"}
+            "pairs": "cuda", "torch": "torch", "cuda": "cuda"}
+# "interpret" forced the whole-frame kernels (in interpret mode) for single
+# and batched calls alike, which is what "pairs" does here.
+_FRAME_BACKEND = {"auto": "auto", "off": "off", "interpret": "pairs",
+                  "pairs": "pairs"}
 
 
 def _dtype_by_name(value) -> torch.dtype:
@@ -43,15 +47,11 @@ def config_from_fields(fields: dict) -> ICPConfig:
             raise ValueError(f"unknown config field {key!r}")
         if key in ("nn_backend", "align_backend"):
             if value not in _BACKEND:
-                raise NotImplementedError(
-                    f"{key}={value!r} is not ported (the pair-grid kernels "
-                    "are still to port)")
+                raise ValueError(f"unknown {key} {value!r}")
             value = _BACKEND[value]
         elif key == "frame_backend":
             if value not in _FRAME_BACKEND:
-                raise NotImplementedError(
-                    f"frame_backend={value!r} is not ported (the pair-grid "
-                    "frame kernel is still to port)")
+                raise ValueError(f"unknown frame_backend {value!r}")
             value = _FRAME_BACKEND[value]
         elif key == "compute_dtype":
             value = _dtype_by_name(value)

@@ -1,9 +1,12 @@
 // The fixed-correspondence robust SE(2) IRLS loop as one thread block.
 //
 // Shared by irls_loop.cu (one launch per estimate_transform call, arrays
-// in global memory, resident in L2) and icp2d_frame.cu (the whole 2D ICP
-// call, arrays in shared memory), so both run one op sequence, as the TPU
-// kernels shared align2d_pallas._irls_loop.
+// in global memory, resident in L2), irls_loop_batched.cu (one block per
+// pair of a batch) and the frame kernels of frame.cuh (the whole 2D ICP
+// call, arrays in shared memory), so all run one op sequence, as the TPU
+// kernels shared align2d_pallas._irls_loop.  The routine takes any block
+// of 64 to 1024 threads, a multiple of 32 (two warps pick the two
+// medians' digits).
 //
 // Per iteration, with the whole block:
 //   1. residuals r = R s + t - d into the rx/ry scratch (one pass);
@@ -57,6 +60,13 @@ struct IrlsShared {
   int it;
   int done;
 };
+
+// Threads for a block that serves one pair of n points: about three
+// points a thread, a multiple of 32 in [64, 1024] (256 at n = 768).
+__host__ __device__ inline int block_threads(int n) {
+  int t = ((n + 2) / 3 + 31) / 32 * 32;
+  return t < 64 ? 64 : (t > 1024 ? 1024 : t);
+}
 
 // Monotone float -> u32 key: flip all bits of negatives, the sign bit of
 // non-negatives.

@@ -16,9 +16,17 @@ the exit is bit-exact with running all ``outer_iters``.
 Coordinates are divided by config.point_scale on entry and the result's
 translation is rescaled on exit (exact with huber_k co-scaled).
 
+Both drivers take one scan pair or a batch of B pairs: src (B, N, D)
+against dst (B, M, D), or against one shared dst (M, D), with (B,)-batched
+warm starts.  A batch runs in lockstep: each outer iteration searches and
+solves every pair at once (the pair-grid NN kernels and the batched IRLS
+kernel), a lane at its fixed point stays bitwise unchanged, and the loop
+exits when all lanes are fixed.  With ``frame_backend="pairs"`` a batched
+``icp2d`` runs instead as one pair-frame kernel launch, each pair to its
+own fixed point.
+
 Entry points run on ``device`` ("cuda" by default); with no card they
-raise unless the caller passes ``device="cpu"``.  Batched inputs are not
-supported.
+raise unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -36,7 +44,11 @@ from icp_rust_tpu_torch.ops.nn import (
     nearest_neighbor_matched,
     spatial_order,
     use_cuda_nn,
+    use_pairs_nn,
 )
+
+# Chunk of the pair-grid NN kernels: a batched db sorts from 3 chunks up.
+_PAIRS_CHUNK = 128
 
 
 def _scaled(x: Tensor, config: ICPConfig) -> Tensor:
@@ -56,13 +68,17 @@ def _unscale_transform(t: RigidTransform2, s: float) -> RigidTransform2:
 
 def _sort_enabled(src, dst, config: ICPConfig):
     """Spatial pre-sort policy (config.nn_sort): the sort method or None.
-    "auto" sorts (Morton) only when the survivor-list kernel serves the
-    search and the db spans at least 3 tiles; sorting permutes reduction
-    order only, and the f64 parity path stays unsorted."""
+    "auto" sorts (Morton) when the pair-grid kernels serve a batched
+    search and each db spans at least 3 of their 128-point chunks, or when
+    the survivor-list kernel serves the search and the db spans at least 3
+    tiles; sorting permutes reduction order only, and the f64 parity path
+    stays unsorted."""
     if config.nn_sort in ("azimuth", "morton"):
         return config.nn_sort
     if config.nn_sort != "auto":
         return None
+    if use_pairs_nn(src, dst, config.nn_backend):
+        return "morton" if dst.shape[-2] >= 3 * _PAIRS_CHUNK else None
     ok = (dst.shape[-2] >= 3 * config.nn_dst_tile
           and use_cuda_nn(src, dst, config.nn_backend))
     return "morton" if ok else None
@@ -74,10 +90,18 @@ def _spatial_sort(points, mask, extras=(), method: str = "morton"):
     points above every valid one, so the stable argsort puts exactly the
     valid points first (bit-identical to gathering the mask)."""
     order = spatial_order(points, mask, method).to(torch.int64)
-    pts = points[order]
+    pts = torch.take_along_dim(points, order[..., None], dim=-2)
     n_valid = torch.sum(mask, dim=-1, keepdim=True)
     msk = torch.arange(mask.shape[-1], device=mask.device) < n_valid
-    return pts, msk, [e[order] for e in extras]
+    return pts, msk, [_take_points(e, order, pts.ndim) for e in extras]
+
+
+def _take_points(x, order, ndim: int):
+    """Permute the point axis of a per-point array, (..., N, K) when it has
+    the points' rank, else (..., N), lane by lane."""
+    if x.ndim == ndim:
+        return torch.take_along_dim(x, order[..., None], dim=-2)
+    return torch.take_along_dim(x, order, dim=-1)
 
 
 def presort_src(src, src_mask, dst, config: ICPConfig):
@@ -90,51 +114,83 @@ def presort_src(src, src_mask, dst, config: ICPConfig):
         return src, src_mask, False
     view = _scaled(src.to(config.compute_dtype), config)
     order = spatial_order(view, src_mask, sort).to(torch.int64)
-    return src[order], src_mask[order], True
+    return (_take_points(src, order, src.ndim),
+            torch.take_along_dim(src_mask, order, dim=-1), True)
+
+
+def _broadcast_db(src, dst, dst_mask):
+    """Broadcast a shared db (M, D) to a batched src's pair axis: every
+    path below (sort, NN, frame kernels) takes src and dst with the same
+    batch rank."""
+    if dst.ndim >= src.ndim:
+        return dst, dst_mask
+    batch = src.shape[:src.ndim - dst.ndim]
+    return (dst.expand(*batch, *dst.shape),
+            dst_mask.expand(*batch, *dst_mask.shape))
 
 
 def _use_frame_kernel(src, dst, config: ICPConfig, return_stats: bool):
-    """Gate for the whole-frame kernel (config.frame_backend): small
-    float32 2D scans whose solver resolves to the kernel."""
+    """Gate for the whole-frame kernels (config.frame_backend): small
+    float32 2D scans whose solver resolves to the kernels.  Returns None,
+    "single" (one pair, one icp2d_frame launch) or "pairs" (a batch, one
+    icp2d_frame_pairs launch); "auto" takes "single" only."""
     if config.frame_backend == "off" or return_stats:
-        return False
-    return (src.ndim == 2 and src.shape[-1] == 2 and dst.ndim == 2
-            and src.dtype == torch.float32
+        return None
+    if not (src.ndim in (2, 3) and src.shape[-1] == 2
+            and src.dtype == torch.float32 and dst.ndim == src.ndim
+            and (src.ndim == 2 or dst.shape[0] == src.shape[0])
             and src.shape[-2] <= config.frame_kernel_max
             and dst.shape[-2] <= config.frame_kernel_max
-            and align2d.use_cuda_align(src, config.align_backend))
+            and align2d.use_cuda_align(src, config.align_backend)):
+        return None
+    kind = "single" if src.ndim == 2 else "pairs"
+    if kind == "single" or config.frame_backend == "pairs":
+        return kind
+    return None
 
 
 def _is_identity(dt: RigidTransform2) -> Tensor:
-    """Is dt EXACTLY the identity (bitwise)?"""
+    """Per batch lane: is dt EXACTLY the identity (bitwise)?"""
     eye = torch.eye(dt.rot.shape[-1], dtype=dt.rot.dtype,
                     device=dt.rot.device)
-    return torch.all(dt.rot == eye) & torch.all(dt.t == 0.0)
+    return (torch.all(dt.rot == eye, dim=-1).all(dim=-1)
+            & torch.all(dt.t == 0.0, dim=-1))
 
 
 def _outer_fixed_point(step, t0, max_iters: int, aux0, first_step=None):
     """Run the outer ICP loop with the EXACT fixed-point early exit.
 
-    ``step(t, aux) -> (t_next, fixed, aux_next)``; the aux carries the NN
-    prune bound (last iteration's distances), which only affects pruning.
-    ``first_step`` peels iteration 1 (the cold NN branch) out of the loop.
-    Returns (t, iterations, aux)."""
+    ``step(t, aux) -> (t_next, fixed, aux_next)``, ``fixed`` per lane; the
+    aux carries the NN prune bound (last iteration's distances), which
+    only affects pruning.  A lane that is fixed stays fixed: its next
+    iteration repeats the last one exactly.  The loop exits when all lanes
+    are, with one host read per iteration.  ``first_step`` peels iteration
+    1 (the cold NN branch) out of the loop.  Returns (t, iterations, aux,
+    lane iterations): per lane, the iterations up to and including its
+    first fixed one."""
     t, it, aux = t0, 0, aux0
+    lane_it = torch.zeros(t0.t.shape[:-1], dtype=torch.int32,
+                          device=t0.t.device)
+    fixed_t = torch.zeros_like(lane_it, dtype=torch.bool)
     fixed = False
     if first_step is not None and max_iters >= 1:
+        lane_it = lane_it + 1
         t, fixed_t, aux = first_step(t0, aux0)
-        fixed, it = bool(fixed_t), 1
+        fixed, it = bool(torch.all(fixed_t)), 1
     while it < max_iters and not fixed:
+        lane_it = lane_it + (~fixed_t).to(torch.int32)
         t, fixed_t, aux = step(t, aux)
-        fixed = bool(fixed_t)
+        fixed = bool(torch.all(fixed_t))
         it += 1
-    return t, it, aux
+    return t, it, aux, lane_it
 
 
 class ICPStats(NamedTuple):
     """Per-call observability from the last outer iteration's
     correspondences (exact at the returned transform on a fixed-point
-    exit).  ``mean_nn_dist`` is in physical units; ``huber_error`` in
+    exit), one value per batch lane.  ``outer_iters`` is the loop's count,
+    shared by every lane: the lockstep loop exits when all lanes are
+    fixed.  ``mean_nn_dist`` is in physical units; ``huber_error`` in
     solver units."""
 
     outer_iters: Tensor
@@ -155,7 +211,8 @@ def _stats_2d(src_t, matched, mask, config, dist_sq, it):
     mean_nn = torch.sum(torch.sqrt(torch.clamp(dist_sq, min=0.0)) * maskf,
                         dim=-1) / nf * s
     return ICPStats(
-        outer_iters=torch.tensor(it, dtype=torch.int32, device=err.device),
+        outer_iters=torch.full(err.shape, it, dtype=torch.int32,
+                               device=err.device),
         huber_error=err,
         mean_nn_dist=mean_nn,
         inlier_fraction=torch.sum(inl * maskf, dim=-1) / nf,
@@ -164,19 +221,25 @@ def _stats_2d(src_t, matched, mask, config, dist_sq, it):
 
 def _prepare(src, dst, src_mask, dst_mask, initial_transform,
              config: ICPConfig, device):
-    """Move the inputs to the device and into solver units."""
+    """Move the inputs to the device and into solver units; broadcast a
+    shared db and an unbatched warm start to a batch's pair axis."""
     dt = config.compute_dtype
     dev = resolve_device(device, dt)
     src = torch.as_tensor(src).to(device=dev, dtype=dt)
     dst = torch.as_tensor(dst).to(device=dev, dtype=dt)
-    if src.ndim != 2 or dst.ndim != 2:
-        raise NotImplementedError(
-            "batched ICP (the pair-grid and batched IRLS kernels) is not "
-            "ported yet; pass one (N, D) scan pair")
+    if src.ndim not in (2, 3) or dst.ndim not in (2, src.ndim):
+        raise ValueError(
+            "src must be (N, D) or (B, N, D), dst (M, D) or (B, M, D) "
+            f"with src's rank; got {tuple(src.shape)}, {tuple(dst.shape)}")
     src_mask = torch.as_tensor(src_mask).to(device=dev, dtype=torch.bool)
     dst_mask = torch.as_tensor(dst_mask).to(device=dev, dtype=torch.bool)
+    dst, dst_mask = _broadcast_db(src, dst, dst_mask)
     t0 = _scale_transform(
         initial_transform.astype(dt).to(dev), config.point_scale)
+    batch = src.shape[:-2]
+    if t0.t.shape[:-1] != batch:
+        t0 = RigidTransform2(t0.rot.expand(*batch, 2, 2),
+                             t0.t.expand(*batch, 2))
     return (_scaled(src, config), _scaled(dst, config), src_mask, dst_mask,
             t0)
 
@@ -185,16 +248,16 @@ def _icp_loop(src, dst, src_mask, dst_mask, t0, config: ICPConfig,
               src_presorted: bool, planar: bool):
     """The unfused outer loop in solver units, shared by both drivers.
     ``planar``: 3D matching with the SE(2) solve on xy (z untouched).
-    Returns (t, iterations, (dist_sq, src_t_xy, matched_xy, src_mask)):
-    the last iteration's correspondences and the mask in the loop's point
-    order, which the spatial sort may have permuted."""
+    Returns (t, iterations, (dist_sq, src_t_xy, matched_xy, src_mask),
+    lane iterations): the last iteration's correspondences and the mask in
+    the loop's point order, which the spatial sort may have permuted."""
     sort = _sort_enabled(src, dst, config)
     if sort:
         if not src_presorted:
             src, src_mask, _ = _spatial_sort(src, src_mask, method=sort)
         dst, dst_mask, _ = _spatial_sort(dst, dst_mask, method=sort)
     # The SE(2) solve consumes only the matched point's xy.
-    payload = dst[:, :2] if planar else None
+    payload = dst[..., :2] if planar else None
     db_pack = build_db_pack(src, dst, dst_mask, payload=payload,
                             backend=config.nn_backend,
                             tile=config.nn_dst_tile)
@@ -203,8 +266,8 @@ def _icp_loop(src, dst, src_mask, dst_mask, t0, config: ICPConfig,
     def make_outer(warm):
         def outer(t, aux):
             prev_d2, prev_xy = aux[0], aux[1]
-            xy = t.apply_points(src[:, :2])
-            src_t = torch.cat([xy, src[:, 2:]], dim=-1) if planar else xy
+            xy = t.apply_points(src[..., :2])
+            src_t = torch.cat([xy, src[..., 2:]], dim=-1) if planar else xy
             # Valid NN upper bound: the db is fixed, so dist_new(q) <=
             # dist_prev(q) + |dq|; 32 eps keeps it an upper bound after
             # the sqrt/square round trip.
@@ -215,7 +278,7 @@ def _icp_loop(src, dst, src_mask, dst_mask, t0, config: ICPConfig,
                 backend=config.nn_backend, tile=config.nn_dst_tile,
                 q_tile=config.nn_query_tile, q_bound=qb, db_pack=db_pack,
                 warm=warm)
-            matched_xy = matched[:, :2]
+            matched_xy = matched[..., :2]
             dt = align2d.estimate_transform(xy, matched_xy, src_mask,
                                             config)
             return (dt.compose(t), _is_identity(dt),
@@ -224,11 +287,11 @@ def _icp_loop(src, dst, src_mask, dst_mask, t0, config: ICPConfig,
 
     aux0 = (torch.full(src.shape[:-1], float("inf"), dtype=src.dtype,
                        device=src.device),
-            src[:, :2], torch.zeros_like(src[:, :2]))
-    t, it, aux = _outer_fixed_point(make_outer(True), t0,
-                                    config.outer_iters, aux0,
-                                    first_step=make_outer(False))
-    return t, it, aux + (src_mask,)
+            src[..., :2], torch.zeros_like(src[..., :2]))
+    t, it, aux, lane_it = _outer_fixed_point(make_outer(True), t0,
+                                             config.outer_iters, aux0,
+                                             first_step=make_outer(False))
+    return t, it, aux + (src_mask,), lane_it
 
 
 def _finish(t, it, aux, config: ICPConfig, return_stats: bool):
@@ -242,32 +305,35 @@ def _finish(t, it, aux, config: ICPConfig, return_stats: bool):
 
 
 def _icp2d_solver(src, dst, src_mask, dst_mask, t0, config: ICPConfig):
-    """The unfused 2D loop in solver units -> (t, iterations); the plain
-    version of the whole-frame kernel."""
-    t, it, _ = _icp_loop(src, dst, src_mask, dst_mask, t0, config,
-                         src_presorted=False, planar=False)
-    return t, it
+    """The unfused 2D loop in solver units -> (t, iterations, lane
+    iterations); the plain version of the whole-frame kernels."""
+    t, it, _, lane_it = _icp_loop(src, dst, src_mask, dst_mask, t0, config,
+                                  src_presorted=False, planar=False)
+    return t, it, lane_it
 
 
 def icp2d(src, dst, src_mask, dst_mask,
           initial_transform: RigidTransform2,
           config: ICPConfig = ICPConfig(), return_stats: bool = False,
           src_presorted: bool = False, device="cuda"):
-    """2D scan-to-scan ICP. src/dst: (N|M, 2); masks over the point axes.
+    """2D scan-to-scan ICP. src/dst: (N|M, 2), or (B, N|M, 2) for B pairs
+    (a shared dst may stay (M, 2)); masks over the point axes.
 
     Parity: reference Icp2d::estimate (src/lib.rs:105-130).  With
     ``return_stats`` returns (transform, ICPStats).  Scans of at most
     frame_kernel_max points run as one ``icp2d_frame`` launch when the
-    solver resolves to the kernels."""
+    solver resolves to the kernels, and a batch as one
+    ``icp2d_frame_pairs`` launch with ``frame_backend="pairs"``."""
     src, dst, src_mask, dst_mask, t0 = _prepare(
         src, dst, src_mask, dst_mask, initial_transform, config, device)
-    if _use_frame_kernel(src, dst, config, return_stats):
+    kind = _use_frame_kernel(src, dst, config, return_stats)
+    if kind:
         rot, t, _ = align2d_cuda.icp2d_frame(src, dst, src_mask, dst_mask,
                                              t0, config)
         return _unscale_transform(RigidTransform2(rot, t),
                                   config.point_scale)
     return _finish(*_icp_loop(src, dst, src_mask, dst_mask, t0, config,
-                              src_presorted, planar=False),
+                              src_presorted, planar=False)[:3],
                    config, return_stats)
 
 
@@ -277,11 +343,11 @@ def icp3d_planar(src, dst, src_mask, dst_mask,
                  src_presorted: bool = False, device="cuda"):
     """3D matching, SE(2)-on-xy optimization (vehicle on the xy-plane).
 
-    src/dst: (N|M, 3).  Parity: reference Icp3d::estimate
+    src/dst: (N|M, 3), or (B, N|M, 3).  Parity: reference Icp3d::estimate
     (src/lib.rs:148-173).  ``src_presorted``: src already permuted by
     :func:`presort_src` (bitwise-identical hoist)."""
     src, dst, src_mask, dst_mask, t0 = _prepare(
         src, dst, src_mask, dst_mask, initial_transform, config, device)
     return _finish(*_icp_loop(src, dst, src_mask, dst_mask, t0, config,
-                              src_presorted, planar=True),
+                              src_presorted, planar=True)[:3],
                    config, return_stats)

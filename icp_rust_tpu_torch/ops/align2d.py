@@ -14,9 +14,10 @@ Counterpart of the solver core of reference src/lib.rs:
   stopping iteration discards its delta.
 
 ``estimate_transform`` dispatches to the one-launch ``irls_loop`` kernel
-(ops/align2d_cuda.py) when config.align_backend resolves to "cuda" (for
-"auto": float32), else runs the plain loop ``irls_loop_torch`` here, which
-is also the kernel's plain version.
+(ops/align2d_cuda.py), or for a batch of pairs (B, N, 2) to the one-launch
+``irls_loop_batched`` kernel, when config.align_backend resolves to
+"cuda" (for "auto": float32); else it runs the plain loop
+``irls_loop_torch`` here, which is also both kernels' plain version.
 """
 
 from __future__ import annotations
@@ -94,16 +95,19 @@ def irls_loop_torch(src: Tensor, dst: Tensor, mask: Tensor, huber_k: float,
                     point_scale: float):
     """The inner loop with FIXED correspondences, from identity, in plain
     torch.  src/dst (..., N, 2) in solver units, mask (..., N), huber_k in
-    solver units.  Returns (rot, t, iterations); batch lanes freeze when
-    done and the loop exits when all are."""
+    solver units.  Batch lanes freeze when done and the loop exits when
+    all are.  Returns (rot, t, iterations): per lane, int32, the
+    iterations it ran, its stopping one included."""
     dtype = src.dtype
     batch = src.shape[:-2]
     t = RigidTransform2.identity(batch, dtype, src.device)
     prev_err = torch.full(batch, torch.finfo(dtype).max, dtype=dtype,
                           device=src.device)
     done = torch.zeros(batch, dtype=torch.bool, device=src.device)
+    lane_it = torch.zeros(batch, dtype=torch.int32, device=src.device)
     it = 0
     while it < max_iter and not bool(torch.all(done)):
+        lane_it = lane_it + (~done).to(torch.int32)
         upd = weighted_gauss_newton_update(t, src, dst, mask, huber_k,
                                            det_rel_eps)
         stop = ~upd.ok
@@ -118,7 +122,7 @@ def irls_loop_torch(src: Tensor, dst: Tensor, mask: Tensor, huber_k: float,
         prev_err = torch.where(keep, prev_err, upd.err)
         done = keep
         it += 1
-    return t.rot, t.t, it
+    return t.rot, t.t, lane_it
 
 
 def use_cuda_align(src: Tensor, backend: str) -> bool:
@@ -132,20 +136,23 @@ def use_cuda_align(src: Tensor, backend: str) -> bool:
 def estimate_transform(src: Tensor, dst: Tensor, mask: Tensor,
                        config: ICPConfig) -> RigidTransform2:
     """Inner alignment loop with FIXED correspondences. Ref
-    src/lib.rs:59-84.  src/dst (N, 2) in solver units; starts from
-    identity and left-composes Exp(delta)."""
+    src/lib.rs:59-84.  src/dst (N, 2), or (B, N, 2) for B pairs, in solver
+    units; starts from identity and left-composes Exp(delta)."""
     huber_k = config.huber_k / config.point_scale
     args = (huber_k, config.det_rel_eps, config.inner_delta_sq_tol,
             config.inner_max_iter, config.point_scale)
     if use_cuda_align(src, config.align_backend):
-        if src.ndim != 2:
-            raise NotImplementedError(
-                "a batched inner loop needs align2d_pallas."
-                "_inner_loop_batched_kernel, not yet ported; pass "
-                "align_backend='torch'")
         from icp_rust_tpu_torch.ops import align2d_cuda
 
-        rot, t, _ = align2d_cuda.irls_loop(src, dst, mask, *args)
+        if src.ndim == 2:
+            rot, t, _ = align2d_cuda.irls_loop(src, dst, mask, *args)
+        elif src.ndim == 3:
+            rot, t, _ = align2d_cuda.irls_loop_batched(src, dst, mask, *args)
+        else:
+            raise NotImplementedError(
+                "a kernel-route inner loop over more than one batch axis is "
+                "not ported (align2d_pallas._inner_loop_batched_kernel takes "
+                "one pair axis); pass align_backend='torch'")
     else:
         rot, t, _ = irls_loop_torch(src, dst, mask, *args)
     return RigidTransform2(rot, t)

@@ -36,8 +36,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
-SOURCES = ("nn_list", "irls_loop", "icp2d_frame")
-HEADERS = ("irls.cuh",)
+SOURCES = ("nn_list", "irls_loop", "icp2d_frame", "nn_pairs",
+           "nn_pairs_list", "irls_loop_batched", "icp2d_frame_pairs")
+HEADERS = ("irls.cuh", "frame.cuh", "nn_pairs.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--fmad=false")
 
@@ -55,6 +56,20 @@ _SIGNATURES = {
     "icp2d_frame": ("icp2d_frame_launch",
                     [_P] * 3 + [_I] * 2 + [_P] * 2 + [_F] * 5 + [_I]
                     + [_F] * 2 + [_I, _P]),
+    # query, dbf_cm, qbox, cbox, qbound, dist, idx, pay; b, qp, q_sub,
+    # d_dim, f_dim, m_pad; stream
+    "nn_pairs": ("nn_pairs_launch", [_P] * 8 + [_I] * 6 + [_P]),
+    # query, dbf_cm, lists, cnt, dist, idx, pay; b, qp, q_sub, d_dim,
+    # f_dim, m_pad, cap; stream
+    "nn_pairs_list": ("nn_pairs_list_launch", [_P] * 7 + [_I] * 7 + [_P]),
+    # sx, sy, dx, dy, mask; b, n; scratch, out; solver params; stream
+    "irls_loop_batched": ("irls_loop_batched_launch",
+                          [_P] * 5 + [_I] * 2 + [_P] * 2 + [_F] * 5 + [_I]
+                          + [_F] * 2 + [_P]),
+    # src, smask, dst; b, n, m; t0, out; solver params; outer_iters, stream
+    "icp2d_frame_pairs": ("icp2d_frame_pairs_launch",
+                          [_P] * 3 + [_I] * 3 + [_P] * 2 + [_F] * 5 + [_I]
+                          + [_F] * 2 + [_I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}

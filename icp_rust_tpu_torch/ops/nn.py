@@ -9,7 +9,10 @@ Backends (config.nn_backend):
 - ``"torch"``: ``nn_torch``, a tiled sweep over the db with a running
   (best distance, best index) carry, on any device;
 - ``"cuda"``: the survivor-list kernel of ``ops/nn_cuda.py`` over a
-  Morton-sorted, packed db (its plain version on a CPU tensor);
+  Morton-sorted, packed db for one query cloud, and for a batch of
+  queries (B, Q, D) against dbs of at most 4096 points the pair-grid
+  kernels of ``ops/nn_pairs_cuda.py`` (``use_pairs_nn``); their plain
+  versions on a CPU tensor;
 - ``"auto"``: ``"cuda"`` for float32, ``"torch"`` for float64 (the f64
   reference path is the plain one, as on the TPU).
 """
@@ -21,38 +24,43 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
-from icp_rust_tpu_torch.ops import nn_cuda
+from icp_rust_tpu_torch.ops import nn_cuda, nn_pairs_cuda
 
 
 class NNResult(NamedTuple):
-    index: Tensor    # (Q,) int32: argmin into the database axis
-    dist_sq: Tensor  # (Q,) squared distance (+inf where db fully masked)
+    index: Tensor    # (..., Q) int32: argmin into the database axis
+    dist_sq: Tensor  # (..., Q) squared distance (+inf where db fully masked)
 
 
 def nn_torch(query: Tensor, db: Tensor, db_mask: Tensor | None = None,
              tile: int = 2048) -> NNResult:
     """Tiled brute-force exact 1-NN (the ``nn_xla`` counterpart).
 
-    query: (Q, D); db: (M, D); db_mask: (M,) or None.  Within a tile the
-    first minimum wins; across tiles the carry update is a strict '<', so
-    the lowest index wins ties overall."""
-    q_n, d = query.shape
-    m = db.shape[0]
+    query: (..., Q, D); db: (..., M, D), or a shared (M, D); db_mask:
+    (..., M) or None.  Within a tile the first minimum wins; across tiles
+    the carry update is a strict '<', so the lowest index wins ties
+    overall."""
+    q_n, d = query.shape[-2:]
+    m = db.shape[-2]
     if db_mask is None:
-        db_mask = torch.ones(m, dtype=torch.bool, device=db.device)
+        db_mask = torch.ones(db.shape[:-1], dtype=torch.bool,
+                             device=db.device)
+    batch = torch.broadcast_shapes(query.shape[:-2], db.shape[:-2],
+                                   db_mask.shape[:-1])
     tile = min(tile, max(m, 1))
-    best_d = torch.full((q_n,), float("inf"), dtype=query.dtype,
+    best_d = torch.full((*batch, q_n), float("inf"), dtype=query.dtype,
                         device=query.device)
-    best_i = torch.zeros((q_n,), dtype=torch.int32, device=query.device)
+    best_i = torch.zeros((*batch, q_n), dtype=torch.int32,
+                         device=query.device)
     inf = torch.tensor(float("inf"), dtype=query.dtype, device=query.device)
     for start in range(0, m, tile):
-        tdb = db[start:start + tile]
-        dist = torch.zeros((q_n, tdb.shape[0]), dtype=query.dtype,
+        tdb = db[..., start:start + tile, :]
+        dist = torch.zeros((*batch, q_n, tdb.shape[-2]), dtype=query.dtype,
                            device=query.device)
         for k in range(d):
-            diff = query[:, k, None] - tdb[None, :, k]
+            diff = query[..., :, k, None] - tdb[..., None, :, k]
             dist = dist + diff * diff
-        dist = torch.where(db_mask[start:start + tile][None, :], dist, inf)
+        dist = torch.where(db_mask[..., None, start:start + tile], dist, inf)
         local_d, local_i = torch.min(dist, dim=-1)
         better = local_d < best_d
         best_d = torch.where(better, local_d, best_d)
@@ -116,15 +124,37 @@ def use_cuda_nn(query: Tensor, db: Tensor, backend: str = "auto") -> bool:
     return backend == "auto" and query.dtype == torch.float32
 
 
+def use_pairs_nn(query: Tensor, db: Tensor, backend: str = "auto") -> bool:
+    """The pair-grid dispatch (mirrors ``use_pairs_nn``): a batched query
+    (B, Q, D) on the kernel route against dbs of at most
+    ``nn_pairs_cuda.PAIRS_MAX_DB`` points.  Shared by
+    ``nearest_neighbor_matched`` and the drivers' pre-sort policy, so the
+    two always agree."""
+    return (query.ndim == 3 and db.shape[-2] <= nn_pairs_cuda.PAIRS_MAX_DB
+            and use_cuda_nn(query, db, backend))
+
+
+def _gather_rows(payload: Tensor, index: Tensor) -> Tensor:
+    """payload[..., index, :] per batch lane; a shared (M, P) payload is
+    broadcast to the index's batch."""
+    idx = index.to(torch.int64)
+    if idx.ndim == 1:
+        return payload[idx]
+    payload = payload.expand(*idx.shape[:-1], *payload.shape[-2:])
+    return torch.take_along_dim(payload, idx[..., None], dim=-2)
+
+
 def _kernel_path_check(query: Tensor, db: Tensor, payload_dim: int,
                        tile: int) -> None:
     """Raise NotImplementedError where the kernel path would need a TPU
     kernel that has no Hopper port yet."""
     if query.ndim != 2:
         raise NotImplementedError(
-            "batched NN needs the pair-grid kernels (nn_pallas."
-            "_nn_pairs_kernel / _nn_pairs_list_kernel), not yet ported; "
-            "pass nn_backend='torch'")
+            f"a batched search over dbs of {db.shape[-2]} points (more than "
+            f"{nn_pairs_cuda.PAIRS_MAX_DB}, or with more than one batch "
+            "axis) leaves the pair-grid kernels and needs the vmapped "
+            "single-cloud kernel (nn_pallas.nn_pallas_matched over the "
+            "pair axis), not yet ported; pass nn_backend='torch'")
     m_pad = -(-db.shape[0] // tile) * tile
     if m_pad // tile < 3:
         raise NotImplementedError(
@@ -142,7 +172,8 @@ def build_db_pack(query: Tensor, db: Tensor, db_mask=None, payload=None,
     """Per-frame NN index build, the KdTree::new analogue (reference
     src/lib.rs:97-102): the packed db of ``nn_cuda.pack_db`` when the
     kernel path serves (query, db), else None."""
-    if not use_cuda_nn(query, db, backend):
+    if not use_cuda_nn(query, db, backend) or use_pairs_nn(query, db,
+                                                           backend):
         return None
     p = payload.shape[-1] if payload is not None else db.shape[-1]
     _kernel_path_check(query, db, p, tile)
@@ -157,15 +188,21 @@ def nearest_neighbor_matched(query: Tensor, db: Tensor, db_mask=None,
     """1-NN that also returns the winner's payload (default: the matched
     db point).  Returns (NNResult, matched (Q, P)).
 
-    On the kernel path ``q_bound`` (Q,) is an upper bound on each query's
-    NN distance² (+inf where unknown) and ``warm`` selects the seeded
-    search's cold/warm branch (None decides from the bounds); results are
-    bit-identical whatever they are, as long as the bounds are valid."""
+    On the kernel path ``q_bound`` (..., Q) is an upper bound on each
+    query's NN distance² (+inf where unknown) and ``warm`` selects the
+    seeded search's cold/warm branch (None decides from the bounds);
+    results are bit-identical whatever they are, as long as the bounds are
+    valid.  A batched query (B, Q, D) against dbs of at most 4096 points
+    takes the pair-grid kernels (``use_pairs_nn``), unseeded or not."""
     if payload is None:
         payload = db
     if not use_cuda_nn(query, db, backend):
         res = nn_torch(query, db, db_mask, tile=tile)
-        return res, payload[res.index.to(torch.int64)]
+        return res, _gather_rows(payload, res.index)
+    if use_pairs_nn(query, db, backend):
+        idx, dist, matched = nn_pairs_cuda.nn_pairs_matched(
+            query, db, db_mask, payload, q_bound=q_bound, warm=warm)
+        return NNResult(index=idx, dist_sq=dist), matched
     _kernel_path_check(query, db, payload.shape[-1], tile)
     if q_bound is None:
         raise NotImplementedError(

@@ -1,0 +1,339 @@
+"""Pair-grid exact 1-NN for many small pairs: the hand-written kernels
+``csrc/nn_pairs.cu`` (static sweep) and ``csrc/nn_pairs_list.cu``
+(survivor lists), their wrappers, their plain PyTorch versions, and the
+torch code around them.
+
+Counterpart of icp_rust_tpu/ops/nn_pallas.py's pair-grid path
+(``nn_pallas_matched_pairs`` -> ``_nn_pairs_kernel`` on the cold ICP
+iteration, ``_nn_pairs_list_kernel`` on every warm one).  B queries
+(B, Nq, D) against B small dbs (B, M, D), M <= ``PAIRS_MAX_DB``, one
+block per (pair, 256-query subtile), one thread per query, walking the
+pair's 128-point chunks in ascending order with a strict '<': the lowest
+index wins ties.
+
+Pruning is seed-only and exact: chunk c is skipped for a subtile when the
+(deflated) box-to-box lower bound exceeds the subtile's upper bound on
+its queries' NN distance², which the ICP outer loop seeds from the
+previous iteration (dist_new <= dist_prev + |dq|).  A skipped chunk holds
+no point of any query's tie set, so results are bit-identical to the
+unpruned sweep.
+
+- Static sweep (kernel 8): the prune test per (subtile, chunk) runs in
+  the kernel, from per-chunk boxes, per-subtile query boxes and
+  per-subtile bounds; on the cold iteration every bound is +inf and every
+  chunk is walked.
+- Survivor lists (kernel 9): the test runs here in torch per
+  ``LIST_GRP``-query group and is unioned per subtile; the list holds the
+  surviving chunk ids in ascending order, with capacity n_chunks rounded
+  up to even, so no list can overflow.
+
+The margins are the JAX package's (lower bounds deflated by 1 - 16 eps),
+and the query boxes span the zero-padded query rows as its boxes do: a
+wider box only costs speed.  Padded pairs and queries carry -inf bounds
+and walk nothing.  A query with no valid db point gets (+inf after the
+trim, 0, 0).
+
+The plain versions are the masked full sweep of each pair, with the
+chunks a subtile does not walk set to +inf, vectorised over pairs.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+from icp_rust_tpu_torch.ops import cuda_build
+from icp_rust_tpu_torch.ops.nn_cuda import _SENTINEL, _round_up, \
+    _trim_sentinel
+
+PAIRS_MAX_DB = 4096
+Q_SUB = 256
+LIST_GRP = 64
+_CHUNK = 128
+_DIMS = (2, 3)
+
+
+def pack_pairs(db: Tensor, db_mask, payload: Tensor) -> Tensor:
+    """Per-pair sentinel-padded coordinate-major [db; payload] rows
+    (B, D + F, m_pad), m_pad a multiple of 128.  Payload rows are not
+    sentinel-masked: masked points never win."""
+    b, m, d = db.shape
+    if db_mask is not None:
+        sentinel = torch.tensor(_SENTINEL, dtype=db.dtype, device=db.device)
+        db = torch.where(db_mask[..., None], db, sentinel)
+    m_pad = _round_up(m, _CHUNK)
+    out = torch.zeros((b, d + payload.shape[-1], m_pad), dtype=db.dtype,
+                      device=db.device)
+    out[:, :d] = _SENTINEL
+    out[:, :d, :m] = db.transpose(1, 2)
+    out[:, d:, :m] = payload.transpose(1, 2)
+    return out
+
+
+def _chunk_boxes(dbf_cm: Tensor, d_dim: int) -> Tensor:
+    """Per-pair, per-128-point-chunk coordinate bounds (B, n_chunks, 8):
+    cols 0..3 lo (+inf for an all-sentinel chunk), cols 4..7 hi (-inf
+    likewise); unused dims are 0."""
+    b, _, m_pad = dbf_cm.shape
+    nc = m_pad // _CHUNK
+    t = dbf_cm[:, :d_dim].reshape(b, d_dim, nc, _CHUNK)
+    valid = t[:, 0] < _SENTINEL / 2
+    inf = torch.tensor(float("inf"), dtype=dbf_cm.dtype, device=dbf_cm.device)
+    lo = torch.amin(torch.where(valid[:, None], t, inf), dim=-1)
+    hi = torch.amax(torch.where(valid[:, None], t, -inf), dim=-1)
+    out = torch.zeros((b, nc, 8), dtype=dbf_cm.dtype, device=dbf_cm.device)
+    out[..., :d_dim] = lo.transpose(1, 2)
+    out[..., 4:4 + d_dim] = hi.transpose(1, 2)
+    return out
+
+
+def _query_boxes(query_p: Tensor, grp: int) -> Tensor:
+    """Per-pair bounds of each group of ``grp`` consecutive (padded)
+    queries (B, Qp // grp, 8), laid out as the chunk boxes."""
+    b, qp, d = query_p.shape
+    g = query_p.reshape(b, qp // grp, grp, d)
+    out = torch.zeros((b, qp // grp, 8), dtype=query_p.dtype,
+                      device=query_p.device)
+    out[..., :d] = torch.amin(g, dim=2)
+    out[..., 4:4 + d] = torch.amax(g, dim=2)
+    return out
+
+
+def _group_bounds(q_bound: Tensor, grp: int) -> Tensor:
+    """Max of the per-query bounds over each group of ``grp`` queries."""
+    return torch.amax(q_bound.reshape(q_bound.shape[0], -1, grp), dim=-1)
+
+
+def _box_lower_bound(qbox: Tensor, cbox: Tensor, d_dim: int) -> Tensor:
+    """(B, R, n_chunks) squared box-to-box distance from query-group boxes
+    (B, R, 8) to chunk boxes (B, n_chunks, 8), summed over the dims in
+    order and deflated by 1 - 16 eps, the kernel's op sequence."""
+    lb = torch.zeros((qbox.shape[0], qbox.shape[1], cbox.shape[1]),
+                     dtype=qbox.dtype, device=qbox.device)
+    for k in range(d_dim):
+        a = cbox[:, None, :, k] - qbox[:, :, None, 4 + k]
+        b = qbox[:, :, None, k] - cbox[:, None, :, 4 + k]
+        gap = torch.clamp(torch.maximum(a, b), min=0.0)
+        lb = lb + gap * gap
+    return lb * (1.0 - 16.0 * torch.finfo(lb.dtype).eps)
+
+
+def _survivor_lists(query_p: Tensor, cbox: Tensor, q_bound: Tensor,
+                    d_dim: int, q_sub: int, list_grp: int):
+    """Per (pair, subtile), the ascending ids of the chunks whose lower
+    bound is <= the bound of any of the subtile's ``list_grp``-query
+    groups; tails padded with the first listed id.  Returns (lists
+    (B, n_qt, cap) int32, cnt (B, n_qt) int32), cap = n_chunks rounded up
+    to even."""
+    b, qp, _ = query_p.shape
+    nc = cbox.shape[1]
+    n_qt = qp // q_sub
+    cap = _round_up(nc, 2)
+    lb = _box_lower_bound(_query_boxes(query_p, list_grp), cbox, d_dim)
+    ok = lb <= _group_bounds(q_bound, list_grp)[..., None]
+    ok = torch.any(ok.reshape(b, n_qt, q_sub // list_grp, nc), dim=2)
+    cnt = torch.sum(ok, dim=-1).to(torch.int32)
+    ids = torch.arange(nc, dtype=torch.int32, device=cbox.device)
+    key = torch.where(ok, ids, torch.full_like(ids, nc))
+    srt = torch.sort(key, dim=-1).values
+    if cap > nc:
+        srt = torch.cat([srt, torch.full((b, n_qt, cap - nc), nc,
+                                         dtype=srt.dtype,
+                                         device=srt.device)], dim=-1)
+    pos = torch.arange(cap, dtype=torch.int32, device=cbox.device)
+    lists = torch.where(pos < cnt[..., None], srt, srt[..., :1])
+    return lists.to(torch.int32).contiguous(), cnt.contiguous()
+
+
+def _masked_sweep(query_p: Tensor, dbf_cm: Tensor, walk: Tensor,
+                  d_dim: int, q_sub: int):
+    """Exact 1-NN of each pair's queries over the chunks its subtile walks
+    (walk (B, n_qt, n_chunks) bool), the others set to +inf; the lowest
+    index wins ties; (+inf, 0, 0) where nothing valid was walked."""
+    b, qp, _ = query_p.shape
+    f_dim = dbf_cm.shape[1] - d_dim
+    m_pad = dbf_cm.shape[2]
+    dist = None
+    for k in range(d_dim):
+        diff = query_p[:, :, k, None] - dbf_cm[:, None, k, :]
+        sq = diff * diff
+        dist = sq if dist is None else dist + sq
+    inf = torch.tensor(float("inf"), dtype=dist.dtype, device=dist.device)
+    dist = torch.where(walk[:, :, None, :, None],
+                       dist.reshape(b, qp // q_sub, q_sub, -1, _CHUNK), inf)
+    best, arg = torch.min(dist.reshape(b, qp, m_pad), dim=-1)
+    hit = best != inf
+    idx = torch.where(hit, arg, torch.zeros_like(arg))
+    pay = torch.take_along_dim(dbf_cm[:, d_dim:], arg[:, None, :], dim=2)
+    pay = torch.where(hit[:, None, :], pay, torch.zeros((), dtype=pay.dtype,
+                                                        device=pay.device))
+    return best, idx.to(torch.int32), pay.transpose(1, 2).reshape(b, qp,
+                                                                  f_dim)
+
+
+def nn_pairs_plain(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor,
+                   cbox: Tensor, qbound: Tensor, d_dim: int,
+                   q_sub: int = Q_SUB):
+    """Plain PyTorch version of the nn_pairs kernel: each subtile walks
+    the chunks whose lower bound is <= its bound."""
+    walk = _box_lower_bound(qbox, cbox, d_dim) <= qbound[..., None]
+    return _masked_sweep(query_p, dbf_cm, walk, d_dim, q_sub)
+
+
+def nn_pairs_list_plain(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
+                        cnt: Tensor, d_dim: int, q_sub: int = Q_SUB):
+    """Plain PyTorch version of the nn_pairs_list kernel: each subtile
+    walks the first ``cnt`` chunks of its list."""
+    nc = dbf_cm.shape[2] // _CHUNK
+    pos = torch.arange(lists.shape[-1], device=lists.device)
+    ids = torch.where(pos < cnt[..., None], lists.to(torch.int64),
+                      torch.full_like(pos, nc))
+    walk = torch.zeros((*lists.shape[:2], nc + 1), dtype=torch.bool,
+                       device=lists.device)
+    walk.scatter_(2, ids, torch.ones_like(ids, dtype=torch.bool))
+    return _masked_sweep(query_p, dbf_cm, walk[..., :nc], d_dim, q_sub)
+
+
+def _check_launch(name: str, query_p: Tensor, dbf_cm: Tensor, d_dim: int,
+                  q_sub: int, tables) -> None:
+    if query_p.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {query_p.device}")
+    for tname, x, dt in (("query", query_p, torch.float32),
+                         ("dbf_cm", dbf_cm, torch.float32), *tables):
+        if x.dtype != dt:
+            raise TypeError(f"{name}: {tname} must be {dt}, got {x.dtype}")
+        if x.device != query_p.device or not x.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous on "
+                             f"{query_p.device}")
+    b, qp, d = query_p.shape
+    f_dim = dbf_cm.shape[1] - d_dim
+    if (d != d_dim or d_dim not in _DIMS or f_dim not in _DIMS
+            or dbf_cm.shape[0] != b or dbf_cm.shape[2] % _CHUNK
+            or q_sub % 64 or q_sub > 1024 or qp % q_sub):
+        raise ValueError(f"{name}: bad shapes (D, F in {_DIMS}, Qp a "
+                         "multiple of q_sub, M a multiple of 128)")
+
+
+def _outputs(query_p: Tensor, dbf_cm: Tensor, d_dim: int):
+    b, qp, _ = query_p.shape
+    dev = query_p.device
+    return (torch.empty((b, qp), dtype=torch.float32, device=dev),
+            torch.empty((b, qp), dtype=torch.int32, device=dev),
+            torch.empty((b, qp, dbf_cm.shape[1] - d_dim),
+                        dtype=torch.float32, device=dev))
+
+
+def nn_pairs(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor, cbox: Tensor,
+             qbound: Tensor, d_dim: int, q_sub: int = Q_SUB):
+    """Static-sweep pair-grid 1-NN: the kernel on a CUDA tensor, the plain
+    version on a CPU tensor.  query_p (B, Qp, D), Qp a multiple of q_sub;
+    dbf_cm (B, D + F, m_pad); qbox (B, Qp / q_sub, 8); cbox
+    (B, m_pad / 128, 8); qbound (B, Qp / q_sub).  Returns (dist (B, Qp),
+    idx (B, Qp) int32, pay (B, Qp, F)) before sentinel trimming."""
+    if query_p.device.type == "cpu":
+        return nn_pairs_plain(query_p, dbf_cm, qbox, cbox, qbound, d_dim,
+                              q_sub)
+    _check_launch("nn_pairs", query_p, dbf_cm, d_dim, q_sub,
+                  (("qbox", qbox, torch.float32),
+                   ("cbox", cbox, torch.float32),
+                   ("qbound", qbound, torch.float32)))
+    b, qp, _ = query_p.shape
+    if (qbox.shape != (b, qp // q_sub, 8) or qbound.shape != (b, qp // q_sub)
+            or cbox.shape != (b, dbf_cm.shape[2] // _CHUNK, 8)):
+        raise ValueError("nn_pairs: bad box or bound shapes")
+    dist, idx, pay = _outputs(query_p, dbf_cm, d_dim)
+    stream = torch.cuda.current_stream(query_p.device).cuda_stream
+    status = cuda_build.launcher("nn_pairs")(
+        query_p.data_ptr(), dbf_cm.data_ptr(), qbox.data_ptr(),
+        cbox.data_ptr(), qbound.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+        pay.data_ptr(), b, qp, q_sub, d_dim, dbf_cm.shape[1] - d_dim,
+        dbf_cm.shape[2], stream)
+    cuda_build.LAUNCHES["nn_pairs"] += 1
+    cuda_build.check(status, "nn_pairs")
+    return dist, idx, pay
+
+
+def nn_pairs_list(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
+                  cnt: Tensor, d_dim: int, q_sub: int = Q_SUB):
+    """Survivor-list pair-grid 1-NN: the kernel on a CUDA tensor, the
+    plain version on a CPU tensor.  lists (B, Qp / q_sub, cap) int32, cnt
+    (B, Qp / q_sub) int32 from ``_survivor_lists``; the rest as
+    ``nn_pairs``."""
+    if query_p.device.type == "cpu":
+        return nn_pairs_list_plain(query_p, dbf_cm, lists, cnt, d_dim, q_sub)
+    _check_launch("nn_pairs_list", query_p, dbf_cm, d_dim, q_sub,
+                  (("lists", lists, torch.int32), ("cnt", cnt, torch.int32)))
+    b, qp, _ = query_p.shape
+    if (lists.ndim != 3 or lists.shape[:2] != (b, qp // q_sub)
+            or cnt.shape != (b, qp // q_sub)):
+        raise ValueError("nn_pairs_list: bad list shapes")
+    dist, idx, pay = _outputs(query_p, dbf_cm, d_dim)
+    stream = torch.cuda.current_stream(query_p.device).cuda_stream
+    status = cuda_build.launcher("nn_pairs_list")(
+        query_p.data_ptr(), dbf_cm.data_ptr(), lists.data_ptr(),
+        cnt.data_ptr(), dist.data_ptr(), idx.data_ptr(), pay.data_ptr(), b,
+        qp, q_sub, d_dim, dbf_cm.shape[1] - d_dim, dbf_cm.shape[2],
+        lists.shape[2], stream)
+    cuda_build.LAUNCHES["nn_pairs_list"] += 1
+    cuda_build.check(status, "nn_pairs_list")
+    return dist, idx, pay
+
+
+def prepare(query: Tensor, db: Tensor, db_mask=None, payload=None,
+            q_bound: Tensor | None = None, q_sub: int = Q_SUB):
+    """The kernels' inputs for query (B, Nq, D) against db (B, M, D) or a
+    shared (M, D), M <= PAIRS_MAX_DB: (query_p (B, Qp, D) zero-padded to
+    a multiple of q_sub, dbf_cm (B, D + F, m_pad), chunk boxes
+    (B, m_pad / 128, 8), bounds (B, Qp)).  Missing bounds are +inf;
+    padded queries carry -inf, so their subtiles prune every chunk."""
+    b, n_q, d_dim = query.shape
+    if payload is None:
+        payload = db
+    db = db.expand(b, *db.shape[-2:])
+    payload = payload.expand(b, *payload.shape[-2:])
+    if db_mask is not None:
+        db_mask = db_mask.expand(b, db_mask.shape[-1])
+    if db.shape[1] > PAIRS_MAX_DB:
+        raise ValueError(f"nn_pairs: a db of {db.shape[1]} points exceeds "
+                         f"{PAIRS_MAX_DB}")
+    dbf_cm = pack_pairs(db, db_mask, payload)
+    q_pad = _round_up(n_q, q_sub)
+    query_p = torch.zeros((b, q_pad, d_dim), dtype=query.dtype,
+                          device=query.device)
+    query_p[:, :n_q] = query
+    qb = torch.full((b, q_pad), float("-inf"), dtype=query.dtype,
+                    device=query.device)
+    qb[:, :n_q] = (float("inf") if q_bound is None
+                   else q_bound.to(query.dtype))
+    return query_p, dbf_cm, _chunk_boxes(dbf_cm, d_dim), qb
+
+
+def nn_pairs_matched(query: Tensor, db: Tensor, db_mask=None, payload=None,
+                     q_bound: Tensor | None = None, q_sub: int = Q_SUB,
+                     list_grp: int = LIST_GRP, warm: bool | None = None):
+    """Batched exact 1-NN with matched payload: query (B, Nq, D) against
+    db (B, M, D) or a shared (M, D), M <= PAIRS_MAX_DB.  Returns (index
+    (B, Nq) int32, dist_sq (B, Nq), matched (B, Nq, F)).
+
+    Warmth dispatch: ``warm`` None decides from the bounds (all +-inf ->
+    the static sweep, any finite bound -> the survivor lists), a bool
+    selects the branch statically, and no bound means the static sweep
+    with +inf bounds; the results are bit-identical whichever runs, as
+    long as the bounds are valid."""
+    n_q, d_dim = query.shape[1:]
+    query_p, dbf_cm, cbox, qb = prepare(query, db, db_mask, payload,
+                                        q_bound, q_sub)
+    if q_bound is None:
+        warm = False
+    elif warm is None:
+        warm = bool(torch.any(torch.isfinite(qb)))
+    if warm:
+        lists, cnt = _survivor_lists(query_p, cbox, qb, d_dim, q_sub,
+                                     min(list_grp, q_sub))
+        dist, idx, pay = nn_pairs_list(query_p, dbf_cm, lists, cnt, d_dim,
+                                       q_sub)
+    else:
+        dist, idx, pay = nn_pairs(query_p, dbf_cm,
+                                  _query_boxes(query_p, q_sub), cbox,
+                                  _group_bounds(qb, q_sub), d_dim, q_sub)
+    return (idx[:, :n_q], _trim_sentinel(dist[:, :n_q]), pay[:, :n_q])

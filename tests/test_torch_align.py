@@ -142,15 +142,19 @@ def test_irls_plain_degenerate_is_identity(n_valid):
 
 
 def test_batched_inner_loop_is_not_ported_on_the_kernel_route():
+    """One pair axis takes the batched kernel route (its plain version on
+    the CPU); more than one batch axis is not ported there."""
     src, dst, mask = _problem(0, n=128, dtype=np.float32)
     b = lambda x: _t(np.stack([x, x]))  # noqa: E731
     with pytest.raises(NotImplementedError, match="_inner_loop_batched"):
-        align2d.estimate_transform(b(src), b(dst), b(mask), ICPConfig())
-    # The plain route takes batches.
-    out = align2d.estimate_transform(b(src), b(dst), b(mask),
-                                     ICPConfig(align_backend="torch"))
+        align2d.estimate_transform(b(b(src)), b(b(dst)), b(b(mask)),
+                                   ICPConfig())
+    out = align2d.estimate_transform(b(src), b(dst), b(mask), ICPConfig())
+    plain = align2d.estimate_transform(b(src), b(dst), b(mask),
+                                       ICPConfig(align_backend="torch"))
     assert out.rot.shape == (2, 2, 2)
     assert torch.equal(out.rot[0], out.rot[1])
+    assert torch.equal(out.rot, plain.rot) and torch.equal(out.t, plain.t)
 
 
 def _pad(a, n):

@@ -175,7 +175,8 @@ def test_kernel_path_refuses_what_is_not_ported():
         nn.nearest_neighbor_matched(q, small_db, backend="cuda",
                                     q_bound=torch.zeros(128))
     with pytest.raises(NotImplementedError, match="pair-grid"):
-        nn.nearest_neighbor_matched(q[None], small_db[None], backend="cuda",
+        nn.nearest_neighbor_matched(q[None], torch.zeros((1, 4097, 3)),
+                                    backend="cuda",
                                     q_bound=torch.zeros(1, 128))
     with pytest.raises(NotImplementedError, match="_nn_pruned_kernel"):
         nn.nearest_neighbor_matched(q, torch.zeros((8192, 3)),

@@ -155,8 +155,10 @@ def test_config_from_fields_reference_config():
     for f in ("huber_k", "mad_scale", "inner_max_iter", "inner_delta_sq_tol",
               "outer_iters", "det_rel_eps", "nn_query_tile", "nn_dst_tile"):
         assert getattr(cfg, f) == getattr(REFERENCE_CONFIG, f)
-    with pytest.raises(NotImplementedError):
-        convert.config_from_fields({"frame_backend": "pairs"})
+    assert convert.config_from_fields(
+        {"frame_backend": "pairs"}).frame_backend == "pairs"
+    with pytest.raises(ValueError):
+        convert.config_from_fields({"frame_backend": "bogus"})
 
 
 def test_transform_from_numpy_keeps_dtype():
