@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the seven Hopper kernels from ``icp_rust_tpu_torch/csrc`` (one
+Builds the nine Hopper kernels from ``icp_rust_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together; prints the ptxas register and
 spill lines), then runs these phases; any failure exits non-zero:
 
@@ -49,6 +49,29 @@ frames, each subsampled to a seeded count in 411-670 points, padded to
    ``frame_backend="pairs"``: one icp2d_frame_pairs launch, within 1 mm
    per pair of the lockstep path.
 
+The SE(3) point-to-plane path runs on the main path's frames (the
+workload of benchmarks/bench_p2l.py), with voxel normals at 0.3 m:
+
+10. nn_list at the p2l payload (D = 3, F = 4: [n, c = n . q]) on frames 0
+    and 1, Morton-sorted: the cold bound, the warm bound of one real p2l
+    outer step, and a masked db whose invalid normals carry the sentinel
+    c.  Bitwise equal to the plain version and to brute force.
+11. p2l_loop vs its plain version on frame 1's first-iteration
+    correspondences (N = 28,800): rot and t within IRLS_TOL, equal
+    iteration counts; one plane, five points, sigma = 0 and an all-masked
+    input each stop at iteration 1 with the identity, in both.
+12. p2l_stats vs its plain version at the identity and at one warm
+    transform, through ``align3d.weighted_gn_update_p2l_cuda``: the 27
+    sums and the error within P2L_STATS_TOL relative, the count exact,
+    sigma within P2L_SIGMA_TOL relative.
+13. The p2l path: ``run_odometry_p2l_fused`` over the 96 frames, run
+    twice (bitwise equal; the second run is timed): frames/s, ATE-xy < 0.05
+    m and max |z| < 0.05 m against ground truth, outer iterations, and
+    nn_list and p2l_loop launches each equal to the total outer
+    iterations; the plain path on the card (torch NN and the LU loop of
+    ``align_backend="torch"``) over the first 8 frames within 1 mm, with
+    no launch.
+
 The launch counts of each path are zeroed just before it and read just
 after.  Prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Bounds:
@@ -57,9 +80,10 @@ operations / 67 TFLOP/s (H100 SXM float32 without tensor cores).
 
     python3 chip_smoke.py --profile
 
-adds torch.profiler traces of the main path's first 16 frames and of the
-batched path: device time by kernel and the device's idle share, and the
-profiler's table.
+adds torch.profiler traces of the main path's first 16 frames, of the
+batched path and of the p2l path's first 16 frames (with the voxel
+normals' share): device time by kernel and the device's idle share, and
+the profiler's tables.
 
 The phases take ``device`` and sizes, so a CPU test rehearses them at a
 tiny size with the kernels' plain versions.
@@ -78,11 +102,15 @@ import torch
 
 from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
+from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
 from icp_rust_tpu_torch.models import icp2d as m_icp
-from icp_rust_tpu_torch.models.odometry import ate_rmse, run_odometry_fused
-from icp_rust_tpu_torch.ops import align2d, align2d_cuda, cuda_build, \
-    nn_cuda, nn_pairs_cuda
+from icp_rust_tpu_torch.models import icp_p2l as m_p2l
+from icp_rust_tpu_torch.models.odometry import ate_rmse, \
+    run_odometry_fused, run_odometry_p2l_fused
+from icp_rust_tpu_torch.ops import align2d, align2d_cuda, align3d, \
+    align3d_cuda, cuda_build, nn_cuda, nn_pairs_cuda
 from icp_rust_tpu_torch.ops.nn import nearest_neighbor_matched, nn_torch
+from icp_rust_tpu_torch.ops.normals import estimate_normals_voxel
 from icp_rust_tpu_torch.parallel.sharded import batched_icp2d
 from icp_rust_tpu_torch.utils import io
 
@@ -109,6 +137,22 @@ IRLS_OPS_PER_POINT = 194
 # icp2d_frame's 2D sweep 2 + 2 + 1 + 1.
 NN_OPS_PER_PAIR_3D = 10
 NN_OPS_PER_PAIR_2D = 6
+# Operations per valid point and p2l IRLS iteration, counted from
+# csrc/p2l.cuh: residual 26 (p = R s + t 18, n . (p - d) 8); median 4
+# radix passes of ~7 plus a count/max pass of 3, the MAD's 5 passes 2 more
+# each for |r - med|: 31 + 41; the sums pass 117 (p again 18, J 9, weight
+# 5, 21 JtJ sums of 3, 6 Jtr sums of 3, error 4).
+P2L_OPS_PER_POINT = 215
+# The p2l workload (benchmarks/bench_p2l.py): voxel normals at 0.3 m; the
+# z gate of its planar-motion data (bench_p2l.py:53-61).
+P2L_VOXEL_M = 0.3
+P2L_Z_GATE_M = 0.05
+# p2l_stats vs its plain version: the 27 sums and the error relative to
+# the Cauchy-Schwarz bound of each sum's absolute terms (f32 roundoff of
+# 28,800-term sums in two orders); the count exact; sigma, an exact order
+# statistic of residuals computed by the same float32 ops, relative.
+P2L_STATS_TOL = 1e-5
+P2L_SIGMA_TOL = 1e-6
 # The batched workload: 210 scans, the size of the reference's scans/2d
 # sequence (411-670 points per scan, padded to 768).
 BATCH_SCANS = 210
@@ -178,55 +222,83 @@ def _first_pair(device, stride):
     return src, smask, dst, dmask
 
 
+def _nn_list_case(name, query, db, dmask_c, payload, qb_fn, device,
+                  tile: int, q_tile: int):
+    """One nn_list check: the kernel vs its plain version (bitwise dist,
+    idx, payload) and vs a brute-force sweep (idx, dist, and the winner's
+    payload where a valid point exists)."""
+    n = query.shape[0]
+    qp = -(-n // q_tile) * q_tile
+    d_dim = query.shape[1]
+    pack = nn_cuda.pack_db(db, dmask_c, payload, db_tile=tile)
+    n_chunks = pack.dbf_cm.shape[1] // 128
+    cap = min(nn_cuda._LIST_CAP, n_chunks)
+    query_p = torch.zeros((qp, d_dim), dtype=torch.float32, device=device)
+    query_p[:n] = query
+    qb = qb_fn(query_p, pack)
+    lists, cnt = nn_cuda._survivor_lists(query_p, pack.cbox, qb, d_dim,
+                                         q_tile, cap)
+    args = (query_p, pack.dbf_cm, lists, cnt, d_dim, q_tile, cap)
+    got = nn_cuda.nn_list(*args)
+    want = nn_cuda.nn_list_plain(*args)
+    _sync(device)
+    for a, b, what in zip(got, want, ("dist", "idx", "payload")):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"nn_list {name}: {what} differs from the "
+                               "plain version")
+    brute = nn_torch(query, db, dmask_c, tile=tile)
+    hit = torch.isfinite(brute.dist_sq)
+    want_pay = payload[brute.index.long()]
+    if not (torch.equal(got[1][:n], brute.index)
+            and torch.equal(nn_cuda._trim_sentinel(got[0][:n]),
+                            brute.dist_sq)
+            and torch.equal(got[2][:n][hit], want_pay[hit])):
+        raise RuntimeError(f"nn_list {name}: differs from brute force")
+    walked = torch.where(cnt > cap, n_chunks, cnt)
+    fin = torch.isfinite(got[0])
+    err = float(torch.max(torch.abs(got[0][fin] - want[0][fin]))) \
+        if bool(fin.any()) else 0.0
+    case_ms = time_ms(lambda: nn_cuda.nn_list(*args), device, reps=5)
+    print(f"# nn_list {name}: bitwise equal to plain and brute force; "
+          f"chunks walked per tile mean {float(walked.float().mean()):.2f}"
+          f" max {int(walked.max())} of {n_chunks} "
+          f"(full sweeps {int((cnt > cap).sum())}); {case_ms:.4f} ms")
+    return dict(args=args, walked=walked, err=err, dist=got[0][:n],
+                pay=got[2][:n])
+
+
+def _nn_list_record(case, q_tile: int, device):
+    """Kernel 1's timing, plain timing and bound at one case's shapes."""
+    args = case["args"]
+    query_p, dbf_cm = args[0], args[1]
+    d_dim = args[4]
+    ms = time_ms(lambda: nn_cuda.nn_list(*args), device, reps=50)
+    plain_ms = time_ms(lambda: nn_cuda.nn_list_plain(*args), device, reps=3)
+    qp = query_p.shape[0]
+    f_dim = dbf_cm.shape[0] - d_dim
+    pairs = float(case["walked"].sum()) * 128 * q_tile
+    n_bytes = (qp * d_dim * 4 + dbf_cm.numel() * 4 + args[2].numel() * 4
+               + args[3].numel() * 4 + qp * (4 + 4 + 4 * f_dim))
+    b, by = bound_ms(n_bytes, pairs * NN_OPS_PER_PAIR_3D)
+    return dict(name="nn_list", route="cuda",
+                source="icp_rust_tpu_torch/csrc/nn_list.cu",
+                replaces="icp_rust_tpu/ops/nn_pallas.py:873", ms=ms,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None)
+
+
 def phase_nn_list(device="cuda", stride: int = 1, tile: int = 2048,
                   q_tile: int = 256):
-    """Kernel 1 vs its plain version and a brute-force sweep."""
+    """Kernel 1 vs its plain version and a brute-force sweep (xy
+    payload, the main path's)."""
     cfg = _config(nn_dst_tile=tile, nn_query_tile=q_tile)
     src, smask, dst, dmask = _first_pair(device, stride)
     n = src.shape[0]
     qp = -(-n // q_tile) * q_tile
     eps = torch.finfo(torch.float32).eps
 
-    def padded(q):
-        out = torch.zeros((qp, 3), dtype=torch.float32, device=device)
-        out[:n] = q
-        return out
-
     def run_case(name, query, db, dmask_c, qb_fn):
-        pack = nn_cuda.pack_db(db, dmask_c, db[:, :2], db_tile=tile)
-        n_chunks = pack.dbf_cm.shape[1] // 128
-        cap = min(nn_cuda._LIST_CAP, n_chunks)
-        query_p = padded(query)
-        qb = qb_fn(query_p, pack)
-        lists, cnt = nn_cuda._survivor_lists(query_p, pack.cbox, qb, 3,
-                                             q_tile, cap)
-        got = nn_cuda.nn_list(query_p, pack.dbf_cm, lists, cnt, 3, q_tile,
-                              cap)
-        want = nn_cuda.nn_list_plain(query_p, pack.dbf_cm, lists, cnt, 3,
-                                     q_tile, cap)
-        _sync(device)
-        for a, b, what in zip(got, want, ("dist", "idx", "payload")):
-            if not torch.equal(a, b):
-                raise RuntimeError(f"nn_list {name}: {what} differs from "
-                                   "the plain version")
-        brute = nn_torch(query, db, dmask_c, tile=tile)
-        if not (torch.equal(got[1][:n], brute.index)
-                and torch.equal(nn_cuda._trim_sentinel(got[0][:n]),
-                                brute.dist_sq)):
-            raise RuntimeError(f"nn_list {name}: differs from brute force")
-        walked = torch.where(cnt > cap, n_chunks, cnt)
-        fin = torch.isfinite(got[0])
-        err = float(torch.max(torch.abs(got[0][fin] - want[0][fin]))) \
-            if bool(fin.any()) else 0.0
-        case_ms = time_ms(lambda: nn_cuda.nn_list(
-            query_p, pack.dbf_cm, lists, cnt, 3, q_tile, cap), device, reps=5)
-        print(f"# nn_list {name}: bitwise equal to plain and brute force; "
-              f"chunks walked per tile mean {float(walked.float().mean()):.2f}"
-              f" max {int(walked.max())} of {n_chunks} "
-              f"(full sweeps {int((cnt > cap).sum())}); {case_ms:.4f} ms")
-        return dict(query_p=query_p, pack=pack, lists=lists, cnt=cnt,
-                    walked=walked, cap=cap, err=err, dist=got[0][:n],
-                    pay=got[2][:n])
+        return _nn_list_case(name, query, db, dmask_c, db[:, :2], qb_fn,
+                             device, tile, q_tile)
 
     def cold(query_p, pack):
         return nn_cuda._center_bound(query_p, pack.cbox, 3)
@@ -263,21 +335,9 @@ def phase_nn_list(device="cuda", stride: int = 1, tile: int = 2048,
     errs.append(tie["err"])
 
     # Timing at the main path's warm shape.
-    args = (warm["query_p"], warm["pack"].dbf_cm, warm["lists"],
-            warm["cnt"], 3, q_tile, warm["cap"])
-    ms = time_ms(lambda: nn_cuda.nn_list(*args), device, reps=50)
-    plain_ms = time_ms(lambda: nn_cuda.nn_list_plain(*args), device, reps=3)
-    f_total = warm["pack"].dbf_cm.shape[0]
-    pairs = float(warm["walked"].sum()) * 128 * q_tile
-    n_bytes = (qp * 3 * 4 + warm["pack"].dbf_cm.numel() * 4
-               + warm["lists"].numel() * 4 + warm["cnt"].numel() * 4
-               + qp * (4 + 4 + 4 * (f_total - 3)))
-    b, by = bound_ms(n_bytes, pairs * NN_OPS_PER_PAIR_3D)
-    return dict(name="nn_list", route="cuda",
-                source="icp_rust_tpu_torch/csrc/nn_list.cu",
-                replaces="icp_rust_tpu/ops/nn_pallas.py:873",
-                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                bound_ms=b, bound_by=by, library_ms=None)
+    rec = _nn_list_record(warm, q_tile, device)
+    rec.update(path="main", max_abs_err=max(errs))
+    return rec
 
 
 def phase_irls(device="cuda", stride: int = 1):
@@ -304,7 +364,7 @@ def phase_irls(device="cuda", stride: int = 1):
     n = s_xy.shape[0]
     ops = float(int(it)) * float(smask.sum()) * IRLS_OPS_PER_POINT
     b, by = bound_ms(5 * n * 4 + 8 * 4, ops)
-    return dict(name="irls_loop", route="cuda",
+    return dict(name="irls_loop", route="cuda", path="main",
                 source="icp_rust_tpu_torch/csrc/irls_loop.cu",
                 replaces="icp_rust_tpu/ops/align2d_pallas.py:714",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
@@ -356,7 +416,7 @@ def phase_frame(device="cuda", n: int = 640, pad: int = 768):
            + inner * n_src * IRLS_OPS_PER_POINT)
     # src (N, 2) and mask, dst (M, 2), warm start 6 floats, output 8.
     b, by = bound_ms(pad * 4 * 3 + pad * 4 * 2 + 14 * 4, ops)
-    return dict(name="icp2d_frame", route="cuda",
+    return dict(name="icp2d_frame", route="cuda", path="2d",
                 source="icp_rust_tpu_torch/csrc/icp2d_frame.cu",
                 replaces="icp_rust_tpu/ops/align2d_pallas.py:888",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
@@ -625,7 +685,7 @@ def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
         pairs = float(c["walked"]) * 128 * q_sub
         b, by = bound_ms(n_bytes, pairs * NN_OPS_PER_PAIR_2D)
         records.append(dict(
-            name=rec_name, route="cuda",
+            name=rec_name, route="cuda", path="batched",
             source=f"icp_rust_tpu_torch/csrc/{src_file}",
             replaces=f"icp_rust_tpu/ops/nn_pallas.py:{line}",
             max_abs_err=errs[kind], ms=ms, plain_ms=plain_ms, bound_ms=b,
@@ -677,7 +737,7 @@ def phase_irls_batched(device="cuda", n_scans: int = BATCH_SCANS,
         * IRLS_OPS_PER_POINT
     b, by = bound_ms(5 * s.shape[0] * s.shape[1] * 4 + s.shape[0] * 8 * 4,
                      ops)
-    return dict(name="irls_loop_batched", route="cuda",
+    return dict(name="irls_loop_batched", route="cuda", path="batched",
                 source="icp_rust_tpu_torch/csrc/irls_loop_batched.cu",
                 replaces="icp_rust_tpu/ops/align2d_pallas.py:1127",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
@@ -723,7 +783,7 @@ def phase_frame_pairs(device="cuda", n_scans: int = BATCH_SCANS,
     ops = float((its_k.double() * n_src * (n_dst * NN_OPS_PER_PAIR_2D + 6)
                  + inner * n_src * IRLS_OPS_PER_POINT).sum())
     b_ms, by = bound_ms(b * (pad * 4 * 3 + pad * 4 * 2 + 14 * 4), ops)
-    return dict(name="icp2d_frame_pairs", route="cuda",
+    return dict(name="icp2d_frame_pairs", route="cuda", path="batched",
                 source="icp_rust_tpu_torch/csrc/icp2d_frame_pairs.cu",
                 replaces="icp_rust_tpu/ops/align2d_pallas.py:979",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -838,6 +898,286 @@ def profile_batched(device="cuda", n_scans: int = BATCH_SCANS,
     print(avgs.table(sort_by="self_device_time_total", row_limit=20))
 
 
+def _p2l_pair(device, stride: int, voxel: float = P2L_VOXEL_M):
+    """Frames 0 (src) and 1 (dst), Morton-sorted as icp_point_to_plane
+    sorts them, with dst's voxel normals and the [n, c] payload."""
+    src, smask, dst, dmask = _first_pair(device, stride)
+    normals, n_valid = estimate_normals_voxel(dst, dmask, voxel)
+    payload = m_p2l.build_p2l_payload(dst, normals, n_valid, dmask)
+    return src, smask, dst, dmask, payload
+
+
+def phase_nn_list_p2l(device="cuda", stride: int = 1, tile: int = 2048,
+                      q_tile: int = 256):
+    """Kernel 1 at the p2l payload (D = 3, F = 4): the cold bound, the warm
+    bound of one real p2l outer step, and a masked db whose normals are
+    partly invalid (sentinel c)."""
+    cfg = _config(nn_dst_tile=tile, nn_query_tile=q_tile)
+    src, smask, dst, dmask, payload = _p2l_pair(device, stride)
+    n = src.shape[0]
+    qp = -(-n // q_tile) * q_tile
+    eps = torch.finfo(torch.float32).eps
+
+    def cold(query_p, pack):
+        return nn_cuda._center_bound(query_p, pack.cbox, 3)
+
+    c = _nn_list_case("p2l cold", src, dst, dmask, payload, cold, device,
+                      tile, q_tile)
+    # One real p2l outer step: the solve on the cold correspondences, then
+    # the warm bound of the next iteration (3D move).
+    dist = nn_cuda._trim_sentinel(c["dist"])
+    m_n, matched, ok = m_p2l.decode_p2l_payload(c["pay"], dist)
+    dt = align3d.estimate_transform_p2l(src, matched, m_n, smask & ok, cfg)
+    src1 = dt.apply_points(src)
+    move = torch.linalg.norm(src1 - src, dim=-1)
+    qb_w = (torch.sqrt(dist) + move) ** 2 * (1.0 + 32.0 * eps)
+
+    def warm_bound(query_p, pack):
+        qb = torch.full((qp,), float("-inf"), device=device)
+        qb[:n] = qb_w
+        return qb
+
+    warm = _nn_list_case("p2l warm", src1, dst, dmask, payload, warm_bound,
+                         device, tile, q_tile)
+    gen = torch.Generator(device="cpu").manual_seed(7)
+    drop = torch.rand(dst.shape[0], generator=gen).to(device) < 0.5
+    dm2 = dmask & ~drop
+    normals2, valid2 = estimate_normals_voxel(dst, dm2, P2L_VOXEL_M)
+    pay2 = m_p2l.build_p2l_payload(dst, normals2, valid2, dm2)
+    masked = _nn_list_case("p2l masked-db", src, dst, dm2, pay2, cold,
+                           device, tile, q_tile)
+    sentinel = int((pay2[:, 3] >= m_p2l._C_VALID_MAX).sum())
+    print(f"# nn_list p2l masked-db: {sentinel} db rows carry the sentinel "
+          "plane offset")
+    rec = _nn_list_record(warm, q_tile, device)
+    rec.update(path="p2l", max_abs_err=max(c["err"], warm["err"],
+                                           masked["err"]))
+    return rec
+
+
+def _first_p2l_correspondences(device, stride: int):
+    """Frame 1's first-iteration p2l correspondences (cold exact NN of the
+    sorted frame 0 against the sorted frame 1): (src, matched plane
+    points, matched normals, pair mask)."""
+    src, smask, dst, dmask, payload = _p2l_pair(device, stride)
+    res, pay = nearest_neighbor_matched(src, dst, dmask, payload=payload,
+                                        backend="torch")
+    m_n, matched, ok = m_p2l.decode_p2l_payload(pay, res.dist_sq)
+    return src, matched, m_n, smask & ok
+
+
+def _degenerate_p2l(src, matched, m_n, mask):
+    """The systems that must stop at iteration 1 with the identity: one
+    plane (a Cholesky pivot fails), 5 valid points, sigma = 0 (every
+    residual 0) and an all-masked input."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    noise = (torch.rand(src.shape[0], generator=gen) * 0.01).to(src.device)
+    z = torch.zeros_like(m_n)
+    z[:, 2] = 1.0
+    plane = src.clone()
+    plane[:, 2] = plane[:, 2] + 0.01 + noise
+    five = torch.zeros_like(mask)
+    five[torch.nonzero(mask)[:5, 0]] = True
+    return {"one-plane": (src, plane, z, mask),
+            "five-points": (src, matched, m_n, five),
+            "sigma-0": (src, src, m_n, mask),
+            "all-masked": (src, matched, m_n, torch.zeros_like(mask))}
+
+
+def phase_p2l_loop(device="cuda", stride: int = 1):
+    """Kernel 11 vs its plain version on frame 1's first-iteration
+    correspondences, and the degenerate systems."""
+    cfg = _config()
+    src, matched, m_n, mask = _first_p2l_correspondences(device, stride)
+    solver = (cfg.huber_k, cfg.inner_delta_sq_tol, cfg.inner_max_iter,
+              cfg.point_scale)
+    args = (src, matched, m_n, mask, *solver)
+    rot, t, it = align3d_cuda.p2l_loop(*args)
+    rot_p, t_p, it_p = align3d_cuda.p2l_loop_plain(*args)
+    err = max(float(torch.max(torch.abs(rot - rot_p))),
+              float(torch.max(torch.abs(t - t_p))))
+    print(f"# p2l_loop: {int(mask.sum())} valid of {src.shape[0]} points; "
+          f"iterations kernel {int(it)} plain {int(it_p)}; max |diff| rot/t "
+          f"{err:.3e} (tol {IRLS_TOL})")
+    if not err <= IRLS_TOL:
+        raise RuntimeError(f"p2l_loop differs from its plain version: {err}")
+    if int(it) != int(it_p):
+        raise RuntimeError("p2l_loop: iteration count differs from the "
+                           "plain version's")
+    eye = torch.eye(3, device=src.device)
+    for name, case in _degenerate_p2l(src, matched, m_n, mask).items():
+        for fn in (align3d_cuda.p2l_loop, align3d_cuda.p2l_loop_plain):
+            r_d, t_d, it_d = fn(*case, *solver)
+            if not (torch.equal(r_d, eye) and bool(torch.all(t_d == 0))
+                    and int(it_d) == 1):
+                raise RuntimeError(f"{fn.__name__} {name}: moved or ran "
+                                   f"{int(it_d)} iterations")
+        print(f"# p2l_loop {name}: kernel and plain stop at iteration 1 "
+              "with the identity")
+    ms = time_ms(lambda: align3d_cuda.p2l_loop(*args), device, reps=20)
+    plain_ms = time_ms(lambda: align3d_cuda.p2l_loop_plain(*args), device,
+                       reps=1)
+    ops = float(int(it)) * float(mask.sum()) * P2L_OPS_PER_POINT
+    b, by = bound_ms(10 * src.shape[0] * 4 + 16 * 4, ops)
+    return dict(name="p2l_loop", route="cuda", path="p2l",
+                source="icp_rust_tpu_torch/csrc/p2l_loop.cu",
+                replaces="icp_rust_tpu/ops/align3d_pallas.py:252",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None, iterations=int(it))
+
+
+def phase_p2l_stats(device="cuda", stride: int = 1):
+    """Kernel 14 vs its plain version at the identity and at one warm
+    transform, through align3d.weighted_gn_update_p2l_cuda (kernel 14's
+    path: its launches are counted there)."""
+    cfg = _config()
+    src, matched, m_n, mask = _first_p2l_correspondences(device, stride)
+    ident = RigidTransform3.identity(device=src.device)
+    warm = align3d.estimate_transform_p2l(
+        src, matched, m_n, mask, cfg.with_(align_backend="torch"))
+    k = cfg.huber_k
+    _sync(device)
+    cuda_build.reset_launches()
+    updates = [align3d.weighted_gn_update_p2l_cuda(t, src, matched, m_n,
+                                                    mask, k)
+               for t in (ident, warm)]
+    _sync(device)
+    launches = dict(cuda_build.LAUNCHES)
+    worst, abs_err = 0.0, 0.0
+    for name, t, upd in zip(("identity", "warm"), (ident, warm), updates):
+        got = align3d_cuda.p2l_stats(src, matched, m_n, mask, t.rot, t.t, k)
+        want = align3d_cuda.p2l_stats_plain(src, matched, m_n, mask, t.rot,
+                                            t.t, k)
+        rel, dn, sig_rel = align3d_cuda.stats_errors(got, want)
+        abs_err = max(abs_err, float(torch.max(torch.abs(got - want))))
+        print(f"# p2l_stats {name}: sums and error max rel {rel:.3e} "
+              f"(tol {P2L_STATS_TOL}), count diff {dn:g}, sigma rel "
+              f"{sig_rel:.3e} (tol {P2L_SIGMA_TOL}); update ok "
+              f"{bool(upd.ok)}")
+        if not (rel <= P2L_STATS_TOL and dn == 0.0
+                and sig_rel <= P2L_SIGMA_TOL):
+            raise RuntimeError(f"p2l_stats {name} differs from its plain "
+                               "version")
+        worst = max(worst, rel)
+    args = (src, matched, m_n, mask, warm.rot, warm.t, k)
+    ms = time_ms(lambda: align3d_cuda.p2l_stats(*args), device, reps=20)
+    plain_ms = time_ms(lambda: align3d_cuda.p2l_stats_plain(*args), device,
+                       reps=3)
+    ops = float(mask.sum()) * P2L_OPS_PER_POINT
+    b, by = bound_ms(10 * src.shape[0] * 4 + 12 * 4 + 32 * 4, ops)
+    return dict(name="p2l_stats", route="cuda", path="p2l_stats",
+                source="icp_rust_tpu_torch/csrc/p2l_stats.cu",
+                replaces="icp_rust_tpu/ops/align3d_pallas.py:120",
+                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None, launches=launches["p2l_stats"],
+                max_rel_err=worst)
+
+
+def _run_p2l(pts, mask, cfg, device, voxel: float = P2L_VOXEL_M):
+    """One timed ``run_odometry_p2l_fused`` call with the launch counts
+    zeroed just before it; returns (transforms, path, stats, seconds,
+    launches)."""
+    _sync(device)
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    tf, path, stats = run_odometry_p2l_fused(pts, mask, cfg, voxel,
+                                             with_metrics=True,
+                                             device=device)
+    _sync(device)
+    return tf, path, stats, time.perf_counter() - t0, \
+        dict(cuda_build.LAUNCHES)
+
+
+def phase_p2l(device="cuda", n_frames: int = 96, stride: int = 1,
+              plain_frames: int = 8, tile: int = 2048,
+              voxel: float = P2L_VOXEL_M):
+    """The p2l path: SE(3) point-to-plane odometry over the synthetic
+    sequence, twice (bitwise equal; the second run timed), then the plain
+    path on the first frames.  ``voxel``: the normals' voxel size, for
+    subsampled frames."""
+    pts, mask, gt = frames3d(n_frames, stride)
+    cfg = _config(nn_dst_tile=tile)
+    tf1, path1, _, first_sec, _ = _run_p2l(pts, mask, cfg, device, voxel)
+    tf, path, stats, sec, launches = _run_p2l(pts, mask, cfg, device, voxel)
+    if not (np.array_equal(path, path1) and torch.equal(tf.rot, tf1.rot)
+            and torch.equal(tf.t, tf1.t)):
+        raise RuntimeError("p2l path: two runs differ")
+    ate = ate_rmse(path[:, :2], gt)
+    z_max = float(np.abs(path[:, 2]).max())
+    outer = stats.outer_iters.cpu().numpy()
+    total = int(outer.sum())
+    fps = (n_frames - 1) / sec
+    print(f"# p2l path: {n_frames} frames of {pts.shape[1]} points, "
+          f"{sec:.4f} s, {fps:.2f} frames/s (host clock; first run "
+          f"{first_sec:.4f} s), bitwise equal to the first run; ATE-xy vs "
+          f"ground truth {ate:.6f} m, max |z| {z_max:.6f} m; outer "
+          f"iterations per frame mean {outer.mean():.3f} min {outer.min()} "
+          f"max {outer.max()} total {total}; launches {launches}")
+    if not ate < ATE_GATE_M:
+        raise RuntimeError(f"p2l path ATE-xy {ate} >= {ATE_GATE_M}")
+    if not z_max < P2L_Z_GATE_M:
+        raise RuntimeError(f"p2l path max |z| {z_max} >= {P2L_Z_GATE_M}")
+    on_card = torch.device(device).type == "cuda"
+    if on_card and not (launches["nn_list"] == launches["p2l_loop"] == total
+                        and total > 0):
+        raise RuntimeError(f"p2l path launches {launches}, expected "
+                           f"{total} nn_list and p2l_loop")
+    plain_cfg = cfg.with_(nn_backend="torch", align_backend="torch")
+    _, p_path, _, p_sec, p_launch = _run_p2l(pts[:plain_frames],
+                                             mask[:plain_frames], plain_cfg,
+                                             device, voxel)
+    d = ate_rmse(p_path, path[:plain_frames - 1])
+    print(f"# p2l plain path on the first {plain_frames} frames: "
+          f"{p_sec:.3f} s; trajectory vs kernel path {d:.3e} m (gate "
+          f"{PLAIN_GATE_M})")
+    if any(p_launch.values()):
+        raise RuntimeError(f"p2l plain path launched kernels: {p_launch}")
+    if not d < PLAIN_GATE_M:
+        raise RuntimeError(f"p2l kernel vs plain trajectory {d} m")
+    return dict(launches=launches, ate=ate, z_max=z_max, fps=fps,
+                seconds=sec, outer_mean=float(outer.mean()))
+
+
+def profile_p2l(device="cuda", n_frames: int = 16):
+    """torch.profiler over the p2l path's first ``n_frames`` frames (after
+    a warm-up run): device time by kernel, the device's idle share against
+    an unprofiled run's wall time, and the voxel normals' share (their
+    device time over the same dst frames, profiled on their own)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pts, mask, _ = frames3d(n_frames)
+    cfg = _config()
+    _run_p2l(pts, mask, cfg, device)
+    _, _, _, wall, _ = _run_p2l(pts, mask, cfg, device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _run_p2l(pts, mask, cfg, device)
+    avgs = prof.key_averages()
+    kern = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    frames = n_frames - 1
+    p = torch.as_tensor(pts, dtype=torch.float32, device=device)
+    k = torch.as_tensor(mask, device=device)
+    dsts = [m_icp._spatial_sort(p[i], k[i]) for i in range(1, n_frames)]
+    with profile(activities=[ProfilerActivity.CUDA]) as nprof:
+        for dst, dmask, _ in dsts:
+            estimate_normals_voxel(dst, dmask, P2L_VOXEL_M)
+        _sync(device)
+    normals_ms = sum(e.self_device_time_total for e in nprof.key_averages()
+                     if e.device_type == DeviceType.CUDA) / 1e3
+    print(f"# profile p2l: {frames} frames, unprofiled wall "
+          f"{wall * 1e3:.3f} ms ({wall * 1e3 / frames:.3f} ms/frame); "
+          f"device busy {busy_ms:.3f} ms ({busy_ms / frames:.3f} ms/frame),"
+          f" idle share {1.0 - busy_ms / (wall * 1e3):.4f}; voxel normals "
+          f"{normals_ms:.3f} ms device ({normals_ms / busy_ms:.4f} of busy)")
+    for e in kern[:12]:
+        print(f"# profile p2l kernel {e.self_device_time_total / 1e3:9.3f} "
+              f"ms {e.count:6d} calls  {e.key[:90]}")
+    print(avgs.table(sort_by="self_device_time_total", row_limit=20))
+
+
 def _ptxas_lines(report: dict):
     for name, log in sorted(report.items()):
         for line in log.splitlines():
@@ -869,23 +1209,34 @@ def main() -> int:
     records += phase_nn_pairs(device)
     records += [phase_irls_batched(device), phase_frame_pairs(device)]
     batched = phase_batched(device)
+    records += [phase_nn_list_p2l(device), phase_p2l_loop(device),
+                phase_p2l_stats(device)]
+    p2l = phase_p2l(device)
     if profile_run:
         profile_main(device)
         profile_batched(device)
-    launches = {"nn_list": main_run["launches"]["nn_list"],
-                "irls_loop": main_run["launches"]["irls_loop"],
-                "icp2d_frame": run_2d["launches"]["icp2d_frame"],
-                "nn_pairs": batched["launches"]["nn_pairs"],
-                "nn_pairs_list": batched["launches"]["nn_pairs_list"],
-                "irls_loop_batched": batched["launches"]["irls_loop_batched"],
-                "icp2d_frame_pairs":
-                    batched["frame_launches"]["icp2d_frame_pairs"]}
+        profile_p2l(device)
+    launches = {
+        ("nn_list", "main"): main_run["launches"]["nn_list"],
+        ("irls_loop", "main"): main_run["launches"]["irls_loop"],
+        ("icp2d_frame", "2d"): run_2d["launches"]["icp2d_frame"],
+        ("nn_pairs", "batched"): batched["launches"]["nn_pairs"],
+        ("nn_pairs_list", "batched"): batched["launches"]["nn_pairs_list"],
+        ("irls_loop_batched", "batched"):
+            batched["launches"]["irls_loop_batched"],
+        ("icp2d_frame_pairs", "batched"):
+            batched["frame_launches"]["icp2d_frame_pairs"],
+        ("nn_list", "p2l"): p2l["launches"]["nn_list"],
+        ("p2l_loop", "p2l"): p2l["launches"]["p2l_loop"],
+    }
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        if (rec["name"], rec["path"]) in launches:
+            rec["launches"] = launches[(rec["name"], rec["path"])]
         if rec["launches"] <= 0:
-            raise RuntimeError(f"{rec['name']} never launched on its path")
+            raise RuntimeError(f"{rec['name']} never launched on its path "
+                               f"({rec['path']})")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
     print(json.dumps({"kernels": [{k: r[k] for k in keys}
                                   for r in records]}))
     print(smi)

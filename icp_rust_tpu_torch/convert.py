@@ -5,8 +5,8 @@ The system has no weights; its state is a configuration and a transform.
 package's config (``dataclasses.asdict``), with the backend names mapped
 ("xla" -> "torch", "pallas" and "pairs" -> "cuda") and the compute
 dtype taken by name; ``transform_from_numpy`` builds a
-``RigidTransform2``.  Neither imports the JAX package: they take plain
-values.
+``RigidTransform2`` and ``transform3_from_numpy`` a ``RigidTransform3``.
+None imports the JAX package: they take plain values.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import torch
 
 from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
+from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
 
 # "pairs" forced the pair-grid NN kernels for a batched query; here the
 # kernel route ("cuda") takes them for every batched query they serve.
@@ -59,12 +60,26 @@ def config_from_fields(fields: dict) -> ICPConfig:
     return ICPConfig(**out)
 
 
-def transform_from_numpy(rot, t, device="cpu",
-                         dtype=None) -> RigidTransform2:
-    """RigidTransform2 from array-likes rot (..., 2, 2) and t (..., 2)."""
+def _rt_tensors(rot, t, device, dtype):
     rot = np.asarray(rot)
     t = np.asarray(t)
     dt = dtype if dtype is not None else _dtype_by_name(rot.dtype)
-    return RigidTransform2(
-        rot=torch.as_tensor(rot).to(device=device, dtype=dt),
-        t=torch.as_tensor(t).to(device=device, dtype=dt))
+    return (torch.as_tensor(rot).to(device=device, dtype=dt),
+            torch.as_tensor(t).to(device=device, dtype=dt))
+
+
+def transform_from_numpy(rot, t, device="cpu",
+                         dtype=None) -> RigidTransform2:
+    """RigidTransform2 from array-likes rot (..., 2, 2) and t (..., 2)."""
+    return RigidTransform2(*_rt_tensors(rot, t, device, dtype))
+
+
+def transform3_from_numpy(rot, t, device="cpu",
+                          dtype=None) -> RigidTransform3:
+    """RigidTransform3 from array-likes rot (..., 3, 3) and t (..., 3), e.g.
+    the JAX package's ``RigidTransform3`` state as numpy arrays."""
+    rot, t = _rt_tensors(rot, t, device, dtype)
+    if rot.shape[-2:] != (3, 3) or t.shape[-1:] != (3,):
+        raise ValueError(f"rot must be (..., 3, 3) and t (..., 3), got "
+                         f"{tuple(rot.shape)}, {tuple(t.shape)}")
+    return RigidTransform3(rot, t)

@@ -37,8 +37,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 SOURCES = ("nn_list", "irls_loop", "icp2d_frame", "nn_pairs",
-           "nn_pairs_list", "irls_loop_batched", "icp2d_frame_pairs")
-HEADERS = ("irls.cuh", "frame.cuh", "nn_pairs.cuh")
+           "nn_pairs_list", "irls_loop_batched", "icp2d_frame_pairs",
+           "p2l_loop", "p2l_stats")
+# Every header is hashed into every library's name, so an edited header
+# rebuilds whatever includes it.
+HEADERS = ("irls.cuh", "frame.cuh", "nn_pairs.cuh", "p2l.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--fmad=false")
 
@@ -70,6 +73,15 @@ _SIGNATURES = {
     "icp2d_frame_pairs": ("icp2d_frame_pairs_launch",
                           [_P] * 3 + [_I] * 3 + [_P] * 2 + [_F] * 5 + [_I]
                           + [_F] * 2 + [_I, _P]),
+    # sx sy sz dx dy dz nx ny nz mask; n; scratch, out; huber_k, k2, two_k,
+    # tol_d2; max_iter; s2, small_angle; stream
+    "p2l_loop": ("p2l_loop_launch",
+                 [_P] * 10 + [_I] + [_P] * 2 + [_F] * 4 + [_I] + [_F] * 2
+                 + [_P]),
+    # sx sy sz dx dy dz nx ny nz mask; n; rt, scratch, out; huber_k, k2,
+    # two_k; stream
+    "p2l_stats": ("p2l_stats_launch",
+                  [_P] * 10 + [_I] + [_P] * 3 + [_F] * 3 + [_P]),
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}

@@ -8,9 +8,12 @@ and ``--noconftest`` keeps the JAX test setup out):
 
 Tolerances: nn_list, nn_pairs and nn_pairs_list are bitwise equal to
 their plain versions (indices, distances and payload).  irls_loop,
-irls_loop_batched, icp2d_frame and icp2d_frame_pairs take their sums in
-another order than the plain versions: rot and t within 1e-5.
-chip_smoke.py runs the same comparisons at the main path's full size.
+irls_loop_batched, icp2d_frame, icp2d_frame_pairs and p2l_loop take
+their sums in another order than the plain versions: rot and t within
+1e-5, equal iteration counts for p2l_loop.  p2l_stats: the 27 sums and
+the error within 1e-5 of the Cauchy-Schwarz bound of each sum's absolute
+terms, the count exact, sigma within 1e-6 relative.  chip_smoke.py runs
+the same comparisons at the main path's full size.
 """
 
 import numpy as np
@@ -19,9 +22,11 @@ import torch
 
 from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
-from icp_rust_tpu_torch.models.odometry import ate_rmse, run_odometry_fused
-from icp_rust_tpu_torch.ops import align2d_cuda, cuda_build, nn_cuda, \
-    nn_pairs_cuda
+from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
+from icp_rust_tpu_torch.models.odometry import ate_rmse, \
+    run_odometry_fused, run_odometry_p2l_fused
+from icp_rust_tpu_torch.ops import align2d_cuda, align3d, align3d_cuda, \
+    cuda_build, nn_cuda, nn_pairs_cuda
 from icp_rust_tpu_torch.parallel import batched_icp2d
 from icp_rust_tpu_torch.utils import io
 
@@ -278,3 +283,86 @@ def test_batched_kernels_refuse_float64(dev):
     lists, cnt = nn_pairs_cuda._survivor_lists(qp, cbox, qb, 2, 256, 64)
     with pytest.raises(TypeError):
         nn_pairs_cuda.nn_pairs_list(qp, dbf, lists, cnt, 2, 256)
+
+
+def _p2l_problem(dev, n=3000, seed=5):
+    """Random unit normals, a shifted noisy dst and a partial mask."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-2, 2, (n, 3))
+    nrm = rng.normal(size=(n, 3))
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    dst = src + rng.normal(0, 0.02, (n, 3)) + [0.1, -0.05, 0.03]
+    mask = rng.random(n) > 0.15
+    return [torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (src, dst, nrm)] + [torch.as_tensor(mask, device=dev)]
+
+
+@pytest.mark.parametrize("case", ["generic", "one-plane", "five-points",
+                                  "sigma-0", "all-masked"])
+def test_p2l_loop_kernel_matches_plain(dev, case):
+    src, dst, nrm, mask = _p2l_problem(dev)
+    if case == "one-plane":
+        nrm = torch.zeros_like(nrm)
+        nrm[:, 2] = 1.0
+        dst = src.clone()
+        dst[:, 2] += 0.01 + torch.linspace(0, 0.01, src.shape[0], device=dev)
+    elif case == "five-points":
+        mask = torch.zeros_like(mask)
+        mask[:5] = True
+    elif case == "sigma-0":
+        dst = src.clone()
+    elif case == "all-masked":
+        mask = torch.zeros_like(mask)
+    args = (src, dst, nrm, mask, 1.345, 1e-6, 200, 1.0)
+    before = cuda_build.LAUNCHES["p2l_loop"]
+    rot, t, it = align3d_cuda.p2l_loop(*args)
+    assert cuda_build.LAUNCHES["p2l_loop"] == before + 1
+    rot_p, t_p, it_p = align3d_cuda.p2l_loop_plain(*args)
+    assert int(it) == int(it_p)
+    torch.testing.assert_close(rot, rot_p, atol=SOLVER_TOL, rtol=0)
+    torch.testing.assert_close(t, t_p, atol=SOLVER_TOL, rtol=0)
+    if case != "generic":
+        assert int(it) == 1 and torch.equal(rot, torch.eye(3, device=dev))
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_p2l_stats_kernel_matches_plain(dev, warm):
+    src, dst, nrm, mask = _p2l_problem(dev)
+    t = RigidTransform3.identity(device=dev)
+    if warm:
+        t = RigidTransform3.from_twist(torch.tensor(
+            [0.09, -0.04, 0.03, 0.01, -0.005, 0.002], device=dev))
+    before = cuda_build.LAUNCHES["p2l_stats"]
+    upd = align3d.weighted_gn_update_p2l_cuda(t, src, dst, nrm, mask, 1.345)
+    assert cuda_build.LAUNCHES["p2l_stats"] == before + 1
+    assert bool(upd.ok)
+    got = align3d_cuda.p2l_stats(src, dst, nrm, mask, t.rot, t.t, 1.345)
+    want = align3d_cuda.p2l_stats_plain(src, dst, nrm, mask, t.rot, t.t,
+                                        1.345)
+    rel, dn, sig_rel = align3d_cuda.stats_errors(got, want)
+    assert rel <= 1e-5 and dn == 0 and sig_rel <= 1e-6
+
+
+def test_p2l_odometry_on_the_card_tracks_the_plain_path(dev):
+    frames, _ = io.synthesize_frames3d(4, seed=0)
+    pts, mask = io.pad_points([f[::4] for f in frames])
+    cfg = ICPConfig(nn_dst_tile=1024, det_rel_eps=1e-9)
+    cuda_build.reset_launches()
+    _, path = run_odometry_p2l_fused(pts, mask, cfg, 0.45)
+    assert cuda_build.LAUNCHES["nn_list"] > 0
+    assert cuda_build.LAUNCHES["p2l_loop"] == cuda_build.LAUNCHES["nn_list"]
+    _, again = run_odometry_p2l_fused(pts, mask, cfg, 0.45)
+    assert np.array_equal(path, again)  # deterministic on the card
+    _, plain = run_odometry_p2l_fused(
+        pts, mask, cfg.with_(nn_backend="torch", align_backend="torch"), 0.45)
+    assert ate_rmse(path, plain) < 1e-3
+
+
+def test_p2l_kernels_refuse_float64(dev):
+    x = torch.zeros((256, 3), dtype=torch.float64, device=dev)
+    m = torch.ones(256, dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        align3d_cuda.p2l_loop(x, x, x, m, 1.345, 1e-6, 200, 1.0)
+    with pytest.raises(TypeError):
+        align3d_cuda.p2l_stats(x, x, x, m, torch.eye(3, device=dev),
+                               torch.zeros(3, device=dev), 1.345)

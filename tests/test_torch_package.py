@@ -19,8 +19,11 @@ from icp_rust_tpu.config import REFERENCE_CONFIG as JAX_REFERENCE
 from icp_rust_tpu_torch import convert
 from icp_rust_tpu_torch.config import REFERENCE_CONFIG, ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
+from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
 from icp_rust_tpu_torch.models import icp2d as m_icp
-from icp_rust_tpu_torch.models.odometry import run_odometry_fused
+from icp_rust_tpu_torch.models.icp_p2l import icp_point_to_plane
+from icp_rust_tpu_torch.models.odometry import run_odometry_fused, \
+    run_odometry_p2l_fused
 from icp_rust_tpu_torch.ops import cuda_build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -73,6 +76,8 @@ def test_importing_the_port_loads_no_jax():
         "import icp_rust_tpu_torch\n"
         "import icp_rust_tpu_torch.convert, icp_rust_tpu_torch.models.odometry\n"
         "import icp_rust_tpu_torch.ops.nn_cuda, icp_rust_tpu_torch.ops.align2d_cuda\n"
+        "import icp_rust_tpu_torch.ops.align3d_cuda, icp_rust_tpu_torch.ops.normals\n"
+        "import icp_rust_tpu_torch.models.icp_p2l, icp_rust_tpu_torch.geometry\n"
         "import icp_rust_tpu_torch.utils.io\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'icp_rust_tpu' or m.startswith('icp_rust_tpu.')]\n"
@@ -95,7 +100,8 @@ def _pair3d(n=256):
     return pts, np.ones(n, bool)
 
 
-@pytest.mark.parametrize("entry", ["icp2d", "icp3d_planar", "odometry"])
+@pytest.mark.parametrize("entry", ["icp2d", "icp3d_planar", "odometry",
+                                   "icp_point_to_plane", "odometry_p2l"])
 def test_entry_points_raise_without_a_card(entry):
     _no_card()
     pts, mask = _pair3d()
@@ -105,6 +111,11 @@ def test_entry_points_raise_without_a_card(entry):
             m_icp.icp2d(pts[:, :2], pts[:, :2], mask, mask, t0)
         elif entry == "icp3d_planar":
             m_icp.icp3d_planar(pts, pts, mask, mask, t0)
+        elif entry == "icp_point_to_plane":
+            icp_point_to_plane(pts, pts, mask, mask, RigidTransform3.identity())
+        elif entry == "odometry_p2l":
+            run_odometry_p2l_fused(np.stack([pts, pts]),
+                                   np.stack([mask, mask]))
         else:
             run_odometry_fused(np.stack([pts, pts]), np.stack([mask, mask]))
 
