@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the nine Hopper kernels from ``icp_rust_tpu_torch/csrc`` (one
+Builds the twelve Hopper kernels from ``icp_rust_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together; prints the ptxas register and
 spill lines), then runs these phases; any failure exits non-zero:
 
@@ -72,6 +72,32 @@ workload of benchmarks/bench_p2l.py), with voxel normals at 0.3 m:
     ``align_backend="torch"``) over the first 8 frames within 1 mm, with
     no launch.
 
+The full-sequence SLAM paths:
+
+14. nn_sweep, nn_matched and nn_pruned (kernels 5, 4 and 6: exact 1-NN
+    sweeps without survivor lists) vs their plain versions and a
+    brute-force sweep, bitwise (dist, idx, payload): nn_pruned at
+    run_slam3d's full width (frames 0 and 1 as it pads them, 28,160
+    points, unsorted and Morton-sorted), with exact ties, a masked db,
+    the p2l payload unseeded and a fully masked db; nn_sweep and
+    nn_matched (p2l payload) on 3072-point frames, fully masked dbs, and
+    8 pairs of full xy scans with a batch axis (xy payload).
+15. ``run_slam3d`` over the 96 frames with its defaults (loop radius 1 m,
+    gap 8, at most 16 candidates, voxel normals at 0.3 m), twice (the
+    second run timed): frames/s, candidates, closures (gate >= 1), graph
+    error (gate: after <= before), ATE-xy of the optimized path (gate <
+    0.05 m), launches (nn_pruned once per consecutive pair and verified
+    candidate); the kernel and the plain path on the first 12 frames
+    within 1 mm, the plain one with no launch.
+16. ``run_slam3d`` on the room-and-ramp loop of the JAX package's
+    tests/test_slam3d.py (28 poses of 3072 points): nn_matched and
+    nn_sweep launch, nn_pruned and nn_list do not; >= 1 closure; the end
+    error of the optimized path <= max(0.8 x odometry's, 0.02 m).
+17. ``run_slam2d`` on the batched path's 210 scans (pair-grid and batched
+    IRLS kernels; the mean NN distance on the plain sweep): gate error
+    after <= before; then on the xy of 12 full frames: nn_matched and
+    nn_sweep launch with a batch axis.
+
 The launch counts of each path are zeroed just before it and read just
 after.  Prints one ``{"kernels": [...]}`` line, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Bounds:
@@ -81,9 +107,10 @@ operations / 67 TFLOP/s (H100 SXM float32 without tensor cores).
     python3 chip_smoke.py --profile
 
 adds torch.profiler traces of the main path's first 16 frames, of the
-batched path and of the p2l path's first 16 frames (with the voxel
-normals' share): device time by kernel and the device's idle share, and
-the profiler's tables.
+batched path, of the p2l path's first 16 frames (with the voxel normals'
+share) and of run_slam3d over the 96 frames (with a host-clock split into
+its ICP calls, its mean-NN-distance calls and its graph solve): device
+time by kernel and the device's idle share, and the profiler's tables.
 
 The phases take ``device`` and sizes, so a CPU test rehearses them at a
 tiny size with the kernels' plain versions.
@@ -105,10 +132,12 @@ from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
 from icp_rust_tpu_torch.models import icp2d as m_icp
 from icp_rust_tpu_torch.models import icp_p2l as m_p2l
+from icp_rust_tpu_torch.models import slam as m_slam
 from icp_rust_tpu_torch.models.odometry import ate_rmse, \
     run_odometry_fused, run_odometry_p2l_fused
+from icp_rust_tpu_torch.models.slam import run_slam2d, run_slam3d
 from icp_rust_tpu_torch.ops import align2d, align2d_cuda, align3d, \
-    align3d_cuda, cuda_build, nn_cuda, nn_pairs_cuda
+    align3d_cuda, cuda_build, nn_cuda, nn_pairs_cuda, nn_sweep_cuda
 from icp_rust_tpu_torch.ops.nn import nearest_neighbor_matched, nn_torch
 from icp_rust_tpu_torch.ops.normals import estimate_normals_voxel
 from icp_rust_tpu_torch.parallel.sharded import batched_icp2d
@@ -1178,6 +1207,411 @@ def profile_p2l(device="cuda", n_frames: int = 16):
     print(avgs.table(sort_by="self_device_time_total", row_limit=20))
 
 
+def _frames_as_run(frames, device):
+    """Frames stacked as the SLAM entry points stack them (padded to a
+    multiple of 128, unsorted): (points, masks) on ``device``."""
+    pts, mask = io.pad_points(frames)
+    return (torch.as_tensor(pts, dtype=torch.float32, device=device),
+            torch.as_tensor(mask, device=device))
+
+
+def _sweep_check(kind, name, query, db, dmask, payload, device,
+                 q_tile: int, db_tile: int):
+    """One kernel 4/5/6 check: the kernel vs its plain version (bitwise
+    dist, idx, payload) and vs a brute-force sweep (idx, trimmed dist, the
+    winner's payload where a valid point exists, zeros where none does).
+    query (..., Q, D); db (..., M, D).  Returns the timing record's
+    inputs."""
+    d_dim = query.shape[-1]
+    n = query.shape[-2]
+    if kind == "nn_pruned":
+        args = nn_sweep_cuda.prepare_pruned(query, db, dmask, payload, q_tile,
+                                            db_tile) + (d_dim, q_tile,
+                                                        db_tile)
+        fn, plain = nn_sweep_cuda.nn_pruned, nn_sweep_cuda.nn_pruned_plain
+    else:
+        q_pad = -(-n // q_tile) * q_tile
+        query_p = torch.zeros((*query.shape[:-2], q_pad, d_dim),
+                              dtype=torch.float32, device=device)
+        query_p[..., :n, :] = query
+        m_pad = -(-db.shape[-2] // db_tile) * db_tile
+        pay = db[..., :0] if payload is None else payload
+        dbf_cm = nn_cuda._dbf_cm_matched(db, dmask, pay, m_pad)
+        if kind == "nn_sweep":
+            args = (query_p, dbf_cm)
+            fn, plain = nn_sweep_cuda.nn_sweep, nn_sweep_cuda.nn_sweep_plain
+        else:
+            args = (query_p, dbf_cm, d_dim)
+            fn, plain = nn_sweep_cuda.nn_matched, \
+                nn_sweep_cuda.nn_matched_plain
+    got = fn(*args)
+    want = plain(*args)
+    _sync(device)
+    what = f"{kind} {name}"
+    _equal_or_raise(got, want, what)
+    brute = nn_torch(query, db, dmask, tile=db_tile)
+    hit = torch.isfinite(brute.dist_sq)
+    dist = nn_cuda._trim_sentinel(got[0][..., :n])
+    ok = (torch.equal(got[1][..., :n], brute.index)
+          and torch.equal(dist, brute.dist_sq))
+    if payload is not None:
+        pay_n = got[2][..., :n, :]
+        want_pay = torch.take_along_dim(
+            payload.expand(*brute.index.shape[:-1], *payload.shape[-2:]),
+            brute.index[..., None].long(), dim=-2)
+        ok = (ok and torch.equal(pay_n[hit], want_pay[hit])
+              and bool(torch.all(pay_n[~hit] == 0)))
+    if not ok:
+        raise RuntimeError(f"{what}: differs from brute force")
+    fin = torch.isfinite(got[0])
+    err = float(torch.max(torch.abs(got[0][fin] - want[0][fin]))) \
+        if bool(fin.any()) else 0.0
+    walked = None
+    if kind == "nn_pruned":
+        walked = nn_sweep_cuda.tiles_walked(*args)
+    on_card = torch.device(device).type == "cuda"
+    case_ms = time_ms(lambda: fn(*args), device, reps=3 if on_card else 1)
+    batch = f"{query.shape[0]} x " if query.ndim == 3 else ""
+    tiles = ""
+    if walked is not None:
+        slots = (args[0].shape[0] // nn_sweep_cuda.SUB
+                 * (args[1].shape[1] // db_tile))
+        tiles = f"; (block, db tile) sweeps {walked} of {slots}"
+    print(f"# {what}: bitwise equal to plain and brute force; {batch}{n} "
+          f"queries x {db.shape[-2]} db points ({int(dmask.sum())} valid), "
+          f"F = {0 if payload is None else payload.shape[-1]}{tiles}; "
+          f"{case_ms:.4f} ms")
+    return dict(kind=kind, fn=fn, plain=plain, args=args, err=err,
+                walked=walked, n=n, valid=float(dmask.sum()), db_tile=db_tile)
+
+
+_SWEEP_SOURCES = {"nn_sweep": 55, "nn_matched": 177, "nn_pruned": 385}
+
+
+def _sweep_record(case, path: str, device, max_abs_err: float):
+    """Kernel 4, 5 or 6's timing, plain timing and bound at one case's
+    shapes.  Operations: every (query, valid db point) pair of the plain
+    sweeps; for kernel 6 the pairs of the (block, db tile) sweeps it
+    makes on these inputs."""
+    kind, args = case["kind"], case["args"]
+    query_p, dbf_cm = args[0], args[1]
+    d_dim = query_p.shape[-1]
+    reps = 20 if torch.device(device).type == "cuda" else 1
+    ms = time_ms(lambda: case["fn"](*args), device, reps=reps)
+    plain_ms = time_ms(lambda: case["plain"](*args), device, reps=2)
+    b = query_p.shape[0] if query_p.ndim == 3 else 1
+    qp = query_p.shape[-2]
+    f_dim = dbf_cm.shape[-2] - d_dim
+    per_pair = NN_OPS_PER_PAIR_3D if d_dim == 3 else NN_OPS_PER_PAIR_2D
+    if kind == "nn_pruned":
+        pairs = float(case["walked"]) * nn_sweep_cuda.SUB * case["db_tile"]
+        tables = sum(x.numel() * 4 for x in args[2:5])
+    else:
+        pairs = float(case["n"]) * case["valid"]
+        tables = 0
+    n_bytes = (query_p.numel() * 4 + dbf_cm.numel() * 4 + tables
+               + b * qp * (4 + 4 + 4 * f_dim))
+    bound, by = bound_ms(n_bytes, pairs * per_pair)
+    return dict(name=kind, route="cuda", path=path,
+                source=f"icp_rust_tpu_torch/csrc/{kind}.cu",
+                replaces=f"icp_rust_tpu/ops/nn_pallas.py:{_SWEEP_SOURCES[kind]}",
+                max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None)
+
+
+def phase_nn_sweeps(device="cuda", stride: int = 1, small: int = 3072,
+                    n_wide: int = 8, q_tile: int = 512, db_tile: int = 2048):
+    """Kernels 4, 5 and 6 vs their plain versions and a brute-force sweep,
+    at the shapes the SLAM paths give them: kernel 6 at run_slam3d's full
+    width (frames 0 and 1 as it pads them, unsorted and Morton-sorted,
+    with exact ties, a masked db, the p2l payload unseeded and a fully
+    masked db); kernels 5 and 4 on 3072-point frames (2 db tiles; the p2l
+    payload for kernel 4) and on ``n_wide`` pairs of full xy scans (the
+    batched 2D path off the pair-grid route)."""
+    frames, _ = io.synthesize_frames3d(max(n_wide + 1, 2), seed=0)
+    frames = [f[::stride] for f in frames]
+    pts, mask = _frames_as_run(frames, device)
+    src, smask, dst, dmask = pts[0], mask[0], pts[1], mask[1]
+    cases, errs = {}, {"nn_sweep": 0.0, "nn_matched": 0.0, "nn_pruned": 0.0}
+
+    def run(kind, name, query, db, dm, payload=None, qt=q_tile):
+        c = _sweep_check(kind, name, query, db, dm, payload, device, qt,
+                         db_tile)
+        errs[kind] = max(errs[kind], c["err"])
+        cases[(kind, name)] = c
+
+    run("nn_pruned", "full-width", src, dst, dmask)
+    s_src, s_smask, _ = m_icp._spatial_sort(src, smask)
+    s_dst, s_dmask, _ = m_icp._spatial_sort(dst, dmask)
+    run("nn_pruned", "morton-sorted", s_src, s_dst, s_dmask)
+    half = int(dmask.sum()) // 2
+    dup = torch.cat([dst[:half], dst[:half]])
+    run("nn_pruned", "ties", dst[:half], dup,
+        torch.ones(dup.shape[0], dtype=torch.bool, device=device))
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    drop = torch.rand(dst.shape[0], generator=gen).to(device) < 0.5
+    run("nn_pruned", "masked-db", src, dst, dmask & ~drop)
+    normals, n_valid = estimate_normals_voxel(s_dst, s_dmask, P2L_VOXEL_M)
+    payload = m_p2l.build_p2l_payload(s_dst, normals, n_valid, s_dmask)
+    run("nn_pruned", "p2l-payload", s_src, s_dst, s_dmask, payload, qt=256)
+    none = torch.zeros_like(dmask)
+    run("nn_pruned", "all-masked", src, dst, none, payload, qt=256)
+
+    # Small frames (2 db tiles): kernel 5 as _mean_nn_dist, kernel 4 with
+    # the p2l payload as the point-to-plane ICP sorts and packs them.
+    f_src, f_sm, _ = m_icp._spatial_sort(src[:small], smask[:small])
+    f_dst, f_dm, _ = m_icp._spatial_sort(dst[:small], dmask[:small])
+    run("nn_sweep", "small", src[:small], dst[:small], dmask[:small])
+    nrm, nv = estimate_normals_voxel(f_dst, f_dm, P2L_VOXEL_M)
+    run("nn_matched", "small-p2l", f_src, f_dst, f_dm,
+        m_p2l.build_p2l_payload(f_dst, nrm, nv, f_dm), qt=256)
+    run("nn_sweep", "small-all-masked", src[:small], dst[:small],
+        none[:small])
+    run("nn_matched", "small-all-masked", f_src, f_dst, none[:small],
+        f_dst[:, :2], qt=256)
+    # n_wide pairs of full xy scans, a batch grid axis.
+    xy = pts[:, :, :2]
+    run("nn_sweep", "wide-batched", xy[:-1], xy[1:], mask[1:])
+    run("nn_matched", "wide-batched-xy", xy[:-1], xy[1:], mask[1:], xy[1:],
+        qt=256)
+
+    return [
+        _sweep_record(cases[("nn_pruned", "full-width")], "slam3d", device,
+                      errs["nn_pruned"]),
+        _sweep_record(cases[("nn_sweep", "small")], "slam3d-small", device,
+                      errs["nn_sweep"]),
+        _sweep_record(cases[("nn_matched", "small-p2l")], "slam3d-small",
+                      device, errs["nn_matched"]),
+        _sweep_record(cases[("nn_sweep", "wide-batched")], "slam2d-wide",
+                      device, errs["nn_sweep"]),
+        _sweep_record(cases[("nn_matched", "wide-batched-xy")],
+                      "slam2d-wide", device, errs["nn_matched"]),
+    ]
+
+
+def _run_slam(fn, frames, cfg, device, **kw):
+    """One timed SLAM run with the launch counts zeroed just before it;
+    returns (result, seconds, launches)."""
+    _sync(device)
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    res = fn(frames, cfg, device=device, **kw)
+    _sync(device)
+    return res, time.perf_counter() - t0, dict(cuda_build.LAUNCHES)
+
+
+def phase_slam3d(device="cuda", n_frames: int = 96, stride: int = 1,
+                 plain_frames: int = 12, voxel: float = P2L_VOXEL_M):
+    """run_slam3d over the p2l path's synthetic frames with its defaults
+    (loop radius 1 m, gap 8, at most 16 candidates), twice (the second run
+    timed); then the kernel and the plain path on the first
+    ``plain_frames`` frames."""
+    frames, traj = io.synthesize_frames3d(n_frames, seed=0)
+    frames = [f[::stride] for f in frames]
+    c, s = np.cos(traj[0, 2]), np.sin(traj[0, 2])
+    gt = (traj[:, :2] - traj[0, :2]) @ np.array([[c, -s], [s, c]])
+    cfg = _config()
+    kw = dict(normals_voxel_size=voxel)
+    first, first_sec, _ = _run_slam(run_slam3d, frames, cfg, device, **kw)
+    res, sec, launches = _run_slam(run_slam3d, frames, cfg, device, **kw)
+    picked = m_slam._candidates(res.odometry_path, 1.0, 8, 16)
+    ate = ate_rmse(res.optimized_path[:, :2], gt)
+    ate_odo = ate_rmse(res.odometry_path[:, :2], gt)
+    rerun = float(np.abs(res.optimized_path - first.optimized_path).max())
+    print(f"# slam3d: {n_frames} frames of {frames[0].shape[0]}-"
+          f"{max(len(f) for f in frames)} points, {sec:.4f} s per sequence, "
+          f"{n_frames / sec:.2f} frames/s (host clock; first run "
+          f"{first_sec:.4f} s); candidates {len(picked)}, loop closures "
+          f"{res.n_loop_closures}; graph error before {res.error_before:.6e} "
+          f"after {res.error_after:.6e}; ATE-xy vs ground truth optimized "
+          f"{ate:.6f} m, odometry {ate_odo:.6f} m; optimized path vs the "
+          f"first run {rerun:.3e} m; launches {launches}")
+    if res.n_loop_closures < 1:
+        raise RuntimeError("slam3d: no loop closure")
+    if not res.error_after <= res.error_before:
+        raise RuntimeError("slam3d: the graph error grew")
+    if not ate < ATE_GATE_M:
+        raise RuntimeError(f"slam3d ATE-xy {ate} >= {ATE_GATE_M}")
+    want = n_frames - 1 + len(picked)
+    if torch.device(device).type == "cuda" and not (
+            launches["nn_pruned"] == want and launches["nn_list"] > 0
+            and launches["p2l_loop"] > 0 and launches["nn_sweep"] == 0
+            and launches["nn_matched"] == 0):
+        raise RuntimeError(f"slam3d launches {launches}, expected {want} "
+                           "nn_pruned")
+    head = frames[:plain_frames]
+    k_res, _, _ = _run_slam(run_slam3d, head, cfg, device, **kw)
+    p_res, p_sec, p_launch = _run_slam(
+        run_slam3d, head, cfg.with_(nn_backend="torch",
+                                    align_backend="torch"), device, **kw)
+    d = float(np.abs(p_res.optimized_path - k_res.optimized_path).max())
+    print(f"# slam3d plain path on the first {plain_frames} frames: "
+          f"{p_sec:.3f} s, loop closures {p_res.n_loop_closures} (kernel "
+          f"path {k_res.n_loop_closures}); optimized path vs kernel path "
+          f"{d:.3e} m (gate {PLAIN_GATE_M})")
+    if any(p_launch.values()):
+        raise RuntimeError(f"slam3d plain path launched kernels: {p_launch}")
+    if not (d < PLAIN_GATE_M
+            and p_res.n_loop_closures == k_res.n_loop_closures):
+        raise RuntimeError(f"slam3d kernel vs plain path {d} m")
+    return dict(launches=launches, ate=ate, seconds=sec,
+                closures=res.n_loop_closures, candidates=len(picked))
+
+
+def room_sequence(n_poses: int = 28, n_points: int = 3072,
+                  scene_n: int = 6000, seed: int = 0):
+    """A planar room (floor, two walls, a ramp) seen from a closing loop
+    with full 6-DoF motion, ``n_points`` points per frame (the scene of
+    the JAX package's tests/test_slam3d.py, made here with numpy and the
+    port's geometry): (frames, ground-truth positions in pose 0's frame)."""
+    rng = np.random.default_rng(seed)
+    lo_hi = (([-3, -3, 0], [3, 3, 0], scene_n // 2),
+             ([-3, -3, 0], [3, -3, 2], scene_n // 4),
+             ([-3, 3, 0], [-3, 3, 2], scene_n // 4),
+             ([1, 1, 0], [3, 3, 1], scene_n // 4))
+    parts = [rng.uniform(lo, hi, (k, 3)) for lo, hi, k in lo_hi]
+    parts[3][:, 2] = 0.5 * (parts[3][:, 0] - 1.0)
+    scene = np.concatenate(parts).astype(np.float32)
+    poses = []
+    for k in range(n_poses):
+        a = 2 * np.pi * k / (n_poses - 1)
+        poses.append(RigidTransform3.from_twist(torch.tensor(
+            [np.cos(a), np.sin(a), 0.05 * np.sin(2 * a), 0.02 * np.sin(a),
+             0.02 * np.cos(a), a], dtype=torch.float32)))
+    frames = []
+    for p in poses:
+        pts = p.inverse().apply_points(torch.as_tensor(scene)).numpy() \
+            + rng.normal(0, 0.004, scene.shape).astype(np.float32)
+        frames.append(pts[rng.permutation(len(pts))[:n_points]])
+    p0_inv = poses[0].inverse()
+    gt = np.stack([p0_inv.compose(p).t.numpy() for p in poses])
+    return frames, gt.astype(np.float64)
+
+
+def phase_slam3d_small(device="cuda", n_poses: int = 28,
+                       n_points: int = 3072, scene_n: int = 6000):
+    """run_slam3d on small frames (2 db tiles): kernels 4 and 5 serve its
+    NN searches, and the loop closure pulls the end pose in."""
+    frames, gt = room_sequence(n_poses, n_points, scene_n)
+    kw = dict(loop_radius=0.8, min_gap=8, max_loop_candidates=8,
+              normals_voxel_size=0.4)
+    cfg = ICPConfig(compute_dtype=torch.float32)
+    _, first_sec, _ = _run_slam(run_slam3d, frames, cfg, device, **kw)
+    res, sec, launches = _run_slam(run_slam3d, frames, cfg, device, **kw)
+    end_odo = float(np.linalg.norm(res.odometry_path[-1] - gt[-1]))
+    end_opt = float(np.linalg.norm(res.optimized_path[-1] - gt[-1]))
+    print(f"# slam3d small frames: {n_poses} frames of {n_points} points, "
+          f"{sec:.4f} s (first run {first_sec:.4f} s); loop closures {res.n_loop_closures}; graph error "
+          f"before {res.error_before:.6e} after {res.error_after:.6e}; end "
+          f"error odometry {end_odo:.6f} m optimized {end_opt:.6f} m; "
+          f"launches {launches}")
+    if res.n_loop_closures < 1:
+        raise RuntimeError("slam3d small frames: no loop closure")
+    if not end_opt <= max(0.8 * end_odo, 0.02):
+        raise RuntimeError(f"slam3d small frames: end error {end_opt} m")
+    if torch.device(device).type == "cuda" and not (
+            launches["nn_matched"] > 0 and launches["nn_sweep"] > 0
+            and launches["nn_pruned"] == 0 and launches["nn_list"] == 0):
+        raise RuntimeError(f"slam3d small frames launches {launches}")
+    return dict(launches=launches, seconds=sec)
+
+
+def phase_slam2d(device="cuda", n_scans: int = BATCH_SCANS,
+                 pad: int = BATCH_PAD, wide_frames: int = 12,
+                 wide_stride: int = 1):
+    """run_slam2d on the batched path's scans (pair-grid and batched IRLS
+    kernels; the batched mean NN distance on the plain sweep), then on the
+    xy of ``wide_frames`` full frames (kernels 4 and 5 with a batch axis).
+    The synthetic scans are in metres: loop radius 1.5 m and 1 m."""
+    pts, mask, _, _ = scans2d(n_scans, pad)
+    scans = [p[m] for p, m in zip(pts, mask)]
+    cfg = _config()
+    res, sec, launches = _run_slam(run_slam2d, scans, cfg, device,
+                                   loop_radius=1.5, min_gap=20)
+    print(f"# slam2d: {n_scans} scans padded to {pad}, {sec:.4f} s; loop "
+          f"closures {res.n_loop_closures}; graph error before "
+          f"{res.error_before:.6e} after {res.error_after:.6e}; launches "
+          f"{launches}")
+    if not res.error_after <= res.error_before:
+        raise RuntimeError("slam2d: the graph error grew")
+    on_card = torch.device(device).type == "cuda"
+    if on_card and not (launches["nn_pairs"] > 0
+                        and launches["irls_loop_batched"] > 0
+                        and launches["nn_sweep"] == 0
+                        and launches["nn_matched"] == 0):
+        raise RuntimeError(f"slam2d launches {launches}")
+    frames, _ = io.synthesize_frames3d(wide_frames, seed=4)
+    wide = [f[::wide_stride, :2] for f in frames]
+    w_res, w_sec, w_launch = _run_slam(run_slam2d, wide, cfg, device,
+                                       loop_radius=1.0, min_gap=8)
+    print(f"# slam2d wide scans: {wide_frames} scans of {len(wide[0])} "
+          f"points, {w_sec:.4f} s; loop closures {w_res.n_loop_closures}; "
+          f"graph error before {w_res.error_before:.6e} after "
+          f"{w_res.error_after:.6e}; launches {w_launch}")
+    if not w_res.error_after <= w_res.error_before:
+        raise RuntimeError("slam2d wide scans: the graph error grew")
+    if on_card and not (w_launch["nn_matched"] > 0
+                        and w_launch["nn_sweep"] > 0):
+        raise RuntimeError(f"slam2d wide scans launches {w_launch}")
+    return dict(launches=launches, wide_launches=w_launch, seconds=sec)
+
+
+def profile_slam3d(device="cuda", n_frames: int = 96):
+    """Where run_slam3d's time goes at full width: host-clock time (with a
+    synchronise around each call) in its point-to-plane ICP calls, its
+    mean-NN-distance calls (kernel 6) and its graph solve, against the
+    run's wall time; then torch.profiler over a second run: device time by
+    kernel and the device's idle share against an unprofiled run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    frames, _ = io.synthesize_frames3d(n_frames, seed=0)
+    cfg = _config()
+    spent = {}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync(device)
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    names = ("icp_point_to_plane", "_mean_nn_dist", "_solve_graph")
+    saved = {n: getattr(m_slam, n) for n in names}
+    _run_slam(run_slam3d, frames, cfg, device)
+    _, wall, _ = _run_slam(run_slam3d, frames, cfg, device)
+    try:
+        for n in names:
+            setattr(m_slam, n, timed(n, saved[n]))
+        _, split_wall, _ = _run_slam(run_slam3d, frames, cfg, device)
+    finally:
+        for n in names:
+            setattr(m_slam, n, saved[n])
+    rest = split_wall - sum(spent.values())
+    print(f"# profile slam3d: {n_frames} frames, unprofiled wall "
+          f"{wall * 1e3:.3f} ms; with a synchronise around each call "
+          f"{split_wall * 1e3:.3f} ms: " + ", ".join(
+              f"{n} {spent[n] * 1e3:.3f} ms ({spent[n] / split_wall:.4f})"
+              for n in names)
+          + f", the rest {rest * 1e3:.3f} ms ({rest / split_wall:.4f})")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _run_slam(run_slam3d, frames, cfg, device)
+    avgs = prof.key_averages()
+    kern = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    print(f"# profile slam3d: device busy {busy_ms:.3f} ms, idle share "
+          f"{1.0 - busy_ms / (wall * 1e3):.4f}")
+    for e in kern[:12]:
+        print(f"# profile slam3d kernel {e.self_device_time_total / 1e3:9.3f}"
+              f" ms {e.count:6d} calls  {e.key[:90]}")
+    print(avgs.table(sort_by="self_device_time_total", row_limit=20))
+
+
 def _ptxas_lines(report: dict):
     for name, log in sorted(report.items()):
         for line in log.splitlines():
@@ -1212,10 +1646,15 @@ def main() -> int:
     records += [phase_nn_list_p2l(device), phase_p2l_loop(device),
                 phase_p2l_stats(device)]
     p2l = phase_p2l(device)
+    records += phase_nn_sweeps(device)
+    slam3 = phase_slam3d(device)
+    slam3_small = phase_slam3d_small(device)
+    slam2 = phase_slam2d(device)
     if profile_run:
         profile_main(device)
         profile_batched(device)
         profile_p2l(device)
+        profile_slam3d(device)
     launches = {
         ("nn_list", "main"): main_run["launches"]["nn_list"],
         ("irls_loop", "main"): main_run["launches"]["irls_loop"],
@@ -1228,6 +1667,12 @@ def main() -> int:
             batched["frame_launches"]["icp2d_frame_pairs"],
         ("nn_list", "p2l"): p2l["launches"]["nn_list"],
         ("p2l_loop", "p2l"): p2l["launches"]["p2l_loop"],
+        ("nn_pruned", "slam3d"): slam3["launches"]["nn_pruned"],
+        ("nn_sweep", "slam3d-small"): slam3_small["launches"]["nn_sweep"],
+        ("nn_matched", "slam3d-small"):
+            slam3_small["launches"]["nn_matched"],
+        ("nn_sweep", "slam2d-wide"): slam2["wide_launches"]["nn_sweep"],
+        ("nn_matched", "slam2d-wide"): slam2["wide_launches"]["nn_matched"],
     }
     for rec in records:
         if (rec["name"], rec["path"]) in launches:

@@ -5,8 +5,10 @@ The system has no weights; its state is a configuration and a transform.
 package's config (``dataclasses.asdict``), with the backend names mapped
 ("xla" -> "torch", "pallas" and "pairs" -> "cuda") and the compute
 dtype taken by name; ``transform_from_numpy`` builds a
-``RigidTransform2`` and ``transform3_from_numpy`` a ``RigidTransform3``.
-None imports the JAX package: they take plain values.
+``RigidTransform2`` and ``transform3_from_numpy`` a ``RigidTransform3``;
+``pose_graph_from_numpy`` builds a ``models.pose_graph.PoseGraph`` from
+the arrays of the JAX package's ``PoseGraph``.  None imports the JAX
+package: they take plain values.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
+from icp_rust_tpu_torch.models.pose_graph import PoseGraph
 
 # "pairs" forced the pair-grid NN kernels for a batched query; here the
 # kernel route ("cuda") takes them for every batched query they serve.
@@ -83,3 +86,24 @@ def transform3_from_numpy(rot, t, device="cpu",
         raise ValueError(f"rot must be (..., 3, 3) and t (..., 3), got "
                          f"{tuple(rot.shape)}, {tuple(t.shape)}")
     return RigidTransform3(rot, t)
+
+
+def pose_graph_from_numpy(poses_rot, poses_t, edge_i, edge_j, meas_rot,
+                          meas_t, info, edge_mask, device="cpu",
+                          dtype=None) -> PoseGraph:
+    """PoseGraph from array-likes: poses (P, d, d) and (P, d), edges (E,)
+    and (E,), measurements (E, d, d) and (E, d), info (E, dof, dof), mask
+    (E,); d = 2 builds an SE(2) graph, d = 3 an SE(3) one.  The float
+    arrays keep their dtype unless ``dtype`` is given."""
+    tcls = RigidTransform2 if np.shape(poses_t)[-1] == 2 else RigidTransform3
+    poses = tcls(*_rt_tensors(poses_rot, poses_t, device, dtype))
+    meas = tcls(*_rt_tensors(meas_rot, meas_t, device, dtype))
+
+    def index(x):
+        return torch.as_tensor(np.asarray(x, np.int64), device=device)
+
+    return PoseGraph(
+        poses=poses, edge_i=index(edge_i), edge_j=index(edge_j), meas=meas,
+        info=torch.as_tensor(np.array(info)).to(device=device,
+                                                 dtype=poses.t.dtype),
+        edge_mask=torch.as_tensor(np.array(edge_mask, bool), device=device))

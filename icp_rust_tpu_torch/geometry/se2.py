@@ -67,9 +67,14 @@ def get_rt(matrix: Tensor):
 
 def log(matrix: Tensor) -> Tensor:
     """Homogeneous (..., 3, 3) -> twist (..., 3)."""
-    rot, t = get_rt(matrix)
+    return log_rt(*get_rt(matrix))
+
+
+def log_rt(rot: Tensor, t: Tensor) -> Tensor:
+    """(rot (..., 2, 2), t (..., 2)) -> twist (..., 3), without building the
+    3x3 (no in-place writes, so it runs under ``torch.func`` transforms)."""
     theta = so2.log(rot)
-    small = torch.abs(theta) < _small_angle_threshold(matrix.dtype)
+    small = torch.abs(theta) < _small_angle_threshold(rot.dtype)
     safe = torch.where(small, torch.ones_like(theta), theta)
     one_m_cos = 1.0 - torch.cos(safe)
     # Avoid 0/0 in the unselected branch when theta is exactly 0.

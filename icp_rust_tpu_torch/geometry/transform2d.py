@@ -40,6 +40,14 @@ class RigidTransform2:
         rot, t = se2.calc_rt(param)
         return RigidTransform2(rot=rot, t=t)
 
+    @staticmethod
+    def from_rt(rot: Tensor, t: Tensor) -> "RigidTransform2":
+        return RigidTransform2(rot=rot, t=t)
+
+    def log(self) -> Tensor:
+        """Twist (..., 3) such that from_twist(log()) == self."""
+        return se2.log_rt(self.rot, self.t)
+
     def apply_points(self, pts: Tensor) -> Tensor:
         """Transform a point cloud (..., N, 2) by a (...)-batched transform."""
         return (torch.einsum("...ij,...nj->...ni", self.rot, pts)
@@ -73,3 +81,7 @@ class RigidTransform2:
     @property
     def device(self):
         return self.t.device
+
+    @property
+    def batch_shape(self):
+        return self.t.shape[:-1]

@@ -14,8 +14,8 @@ Per outer iteration on the kernel route: one survivor-list NN launch
 ``p2l_loop`` launch.
 
 The entry point runs on ``device`` ("cuda" by default); with no card it
-raises unless the caller passes ``device="cpu"``.  It takes one scan pair:
-the batched call waits for the batched SLAM path (ROADMAP item 11).
+raises unless the caller passes ``device="cpu"``.  It takes one scan pair
+(``models/slam.run_slam3d`` calls it pair by pair); a batch raises.
 """
 
 from __future__ import annotations
@@ -124,9 +124,9 @@ def icp_point_to_plane(src, dst, src_mask, dst_mask,
             or dst.shape[-1] != 3:
         raise NotImplementedError(
             f"icp_point_to_plane takes one scan pair, src (N, 3) and dst "
-            f"(M, 3); got {tuple(src.shape)}, {tuple(dst.shape)}.  The "
-            "batched point-to-plane call comes with the SE(3) SLAM path "
-            "(ROADMAP item 11, models/slam.py:316 slam3d)")
+            f"(M, 3); got {tuple(src.shape)}, {tuple(dst.shape)}.  A "
+            "batched point-to-plane call is not ported (no path of the "
+            "port needs it; run_slam3d aligns one pair at a time)")
     src_mask = torch.as_tensor(src_mask).to(device=dev, dtype=torch.bool)
     dst_mask = torch.as_tensor(dst_mask).to(device=dev, dtype=torch.bool)
     s = config.point_scale

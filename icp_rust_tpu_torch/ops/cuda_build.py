@@ -38,10 +38,12 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 SOURCES = ("nn_list", "irls_loop", "icp2d_frame", "nn_pairs",
            "nn_pairs_list", "irls_loop_batched", "icp2d_frame_pairs",
-           "p2l_loop", "p2l_stats")
+           "p2l_loop", "p2l_stats", "nn_sweep", "nn_matched",
+           "nn_pruned")
 # Every header is hashed into every library's name, so an edited header
 # rebuilds whatever includes it.
-HEADERS = ("irls.cuh", "frame.cuh", "nn_pairs.cuh", "p2l.cuh")
+HEADERS = ("irls.cuh", "frame.cuh", "nn_pairs.cuh", "p2l.cuh",
+           "nn_sweep.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--fmad=false")
 
@@ -82,6 +84,13 @@ _SIGNATURES = {
     # two_k; stream
     "p2l_stats": ("p2l_stats_launch",
                   [_P] * 10 + [_I] + [_P] * 3 + [_F] * 3 + [_P]),
+    # query, db_cm, dist, idx; b, qp, d_dim, m_pad; stream
+    "nn_sweep": ("nn_sweep_launch", [_P] * 4 + [_I] * 4 + [_P]),
+    # query, dbf_cm, dist, idx, pay; b, qp, d_dim, f_dim, m_pad; stream
+    "nn_matched": ("nn_matched_launch", [_P] * 5 + [_I] * 5 + [_P]),
+    # query, dbf_cm, qbox, bbox, qb_tile, dist, idx, pay; qp, q_tile,
+    # db_tile, d_dim, f_dim, m_pad; stream
+    "nn_pruned": ("nn_pruned_launch", [_P] * 8 + [_I] * 6 + [_P]),
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}

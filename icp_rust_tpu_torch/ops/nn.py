@@ -8,11 +8,15 @@ argmin in f32.  Tie-break: the lowest database index.
 Backends (config.nn_backend):
 - ``"torch"``: ``nn_torch``, a tiled sweep over the db with a running
   (best distance, best index) carry, on any device;
-- ``"cuda"``: the survivor-list kernel of ``ops/nn_cuda.py`` over a
-  Morton-sorted, packed db for one query cloud, and for a batch of
-  queries (B, Q, D) against dbs of at most 4096 points the pair-grid
-  kernels of ``ops/nn_pairs_cuda.py`` (``use_pairs_nn``); their plain
-  versions on a CPU tensor;
+- ``"cuda"``: the hand-written kernels, their plain versions on a CPU
+  tensor.  Matched searches: the survivor-list kernel of
+  ``ops/nn_cuda.py`` over a Morton-sorted, packed db for one seeded query
+  cloud; for a batch of queries (B, Q, D) against dbs of at most 4096
+  points the pair-grid kernels of ``ops/nn_pairs_cuda.py``
+  (``use_pairs_nn``); the sweeps of ``ops/nn_sweep_cuda.py`` for the rest
+  (kernel 4 for a batch or a db of fewer than 3 tiles, kernel 6 unseeded
+  or with a wide payload).  ``nearest_neighbor``: kernel 6 for one cloud
+  of 3 tiles or more, kernel 5 otherwise;
 - ``"auto"``: ``"cuda"`` for float32, ``"torch"`` for float64 (the f64
   reference path is the plain one, as on the TPU).
 """
@@ -24,7 +28,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
-from icp_rust_tpu_torch.ops import nn_cuda, nn_pairs_cuda
+from icp_rust_tpu_torch.ops import nn_cuda, nn_pairs_cuda, nn_sweep_cuda
 
 
 class NNResult(NamedTuple):
@@ -144,40 +148,36 @@ def _gather_rows(payload: Tensor, index: Tensor) -> Tensor:
     return torch.take_along_dim(payload, idx[..., None], dim=-2)
 
 
-def _kernel_path_check(query: Tensor, db: Tensor, payload_dim: int,
-                       tile: int) -> None:
-    """Raise NotImplementedError where the kernel path would need a TPU
-    kernel that has no Hopper port yet."""
-    if query.ndim != 2:
-        raise NotImplementedError(
-            f"a batched search over dbs of {db.shape[-2]} points (more than "
-            f"{nn_pairs_cuda.PAIRS_MAX_DB}, or with more than one batch "
-            "axis) leaves the pair-grid kernels and needs the vmapped "
-            "single-cloud kernel (nn_pallas.nn_pallas_matched over the "
-            "pair axis), not yet ported; pass nn_backend='torch'")
-    m_pad = -(-db.shape[0] // tile) * tile
-    if m_pad // tile < 3:
-        raise NotImplementedError(
-            f"a db of {db.shape[0]} points spans fewer than 3 tiles of "
-            f"{tile} and needs nn_pallas._nn_matched_kernel, not yet "
-            "ported; pass nn_backend='torch'")
-    if db.shape[-1] + payload_dim > 8:
-        raise NotImplementedError(
-            "a wide-payload search needs nn_pallas._nn_pruned_kernel, not "
-            "yet ported; pass nn_backend='torch'")
-
-
 def build_db_pack(query: Tensor, db: Tensor, db_mask=None, payload=None,
                   backend: str = "auto", tile: int = 2048):
     """Per-frame NN index build, the KdTree::new analogue (reference
     src/lib.rs:97-102): the packed db of ``nn_cuda.pack_db`` when the
-    kernel path serves (query, db), else None."""
-    if not use_cuda_nn(query, db, backend) or use_pairs_nn(query, db,
-                                                           backend):
+    seeded survivor-list kernel serves (query, db), else None (a batch, a
+    db of fewer than 3 tiles or a payload wider than 8 - D)."""
+    if (query.ndim != 2 or not use_cuda_nn(query, db, backend)
+            or use_pairs_nn(query, db, backend)):
         return None
     p = payload.shape[-1] if payload is not None else db.shape[-1]
-    _kernel_path_check(query, db, p, tile)
+    if db.shape[-1] + p > 8 or -(-db.shape[-2] // tile) < 3:
+        return None
     return nn_cuda.pack_db(db, db_mask, payload, db_tile=tile)
+
+
+def nearest_neighbor(query: Tensor, db: Tensor, db_mask=None,
+                     backend: str = "auto", tile: int = 2048,
+                     q_tile: int = 512) -> NNResult:
+    """Exact 1-NN without payload (``ops/nn.nearest_neighbor``): on the
+    kernel route kernel 6 for one cloud whose db spans 3 tiles or more,
+    kernel 5 otherwise (``nn_sweep_cuda.search``); a batched query against
+    dbs of at most 4096 points takes the plain sweep on "auto", where the
+    TPU takes ``nn_xla`` (batched small)."""
+    batched_small = query.ndim > 2 and db.shape[-2] <= 4096
+    if backend == "cuda" or (use_cuda_nn(query, db, backend)
+                             and not batched_small):
+        idx, dist, _ = nn_sweep_cuda.search(query, db, db_mask, None, q_tile,
+                                            tile)
+        return NNResult(index=idx, dist_sq=dist)
+    return nn_torch(query, db, db_mask, tile=tile)
 
 
 def nearest_neighbor_matched(query: Tensor, db: Tensor, db_mask=None,
@@ -188,12 +188,16 @@ def nearest_neighbor_matched(query: Tensor, db: Tensor, db_mask=None,
     """1-NN that also returns the winner's payload (default: the matched
     db point).  Returns (NNResult, matched (Q, P)).
 
-    On the kernel path ``q_bound`` (..., Q) is an upper bound on each
+    On the kernel route ``q_bound`` (..., Q) is an upper bound on each
     query's NN distance² (+inf where unknown) and ``warm`` selects the
     seeded search's cold/warm branch (None decides from the bounds);
     results are bit-identical whatever they are, as long as the bounds are
-    valid.  A batched query (B, Q, D) against dbs of at most 4096 points
-    takes the pair-grid kernels (``use_pairs_nn``), unseeded or not."""
+    valid.  Routes, as ``nn_pallas_matched`` takes them on the TPU: a
+    batched query (B, Q, D) against dbs of at most 4096 points takes the
+    pair-grid kernels (``use_pairs_nn``); any other batch and any db of
+    fewer than 3 tiles the plain sweep (kernel 4); a seeded single cloud
+    with D + P <= 8 the survivor-list kernel; an unseeded or wide one the
+    zig-zag kernel (kernel 6)."""
     if payload is None:
         payload = db
     if not use_cuda_nn(query, db, backend):
@@ -203,11 +207,14 @@ def nearest_neighbor_matched(query: Tensor, db: Tensor, db_mask=None,
         idx, dist, matched = nn_pairs_cuda.nn_pairs_matched(
             query, db, db_mask, payload, q_bound=q_bound, warm=warm)
         return NNResult(index=idx, dist_sq=dist), matched
-    _kernel_path_check(query, db, payload.shape[-1], tile)
-    if q_bound is None:
-        raise NotImplementedError(
-            "an unseeded search needs nn_pallas._nn_pruned_kernel, not yet "
-            "ported; pass nn_backend='torch'")
+    dbf_cm = None if db_pack is None else db_pack.dbf_cm
+    seeded = (query.ndim == 2 and q_bound is not None
+              and query.shape[-1] + payload.shape[-1] <= 8
+              and -(-db.shape[-2] // tile) >= 3)
+    if not seeded:
+        idx, dist, pay = nn_sweep_cuda.search(query, db, db_mask, payload,
+                                              q_tile, tile, q_bound, dbf_cm)
+        return NNResult(index=idx, dist_sq=dist), pay
     q_n, d_dim = query.shape
     if db_pack is None:
         db_pack = nn_cuda.pack_db(db, db_mask, payload, db_tile=tile)

@@ -51,17 +51,19 @@ def _trim_sentinel(dist_sq: Tensor) -> Tensor:
 
 
 def _dbf_cm_matched(db: Tensor, db_mask, payload: Tensor, m_pad: int):
-    """Sentinel-padded coordinate-major [db; payload] rows (F_total, m_pad).
+    """Sentinel-padded coordinate-major [db; payload] rows
+    (..., F_total, m_pad) of db (..., M, D) and payload (..., M, P).
     Payload rows are not sentinel-masked: masked points never win."""
-    m, d = db.shape
     if db_mask is not None:
-        db = torch.where(db_mask[:, None], db,
-                         torch.full_like(db, _SENTINEL))
-    out = torch.zeros((d + payload.shape[-1], m_pad), dtype=db.dtype,
+        db = torch.where(db_mask[..., None], db,
+                         torch.tensor(_SENTINEL, dtype=db.dtype,
+                                      device=db.device))
+    *batch, m, d = db.shape
+    out = torch.zeros((*batch, d + payload.shape[-1], m_pad), dtype=db.dtype,
                       device=db.device)
-    out[:d] = _SENTINEL
-    out[:d, :m] = db.T
-    out[d:, :m] = payload.T
+    out[..., :d, :] = _SENTINEL
+    out[..., :d, :m] = db.transpose(-1, -2)
+    out[..., d:, :m] = payload.transpose(-1, -2)
     return out
 
 

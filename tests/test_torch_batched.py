@@ -166,12 +166,20 @@ def test_batched_kernel_route_refuses_large_dbs():
     assert nn.use_pairs_nn(q, torch.zeros((2, 4096, 2)), "cuda")
     assert not nn.use_pairs_nn(q, torch.zeros((2, 512, 2)), "torch")
     assert not nn.use_pairs_nn(q.double(), torch.zeros((2, 512, 2)), "auto")
-    with pytest.raises(NotImplementedError, match="_nn_matched|single-cloud"):
-        nn.nearest_neighbor_matched(q, torch.zeros((2, 4097, 2)),
-                                    backend="cuda",
-                                    q_bound=torch.zeros(2, 256))
-    with pytest.raises(NotImplementedError, match="single-cloud"):
-        nn.build_db_pack(q, torch.zeros((2, 8192, 2)), backend="cuda")
+    # Larger dbs leave the pair-grid route for the plain sweep with the
+    # batch as a grid axis (kernel 4), as nn_pallas_matched vmaps it.
+    rng = np.random.default_rng(12)
+    qs = _t(rng.uniform(-3, 3, (2, 256, 2)).astype(np.float32))
+    db = _t(rng.uniform(-3, 3, (2, 4097, 2)).astype(np.float32))
+    got, got_p = nn.nearest_neighbor_matched(qs, db, backend="cuda",
+                                             q_bound=torch.zeros(2, 256))
+    want = nn.nn_torch(qs, db)
+    assert torch.equal(got.index, want.index)
+    assert torch.equal(got.dist_sq, want.dist_sq)
+    assert torch.equal(got_p, torch.take_along_dim(
+        db, want.index[..., None].long(), dim=1))
+    assert nn.build_db_pack(q, torch.zeros((2, 8192, 2)),
+                            backend="cuda") is None
     assert nn.build_db_pack(q, torch.zeros((2, 512, 2)),
                             backend="cuda") is None
 

@@ -6,8 +6,9 @@ and ``--noconftest`` keeps the JAX test setup out):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
 
-Tolerances: nn_list, nn_pairs and nn_pairs_list are bitwise equal to
-their plain versions (indices, distances and payload).  irls_loop,
+Tolerances: nn_list, nn_pairs, nn_pairs_list, nn_sweep, nn_matched and
+nn_pruned are bitwise equal to their plain versions (indices, distances
+and payload) and to a brute-force sweep.  irls_loop,
 irls_loop_batched, icp2d_frame, icp2d_frame_pairs and p2l_loop take
 their sums in another order than the plain versions: rot and t within
 1e-5, equal iteration counts for p2l_loop.  p2l_stats: the 27 sums and
@@ -366,3 +367,169 @@ def test_p2l_kernels_refuse_float64(dev):
     with pytest.raises(TypeError):
         align3d_cuda.p2l_stats(x, x, x, m, torch.eye(3, device=dev),
                                torch.zeros(3, device=dev), 1.345)
+
+
+def _sweep_cloud(dev, b=None, q=700, m=1500, d=3, seed=5, sort=False):
+    """Queries near a partly masked db (optionally Morton-sorted), with a
+    4-row payload; a leading batch axis of ``b``."""
+    from icp_rust_tpu_torch.models.icp2d import _spatial_sort
+
+    rng = np.random.default_rng(seed)
+    shape = () if b is None else (b,)
+    db = torch.as_tensor(rng.uniform(-3, 3, (*shape, m, d)),
+                         dtype=torch.float32, device=dev)
+    mask = torch.as_tensor(rng.random((*shape, m)) > 0.2, device=dev)
+    if sort:
+        db, mask, _ = _spatial_sort(db, mask)
+    query = db[..., :q, :] + torch.as_tensor(
+        rng.normal(0, 0.05, (*shape, q, d)), dtype=torch.float32, device=dev)
+    pay = torch.as_tensor(rng.normal(size=(*shape, m, 4)),
+                          dtype=torch.float32, device=dev)
+    return query, db, mask, pay
+
+
+def _brute_equal(got_idx, got_dist, got_pay, query, db, mask, pay):
+    from icp_rust_tpu_torch.ops.nn import nn_torch
+
+    want = nn_torch(query, db, mask)
+    assert torch.equal(got_idx, want.index)
+    assert torch.equal(got_dist, want.dist_sq)
+    if got_pay is not None:
+        hit = torch.isfinite(want.dist_sq)
+        want_pay = torch.take_along_dim(pay, want.index[..., None].long(),
+                                        dim=-2)
+        assert torch.equal(got_pay[hit], want_pay[hit])
+        assert bool(torch.all(got_pay[~hit] == 0))
+
+
+@pytest.mark.parametrize("d,f_dim", [(2, 0), (3, 0), (2, 2), (3, 2),
+                                     (3, 3), (3, 4)])
+@pytest.mark.parametrize("batched", [False, True])
+def test_nn_sweep_and_matched_kernels_bitwise_equal_to_plain(dev, d, f_dim,
+                                                             batched):
+    """Kernels 5 (no payload) and 4 against their plain versions and brute
+    force; one pair's db fully masked when batched."""
+    from icp_rust_tpu_torch.ops import nn_sweep_cuda
+
+    query, db, mask, pay = _sweep_cloud(dev, b=3 if batched else None, d=d)
+    if batched:
+        mask[1] = False
+    pay = pay[..., :f_dim]
+    query_p = torch.zeros((*query.shape[:-2], 768, d), device=dev)
+    query_p[..., :700, :] = query
+    dbf = nn_cuda._dbf_cm_matched(db, mask, pay, 2048)
+    name = "nn_matched" if f_dim else "nn_sweep"
+    before = cuda_build.LAUNCHES[name]
+    if f_dim:
+        got = nn_sweep_cuda.nn_matched(query_p, dbf, d)
+        want = nn_sweep_cuda.nn_matched_plain(query_p, dbf, d)
+    else:
+        got = nn_sweep_cuda.nn_sweep(query_p, dbf) + (None,)
+        want = nn_sweep_cuda.nn_sweep_plain(query_p, dbf) + (None,)
+    assert cuda_build.LAUNCHES[name] == before + 1
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert b is None or torch.equal(a, b)
+    _brute_equal(got[1][..., :700], nn_cuda._trim_sentinel(got[0][..., :700]),
+                 None if not f_dim else got[2][..., :700, :], query, db, mask,
+                 pay)
+
+
+@pytest.mark.parametrize("f_dim", [0, 4])
+@pytest.mark.parametrize("seeds", ["inf", "tight"])
+@pytest.mark.parametrize("sort", [False, True])
+def test_nn_pruned_kernel_bitwise_equal_to_plain(dev, f_dim, seeds, sort):
+    """Kernel 6 on 6 db tiles of 512: zig-zag order, pruning and the
+    lexicographic carry against its plain version and brute force."""
+    from icp_rust_tpu_torch.ops import nn_sweep_cuda
+    from icp_rust_tpu_torch.ops.nn import nn_torch
+
+    query, db, mask, pay = _sweep_cloud(dev, q=1200, m=3000, seed=6,
+                                        sort=sort)
+    qb = None
+    if seeds == "tight":
+        qb = nn_torch(query, db, mask).dist_sq * 1.0001
+    args = nn_sweep_cuda.prepare_pruned(query, db, mask,
+                                        pay[:, :f_dim] if f_dim else None,
+                                        256, 512, q_bound=qb)
+    before = cuda_build.LAUNCHES["nn_pruned"]
+    got = nn_sweep_cuda.nn_pruned(*args, 3, 256, 512)
+    assert cuda_build.LAUNCHES["nn_pruned"] == before + 1
+    want = nn_sweep_cuda.nn_pruned_plain(*args, 3, 256, 512)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    _brute_equal(got[1][:1200], nn_cuda._trim_sentinel(got[0][:1200]),
+                 got[2][:1200] if f_dim else None, query, db, mask,
+                 pay[:, :f_dim])
+
+
+def test_nn_sweep_kernels_ties_and_all_masked_db(dev):
+    """Every db point twice: all three kernels pick the first copy; a
+    fully masked db gives (+inf, 0, zero payload)."""
+    from icp_rust_tpu_torch.ops import nn
+
+    rng = np.random.default_rng(7)
+    base = torch.as_tensor(rng.uniform(-3, 3, (1600, 3)),
+                           dtype=torch.float32, device=dev)
+    db = torch.cat([base, base])
+    query = base[torch.as_tensor(rng.permutation(1600)[:1000], device=dev)]
+    for tile in (2048, 512):  # kernel 5 (2 tiles), kernel 6 (7 tiles)
+        res = nn.nearest_neighbor(query, db, backend="cuda", tile=tile)
+        assert bool(torch.all(res.index < 1600))
+        assert bool(torch.all(res.dist_sq == 0))
+        res, pay = nn.nearest_neighbor_matched(query, db, backend="cuda",
+                                               tile=tile)
+        assert bool(torch.all(res.index < 1600)) and torch.equal(pay, query)
+        none = torch.zeros(3200, dtype=torch.bool, device=dev)
+        res, pay = nn.nearest_neighbor_matched(query, db, none,
+                                               backend="cuda", tile=tile)
+        assert bool(torch.all(torch.isinf(res.dist_sq)))
+        assert bool(torch.all(res.index == 0)) and bool(torch.all(pay == 0))
+
+
+def test_nn_sweep_kernels_refuse_float64_and_unserved_widths(dev):
+    from icp_rust_tpu_torch.ops import nn_sweep_cuda
+
+    q = torch.zeros((128, 3), dtype=torch.float64, device=dev)
+    with pytest.raises(TypeError):
+        nn_sweep_cuda.nn_sweep(q, torch.zeros((3, 2048), dtype=torch.float64,
+                                              device=dev))
+    with pytest.raises(ValueError, match="payload width 5"):
+        nn_sweep_cuda.nn_matched(q.float(), torch.zeros((8, 2048),
+                                                        device=dev), 3)
+    with pytest.raises(ValueError, match="payload width 4"):
+        nn_sweep_cuda.nn_pruned(q[:, :2].float(),
+                                torch.zeros((6, 2048), device=dev),
+                                torch.zeros((1, 8), device=dev),
+                                torch.zeros((1, 8), device=dev),
+                                torch.zeros((1,), device=dev), 2, 128, 2048)
+
+
+def test_slam_on_the_card_tracks_the_plain_path(dev):
+    """run_slam3d on small frames (kernels 4 and 5) and run_slam2d on wide
+    scans (kernels 4 and 5 with a batch axis) against the plain path."""
+    import chip_smoke
+    from icp_rust_tpu_torch.models.slam import run_slam2d, run_slam3d
+
+    frames, _ = chip_smoke.room_sequence(n_poses=12, n_points=2048,
+                                         scene_n=4000, seed=2)
+    cfg = ICPConfig()
+    plain = cfg.with_(nn_backend="torch", align_backend="torch")
+    kw = dict(loop_radius=0.8, min_gap=4, max_loop_candidates=4,
+              normals_voxel_size=0.4)
+    cuda_build.reset_launches()
+    res = run_slam3d(frames, cfg, **kw)
+    assert cuda_build.LAUNCHES["nn_matched"] > 0
+    assert cuda_build.LAUNCHES["nn_sweep"] > 0
+    ref = run_slam3d(frames, plain, **kw)
+    assert res.n_loop_closures == ref.n_loop_closures
+    assert np.abs(res.optimized_path - ref.optimized_path).max() < 1e-3
+    scans, _ = io.synthesize_frames3d(6, seed=3)
+    scans = [s[::4, :2] for s in scans]  # 7020 points: off the pair grid
+    cuda_build.reset_launches()
+    res = run_slam2d(scans, cfg, loop_radius=1.0, min_gap=3)
+    assert cuda_build.LAUNCHES["nn_matched"] > 0
+    assert cuda_build.LAUNCHES["nn_sweep"] > 0
+    ref = run_slam2d(scans, plain, loop_radius=1.0, min_gap=3)
+    assert np.abs(res.optimized_path - ref.optimized_path).max() < 1e-3

@@ -19,7 +19,7 @@ import torch
 
 from icp_rust_tpu.ops import nn as j_nn
 from icp_rust_tpu.ops import nn_pallas as j_pallas
-from icp_rust_tpu_torch.ops import nn, nn_cuda
+from icp_rust_tpu_torch.ops import nn, nn_cuda, nn_sweep_cuda
 
 F32_EPS = float(np.finfo(np.float32).eps)
 
@@ -169,21 +169,35 @@ def test_survivor_lists_are_ascending_and_padded():
 
 
 def test_kernel_path_refuses_what_is_not_ported():
-    q = torch.zeros((128, 3))
-    small_db = torch.zeros((1000, 3))
-    with pytest.raises(NotImplementedError, match="_nn_matched_kernel"):
-        nn.nearest_neighbor_matched(q, small_db, backend="cuda",
-                                    q_bound=torch.zeros(128))
-    with pytest.raises(NotImplementedError, match="pair-grid"):
-        nn.nearest_neighbor_matched(q[None], torch.zeros((1, 4097, 3)),
-                                    backend="cuda",
-                                    q_bound=torch.zeros(1, 128))
-    with pytest.raises(NotImplementedError, match="_nn_pruned_kernel"):
-        nn.nearest_neighbor_matched(q, torch.zeros((8192, 3)),
-                                    backend="cuda")
+    """Every NN route of the JAX package has a kernel now: a db of fewer
+    than 3 tiles (kernel 4), a batch over dbs of more than 4096 points
+    (kernel 4) and an unseeded search (kernel 6) run and agree with the
+    plain sweep.  A payload width no kernel instance serves is refused by
+    name before any launch."""
+    rng = np.random.default_rng(6)
+    q = _t(rng.uniform(-3, 3, (128, 3)).astype(np.float32))
+    for db, qb in ((rng.uniform(-3, 3, (1000, 3)), torch.zeros(128)),
+                   (rng.uniform(-3, 3, (8192, 3)), None)):
+        db = _t(db.astype(np.float32))
+        res, matched = nn.nearest_neighbor_matched(q, db, backend="cuda",
+                                                   q_bound=qb)
+        want = nn.nn_torch(q, db)
+        assert torch.equal(res.index, want.index)
+        assert torch.equal(res.dist_sq, want.dist_sq)
+        assert torch.equal(matched, db[want.index.long()])
+    qs = _t(rng.uniform(-3, 3, (2, 128, 3)).astype(np.float32))
+    dbs = _t(rng.uniform(-3, 3, (2, 4097, 3)).astype(np.float32))
+    res, _ = nn.nearest_neighbor_matched(qs, dbs, backend="cuda",
+                                         q_bound=torch.zeros(2, 128))
+    assert torch.equal(res.index, nn.nn_torch(qs, dbs).index)
     # "auto" on float64 takes the plain sweep, as on the TPU.
+    small_db = torch.zeros((1000, 3))
     res, matched = nn.nearest_neighbor_matched(q.double(), small_db.double())
     assert matched.shape == (128, 3)
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="payload width 5"):
+        nn_sweep_cuda.nn_matched(torch.zeros((128, 3), device=meta),
+                                 torch.zeros((8, 2048), device=meta), 3)
 
 
 def test_wrapper_launches_or_raises_off_the_cpu():

@@ -582,7 +582,7 @@ def test_icp_point_to_plane_kernel_route_tracks_torch_route(method):
 def test_icp_point_to_plane_refuses_batches_and_bad_methods():
     src, dst, mask = _box_pair()
     ident = TT.identity(dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="not ported"):
         icp_p2l.icp_point_to_plane(np.stack([src, src]), np.stack([dst, dst]),
                                    np.stack([mask, mask]),
                                    np.stack([mask, mask]), ident,

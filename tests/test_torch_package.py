@@ -24,6 +24,7 @@ from icp_rust_tpu_torch.models import icp2d as m_icp
 from icp_rust_tpu_torch.models.icp_p2l import icp_point_to_plane
 from icp_rust_tpu_torch.models.odometry import run_odometry_fused, \
     run_odometry_p2l_fused
+from icp_rust_tpu_torch.models.slam import run_slam2d, run_slam3d
 from icp_rust_tpu_torch.ops import cuda_build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,7 +79,9 @@ def test_importing_the_port_loads_no_jax():
         "import icp_rust_tpu_torch.ops.nn_cuda, icp_rust_tpu_torch.ops.align2d_cuda\n"
         "import icp_rust_tpu_torch.ops.align3d_cuda, icp_rust_tpu_torch.ops.normals\n"
         "import icp_rust_tpu_torch.models.icp_p2l, icp_rust_tpu_torch.geometry\n"
-        "import icp_rust_tpu_torch.utils.io\n"
+        "import icp_rust_tpu_torch.utils.io, icp_rust_tpu_torch.ops.nn_sweep_cuda\n"
+        "import icp_rust_tpu_torch.models.slam, icp_rust_tpu_torch.models.pose_graph\n"
+        "import icp_rust_tpu_torch.utils.checkpoint\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'icp_rust_tpu' or m.startswith('icp_rust_tpu.')]\n"
         "print(bad)\n"
@@ -101,7 +104,8 @@ def _pair3d(n=256):
 
 
 @pytest.mark.parametrize("entry", ["icp2d", "icp3d_planar", "odometry",
-                                   "icp_point_to_plane", "odometry_p2l"])
+                                   "icp_point_to_plane", "odometry_p2l",
+                                   "slam2d", "slam3d"])
 def test_entry_points_raise_without_a_card(entry):
     _no_card()
     pts, mask = _pair3d()
@@ -116,6 +120,10 @@ def test_entry_points_raise_without_a_card(entry):
         elif entry == "odometry_p2l":
             run_odometry_p2l_fused(np.stack([pts, pts]),
                                    np.stack([mask, mask]))
+        elif entry == "slam2d":
+            run_slam2d([pts[:, :2], pts[:, :2]])
+        elif entry == "slam3d":
+            run_slam3d([pts, pts])
         else:
             run_odometry_fused(np.stack([pts, pts]), np.stack([mask, mask]))
 
