@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Builds the twelve Hopper kernels from ``icp_rust_tpu_torch/csrc`` (one
+Builds the fourteen Hopper kernels from ``icp_rust_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together; prints the ptxas register and
 spill lines), then runs these phases; any failure exits non-zero:
 
@@ -98,8 +98,34 @@ The full-sequence SLAM paths:
     after <= before; then on the xy of 12 full frames: nn_matched and
     nn_sweep launch with a batch axis.
 
+The last two kernels and the scan-to-submap path:
+
+18. gn_stats and gn_stats_batched (kernels 12 and 13: one GN update's
+    packed statistics) vs their plain versions through
+    ``align2d.weighted_gn_update_cuda``, their only caller: kernel 12 on
+    frame 1's first-iteration correspondences (N = 28,800) at the
+    identity and at a warm transform, kernel 13 on the batched path's 209
+    pairs (each at a seeded small transform) plus an all-masked pair and
+    one with an odd count.  The ten sums and the error within
+    GN_STATS_TOL of their Cauchy-Schwarz bounds, the count exact, sigma
+    within GN_SIGMA_TOL relative, and the update's delta within
+    GN_DELTA_TOL of ``weighted_gauss_newton_update``'s with equal ``ok``.
+19. ``run_submap_odometry`` at ``benchmarks/bench_submap.py``'s width (the
+    96 frames padded to 28,800; voxel 0.05 m, capacity 2^17, a 65,536-row
+    map view), twice (bitwise equal; the second run timed): frames/s, ATE
+    < 0.05 m, no hidden cells, the dropped points printed, nn_list and
+    irls_loop launches each equal to the total outer iterations; the plain
+    path on the card over the first 8 frames within 1 mm, with no launch.
+20. ``run_submap_odometry`` on the JAX package's tests/test_submap.py
+    wall world (8 frames of 400 points, voxel 0.03 m, capacity 4096),
+    fused and re-voxelize: max error < SUBMAP_2D_GATE_M; nn_matched and
+    irls_loop launch.
+
 The launch counts of each path are zeroed just before it and read just
-after.  Prints one ``{"kernels": [...]}`` line, the card's name and power
+after.  Prints one ``{"kernels": [...]}`` line, one entry per kernel (the
+fourteen): the contract's keys for its first timed shape and path, its
+launches on every path driven (``launches_by_path``) and the other shapes
+it was timed at (``other_shapes``); then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Bounds:
 the larger of (bytes read once + written once) / 3.35 TB/s and counted
 operations / 67 TFLOP/s (H100 SXM float32 without tensor cores).
@@ -108,9 +134,11 @@ operations / 67 TFLOP/s (H100 SXM float32 without tensor cores).
 
 adds torch.profiler traces of the main path's first 16 frames, of the
 batched path, of the p2l path's first 16 frames (with the voxel normals'
-share) and of run_slam3d over the 96 frames (with a host-clock split into
-its ICP calls, its mean-NN-distance calls and its graph solve): device
-time by kernel and the device's idle share, and the profiler's tables.
+share), of run_slam3d over the 96 frames (with a host-clock split into
+its ICP calls, its mean-NN-distance calls and its graph solve) and of the
+submap path over the 96 frames (with a host-clock split into its ICP
+calls, hash inserts and Morton resorts): device time by kernel and the
+device's idle share, and the profiler's tables.
 
 The phases take ``device`` and sizes, so a CPU test rehearses them at a
 tiny size with the kernels' plain versions.
@@ -120,9 +148,11 @@ from __future__ import annotations
 
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -133,9 +163,11 @@ from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
 from icp_rust_tpu_torch.models import icp2d as m_icp
 from icp_rust_tpu_torch.models import icp_p2l as m_p2l
 from icp_rust_tpu_torch.models import slam as m_slam
+from icp_rust_tpu_torch.models import submap as m_submap
 from icp_rust_tpu_torch.models.odometry import ate_rmse, \
     run_odometry_fused, run_odometry_p2l_fused
 from icp_rust_tpu_torch.models.slam import run_slam2d, run_slam3d
+from icp_rust_tpu_torch.models.submap import run_submap_odometry
 from icp_rust_tpu_torch.ops import align2d, align2d_cuda, align3d, \
     align3d_cuda, cuda_build, nn_cuda, nn_pairs_cuda, nn_sweep_cuda
 from icp_rust_tpu_torch.ops.nn import nearest_neighbor_matched, nn_torch
@@ -187,6 +219,19 @@ P2L_SIGMA_TOL = 1e-6
 BATCH_SCANS = 210
 BATCH_PAD = 768
 BATCH_COUNTS = (411, 670)
+# gn_stats(_batched) vs their plain versions, as p2l_stats: the ten sums
+# and the error against the Cauchy-Schwarz bound of each sum's absolute
+# terms, sigma relative; the update's delta (solver units, metres here)
+# against weighted_gauss_newton_update's, whose sums run in another order.
+GN_STATS_TOL = 1e-5
+GN_SIGMA_TOL = 1e-6
+GN_DELTA_TOL = 1e-5
+# The submap workload (benchmarks/bench_submap.py:47): ~54k occupied cells
+# at 96 frames, a 2^17-slot table (load ~0.41) and a 2^16-row view.
+SUBMAP_KW = dict(voxel_size=0.05, capacity=1 << 17, view_rows=1 << 16)
+# The wall world of the JAX package's tests/test_submap.py and its gate.
+SUBMAP_2D_KW = dict(voxel_size=0.03, capacity=4096)
+SUBMAP_2D_GATE_M = 0.02
 
 
 def _sync(device):
@@ -1612,6 +1657,281 @@ def profile_slam3d(device="cuda", n_frames: int = 96):
     print(avgs.table(sort_by="self_device_time_total", row_limit=20))
 
 
+def _gn_check(name, got, want, upd, ref):
+    """Gate one gn_stats case: stats against the plain version's, and the
+    update against weighted_gauss_newton_update's.  Returns (max relative
+    error, max absolute error of the packed stats)."""
+    rel, dn, sig_rel = align2d_cuda.gn_stats_errors(got, want)
+    d = float(torch.max(torch.abs(upd.delta - ref.delta)))
+    same_ok = torch.equal(upd.ok, ref.ok)
+    print(f"# {name}: sums and error max rel {rel:.3e} (tol {GN_STATS_TOL}),"
+          f" count diff {dn:g}, sigma rel {sig_rel:.3e} (tol "
+          f"{GN_SIGMA_TOL}); update delta vs the einsum update {d:.3e} "
+          f"(tol {GN_DELTA_TOL}), ok equal {same_ok} "
+          f"({int(upd.ok.sum())} of {upd.ok.numel()} ok)")
+    if not (rel <= GN_STATS_TOL and dn == 0.0 and sig_rel <= GN_SIGMA_TOL
+            and d <= GN_DELTA_TOL and same_ok):
+        raise RuntimeError(f"{name} differs from its plain version or the "
+                           "einsum update")
+    return rel, float(torch.max(torch.abs(got - want)))
+
+
+def phase_gn_stats(device="cuda", stride: int = 1,
+                   n_scans: int = BATCH_SCANS, pad: int = BATCH_PAD):
+    """Kernels 12 and 13 vs their plain versions through
+    align2d.weighted_gn_update_cuda (their only caller: their launches are
+    counted there), at the main path's and the batched path's shapes."""
+    cfg = _config()
+    k, eps = cfg.huber_k, cfg.det_rel_eps
+    src, smask, dst, dmask = _first_pair(device, stride)
+    _, matched = nearest_neighbor_matched(
+        src, dst, dmask, payload=dst[:, :2], backend="torch",
+        tile=cfg.nn_dst_tile)
+    s_xy = src[:, :2].contiguous()
+    ident = RigidTransform2.identity(device=src.device)
+    warm = align2d.estimate_transform(s_xy, matched, smask,
+                                      cfg.with_(align_backend="torch"))
+    b_src, b_smask, b_dst, b_dmask = _batch(device, n_scans, pad, sort=True)
+    _, b_matched = nearest_neighbor_matched(b_src, b_dst, b_dmask,
+                                            backend="torch", tile=pad)
+    extra = torch.zeros_like(b_smask[:2])
+    extra[1, :101] = True  # an odd count; row 0 all masked
+    bs = torch.cat([b_src, b_src[:2]])
+    bd = torch.cat([b_matched, b_matched[:2]])
+    bk = torch.cat([b_smask, extra])
+    rng = np.random.default_rng(8)
+    tw = rng.normal(0, 1, (bs.shape[0], 3)) * [0.05, 0.05, 0.02]
+    tw[-2:] = 0.0
+    bt = RigidTransform2.from_twist(torch.as_tensor(
+        tw, dtype=torch.float32, device=bs.device))
+    cases = [("gn_stats identity", ident, s_xy, matched, smask),
+             ("gn_stats warm", warm, s_xy, matched, smask),
+             ("gn_stats_batched", bt, bs, bd, bk)]
+    _sync(device)
+    cuda_build.reset_launches()
+    updates = [align2d.weighted_gn_update_cuda(t, a, b, m, k, eps)
+               for _, t, a, b, m in cases]
+    _sync(device)
+    launches = dict(cuda_build.LAUNCHES)
+    worst = {"gn_stats": (0.0, 0.0), "gn_stats_batched": (0.0, 0.0)}
+    for (name, t, a, b, m), upd in zip(cases, updates):
+        kern = name.split()[0]
+        fn = getattr(align2d_cuda, kern)
+        plain = getattr(align2d_cuda, kern + "_plain")
+        ref = align2d.weighted_gauss_newton_update(t, a, b, m, k, eps)
+        rel, err = _gn_check(name, fn(a, b, m, t.rot, t.t, k),
+                             plain(a, b, m, t.rot, t.t, k), upd, ref)
+        worst[kern] = tuple(map(max, worst[kern], (rel, err)))
+    if not (updates[2].ok[-1] and not updates[2].ok[-2]):
+        raise RuntimeError("gn_stats_batched: the odd-count pair is not ok "
+                           "or the all-masked pair is")
+    recs = []
+    for kern, line, args in (
+            ("gn_stats", 188, (s_xy, matched, smask, warm.rot, warm.t, k)),
+            ("gn_stats_batched", 467, (bs, bd, bk, bt.rot, bt.t, k))):
+        fn = getattr(align2d_cuda, kern)
+        plain = getattr(align2d_cuda, kern + "_plain")
+        ms = time_ms(lambda: fn(*args), device, reps=20)
+        plain_ms = time_ms(lambda: plain(*args), device, reps=3)
+        n_pts, n_pairs = args[0].shape[-2], args[0][..., 0, 0].numel()
+        b, by = bound_ms(5 * n_pairs * n_pts * 4 + n_pairs * (6 + 16) * 4,
+                         float(args[2].sum()) * IRLS_OPS_PER_POINT)
+        recs.append(dict(name=kern, route="cuda", path=kern,
+                         source=f"icp_rust_tpu_torch/csrc/{kern}.cu",
+                         replaces=f"icp_rust_tpu/ops/align2d_pallas.py:{line}",
+                         max_abs_err=worst[kern][1], ms=ms, plain_ms=plain_ms,
+                         bound_ms=b, bound_by=by, library_ms=None,
+                         launches=launches[kern], max_rel_err=worst[kern][0]))
+    return recs
+
+
+def _run_submap(pts, mask, cfg, device, with_metrics: bool = True, **kw):
+    """One timed ``run_submap_odometry`` call with the launch counts zeroed
+    just before it; returns (transforms, path, stats or None, seconds,
+    launches, dropped points, hidden-cells warnings), the last two read
+    from the runner's warnings."""
+    _sync(device)
+    cuda_build.reset_launches()
+    with warnings.catch_warnings(record=True) as wl:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        out = run_submap_odometry(pts, mask, cfg, with_metrics=with_metrics,
+                                  device=device, **kw)
+        _sync(device)
+        sec = time.perf_counter() - t0
+    msgs = [str(w.message) for w in wl]
+    dropped = sum(int(re.search(r"dropped (\d+) points", m).group(1))
+                  for m in msgs if "hash map dropped" in m)
+    hidden = [m for m in msgs if "view_rows hid" in m]
+    stats = out[2] if with_metrics else None
+    return (out[0], out[1], stats, sec, dict(cuda_build.LAUNCHES), dropped,
+            hidden)
+
+
+def phase_submap(device="cuda", n_frames: int = 96, stride: int = 1,
+                 plain_frames: int = 8, tile: int = 2048, kw=None):
+    """The scan-to-submap path at bench_submap.py's width, twice (bitwise
+    equal; the second run timed), then the plain path on the first
+    frames.  ``kw``: the map settings, for subsampled frames."""
+    kw = SUBMAP_KW if kw is None else kw
+    pts, mask, gt = frames3d(n_frames, stride)
+    cfg = _config(nn_dst_tile=tile)
+    tf1, path1, _, first_sec, _, _, _ = _run_submap(pts, mask, cfg, device,
+                                                    **kw)
+    tf, path, stats, sec, launches, dropped, hidden = _run_submap(
+        pts, mask, cfg, device, **kw)
+    if not (np.array_equal(path, path1) and torch.equal(tf.rot, tf1.rot)
+            and torch.equal(tf.t, tf1.t)):
+        raise RuntimeError("submap path: two runs differ")
+    ate = ate_rmse(path, gt)
+    outer = stats.outer_iters.cpu().numpy()
+    total = int(outer.sum())
+    fps = (n_frames - 1) / sec
+    print(f"# submap path: {n_frames} frames of {pts.shape[1]} points, "
+          f"{kw}, {sec:.4f} s, {fps:.2f} frames/s (host clock; first run "
+          f"{first_sec:.4f} s), bitwise equal to the first run; ATE vs "
+          f"ground truth {ate:.6f} m; outer iterations per frame mean "
+          f"{outer.mean():.3f} min {outer.min()} max {outer.max()} total "
+          f"{total}; dropped points {dropped}; hidden-cells warnings "
+          f"{len(hidden)}; launches {launches}")
+    if not ate < ATE_GATE_M:
+        raise RuntimeError(f"submap path ATE {ate} >= {ATE_GATE_M}")
+    if hidden:
+        raise RuntimeError(f"submap path hid occupied cells: {hidden}")
+    on_card = torch.device(device).type == "cuda"
+    if on_card and not (launches["nn_list"] == launches["irls_loop"] == total
+                        and total > 0):
+        raise RuntimeError(f"submap path launches {launches}, expected "
+                           f"{total} nn_list and irls_loop")
+    plain_cfg = cfg.with_(nn_backend="torch", align_backend="torch")
+    _, p_path, _, p_sec, p_launch, _, _ = _run_submap(
+        pts[:plain_frames], mask[:plain_frames], plain_cfg, device, **kw)
+    d = ate_rmse(p_path, path[:plain_frames - 1])
+    print(f"# submap plain path on the first {plain_frames} frames: "
+          f"{p_sec:.3f} s; trajectory vs kernel path {d:.3e} m (gate "
+          f"{PLAIN_GATE_M})")
+    if any(p_launch.values()):
+        raise RuntimeError(f"submap plain path launched kernels: {p_launch}")
+    if not d < PLAIN_GATE_M:
+        raise RuntimeError(f"submap kernel vs plain trajectory {d} m")
+    return dict(launches=launches, ate=ate, fps=fps, seconds=sec,
+                outer_total=total, dropped=dropped)
+
+
+def walls_sequence(n_frames: int = 8, n_pts: int = 400, seed: int = 0):
+    """The JAX package's tests/test_submap.py wall world, scanned from a
+    slowly moving pose: frames (F, n_pts, 2) in sensor coordinates and the
+    ground-truth sensor positions in frame 0's coordinates."""
+    rng = np.random.default_rng(seed)
+    walls = []
+    for _ in range(8):
+        a = rng.uniform(-8, 8, 2)
+        ang = rng.uniform(0, np.pi)
+        walls.append((a, np.array([np.cos(ang), np.sin(ang)]),
+                      rng.uniform(3, 8)))
+    poses = np.column_stack([0.06 * np.arange(n_frames),
+                             0.04 * np.arange(n_frames),
+                             0.015 * np.arange(n_frames)])
+    frames = []
+    for x, y, th in poses:
+        widx = rng.integers(0, len(walls), n_pts)
+        ts = rng.uniform(0, 1, n_pts)
+        pw = np.stack([walls[i][0] + walls[i][1] * t * walls[i][2]
+                       for i, t in zip(widx, ts)])
+        c, s = np.cos(th), np.sin(th)
+        local = (pw - [x, y]) @ np.array([[c, -s], [s, c]])
+        frames.append(local + rng.normal(0, 0.003, local.shape))
+    c, s = np.cos(poses[0, 2]), np.sin(poses[0, 2])
+    gt = (poses[1:, :2] - poses[0, :2]) @ np.array([[c, -s], [s, c]])
+    return np.stack(frames), gt
+
+
+def phase_submap_2d(device="cuda", n_frames: int = 8, n_pts: int = 400):
+    """The small 2D runs, fused and re-voxelize, on the wall world."""
+    pts, gt = walls_sequence(n_frames, n_pts)
+    mask = np.ones(pts.shape[:2], bool)
+    cfg = _config()
+    out = {}
+    for fused in (True, False):
+        _, path, _, sec, launches, dropped, _ = _run_submap(
+            pts, mask, cfg, device, with_metrics=False, fused=fused,
+            **SUBMAP_2D_KW)
+        err = float(np.linalg.norm(path - gt, axis=1).max())
+        name = "fused" if fused else "re-voxelize"
+        print(f"# submap 2D {name}: {n_frames} frames of {n_pts} points, "
+              f"{sec:.4f} s; max error vs ground truth {err:.6f} m (gate "
+              f"{SUBMAP_2D_GATE_M}); dropped points {dropped}; launches "
+              f"{launches}")
+        if not err < SUBMAP_2D_GATE_M:
+            raise RuntimeError(f"submap 2D {name}: max error {err} m")
+        if torch.device(device).type == "cuda" and not (
+                launches["nn_matched"] > 0 and launches["irls_loop"] > 0
+                and launches["nn_list"] == 0):
+            raise RuntimeError(f"submap 2D {name} launches {launches}")
+        out[name] = dict(launches=launches, err=err)
+    return out
+
+
+def profile_submap(device="cuda", n_frames: int = 96):
+    """Where the submap path's time goes at full width: host-clock time
+    (with a synchronise around each call) in its ICP calls, its hash
+    inserts and its Morton resorts, against the run's wall time; then
+    torch.profiler over a second run: device time by kernel and the
+    device's idle share against an unprofiled run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pts, mask, _ = frames3d(n_frames)
+    cfg = _config()
+    spent = {}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            _sync(device)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync(device)
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return call
+
+    patches = ((m_submap, "icp3d_planar"), (m_submap.vh, "insert"),
+               (m_submap, "morton_order"))
+    saved = [getattr(mod, n) for mod, n in patches]
+    _run_submap(pts, mask, cfg, device, with_metrics=False, **SUBMAP_KW)
+    wall = _run_submap(pts, mask, cfg, device, with_metrics=False,
+                       **SUBMAP_KW)[3]
+    try:
+        for (mod, n), fn in zip(patches, saved):
+            setattr(mod, n, timed(n, fn))
+        split_wall = _run_submap(pts, mask, cfg, device, with_metrics=False,
+                                 **SUBMAP_KW)[3]
+    finally:
+        for (mod, n), fn in zip(patches, saved):
+            setattr(mod, n, fn)
+    rest = split_wall - sum(spent.values())
+    print(f"# profile submap: {n_frames} frames, unprofiled wall "
+          f"{wall * 1e3:.3f} ms ({wall * 1e3 / (n_frames - 1):.3f} ms/frame);"
+          f" with a synchronise around each call {split_wall * 1e3:.3f} ms: "
+          + ", ".join(f"{n} {spent[n] * 1e3:.3f} ms "
+                      f"({spent[n] / split_wall:.4f})" for _, n in patches)
+          + f", the rest {rest * 1e3:.3f} ms ({rest / split_wall:.4f})")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _run_submap(pts, mask, cfg, device, with_metrics=False, **SUBMAP_KW)
+    avgs = prof.key_averages()
+    kern = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    print(f"# profile submap: device busy {busy_ms:.3f} ms "
+          f"({busy_ms / (n_frames - 1):.3f} ms/frame), idle share "
+          f"{1.0 - busy_ms / (wall * 1e3):.4f}")
+    for e in kern[:12]:
+        print(f"# profile submap kernel {e.self_device_time_total / 1e3:9.3f}"
+              f" ms {e.count:6d} calls  {e.key[:90]}")
+    print(avgs.table(sort_by="self_device_time_total", row_limit=20))
+
+
 def _ptxas_lines(report: dict):
     for name, log in sorted(report.items()):
         for line in log.splitlines():
@@ -1650,11 +1970,15 @@ def main() -> int:
     slam3 = phase_slam3d(device)
     slam3_small = phase_slam3d_small(device)
     slam2 = phase_slam2d(device)
+    records += phase_gn_stats(device)
+    sub = phase_submap(device)
+    sub_2d = phase_submap_2d(device)
     if profile_run:
         profile_main(device)
         profile_batched(device)
         profile_p2l(device)
         profile_slam3d(device)
+        profile_submap(device)
     launches = {
         ("nn_list", "main"): main_run["launches"]["nn_list"],
         ("irls_loop", "main"): main_run["launches"]["irls_loop"],
@@ -1674,6 +1998,16 @@ def main() -> int:
         ("nn_sweep", "slam2d-wide"): slam2["wide_launches"]["nn_sweep"],
         ("nn_matched", "slam2d-wide"): slam2["wide_launches"]["nn_matched"],
     }
+    runs = {"main": main_run["launches"], "2d": run_2d["launches"],
+            "batched": batched["launches"],
+            "batched-pairs": batched["frame_launches"],
+            "p2l": p2l["launches"], "slam3d": slam3["launches"],
+            "slam3d-small": slam3_small["launches"],
+            "slam2d": slam2["launches"],
+            "slam2d-wide": slam2["wide_launches"],
+            "submap": sub["launches"],
+            "submap-2d": sub_2d["fused"]["launches"],
+            "submap-2d-revoxelize": sub_2d["re-voxelize"]["launches"]}
     for rec in records:
         if (rec["name"], rec["path"]) in launches:
             rec["launches"] = launches[(rec["name"], rec["path"])]
@@ -1682,8 +2016,30 @@ def main() -> int:
                                f"({rec['path']})")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "path")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in records]}))
+    # One entry per kernel: its first record's path and shapes; the other
+    # shapes it was timed at, and its launches on every path driven.
+    entries = {}
+    for rec in records:
+        entry = entries.get(rec["name"])
+        if entry is None:
+            entry = entries[rec["name"]] = {k: rec[k] for k in keys}
+            entry["launches_by_path"] = {rec["path"]: rec["launches"]}
+            entry["launches_by_path"].update(
+                (p, n[rec["name"]]) for p, n in runs.items()
+                if n[rec["name"]])
+            entry["other_shapes"] = []
+        else:
+            entry["other_shapes"].append({k: rec[k] for k in (
+                "path", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by")})
+    if sorted(entries) != sorted(cuda_build.SOURCES):
+        raise RuntimeError(f"kernels line has {sorted(entries)}")
+    print(f"# submap: {sub['fps']:.2f} frames/s, ATE {sub['ate']:.6f} m, "
+          f"{sub['outer_total']} outer iterations, dropped points "
+          f"{sub['dropped']}; 2D max errors "
+          f"{sub_2d['fused']['err']:.6f} / {sub_2d['re-voxelize']['err']:.6f}"
+          f" m")
+    print(json.dumps({"kernels": list(entries.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,10 @@ package's config (``dataclasses.asdict``), with the backend names mapped
 dtype taken by name; ``transform_from_numpy`` builds a
 ``RigidTransform2`` and ``transform3_from_numpy`` a ``RigidTransform3``;
 ``pose_graph_from_numpy`` builds a ``models.pose_graph.PoseGraph`` from
-the arrays of the JAX package's ``PoseGraph``.  None imports the JAX
-package: they take plain values.
+the arrays of the JAX package's ``PoseGraph``; ``voxel_hash_map_from_numpy``
+builds an ``ops.voxel_hash.VoxelHashMap`` (the scan-to-submap path's state)
+from the arrays of the JAX package's one.  None imports the JAX package:
+they take plain values.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
 from icp_rust_tpu_torch.models.pose_graph import PoseGraph
+from icp_rust_tpu_torch.ops.voxel_hash import VoxelHashMap
 
 # "pairs" forced the pair-grid NN kernels for a batched query; here the
 # kernel route ("cuda") takes them for every batched query they serve.
@@ -107,3 +110,19 @@ def pose_graph_from_numpy(poses_rot, poses_t, edge_i, edge_j, meas_rot,
         info=torch.as_tensor(np.array(info)).to(device=device,
                                                  dtype=poses.t.dtype),
         edge_mask=torch.as_tensor(np.array(edge_mask, bool), device=device))
+
+
+def voxel_hash_map_from_numpy(key, psum, cnt, origin, device="cpu",
+                              dtype=None) -> VoxelHashMap:
+    """VoxelHashMap from array-likes: key (C,) int32 cell ids, psum (C, D)
+    point sums, cnt (C,) counts, origin (D,).  The float arrays keep
+    psum's dtype unless ``dtype`` is given."""
+    psum = np.asarray(psum)
+    dt = dtype if dtype is not None else _dtype_by_name(psum.dtype)
+
+    def floats(x):
+        return torch.as_tensor(np.array(x)).to(device=device, dtype=dt)
+
+    return VoxelHashMap(
+        key=torch.as_tensor(np.array(key, np.int32), device=device),
+        psum=floats(psum), cnt=floats(cnt), origin=floats(origin))

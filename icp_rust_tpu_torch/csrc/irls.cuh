@@ -8,6 +8,10 @@
 // of 64 to 1024 threads, a multiple of 32 (two warps pick the two
 // medians' digits).
 //
+// Steps 1-4 are gn_stats_block, one GN update's statistics at a given
+// transform, which gn_stats.cu and gn_stats_batched.cu also run (as the
+// TPU's _gn_kernel and _irls_loop share align2d_pallas._gn_stats_core).
+//
 // Per iteration, with the whole block:
 //   1. residuals r = R s + t - d into the rx/ry scratch (one pass);
 //   2. exact masked medians of rx and ry together: four 8-bit radix
@@ -228,6 +232,105 @@ __device__ void median_pair(const float* a0, const float* a1,
   out1 = sh.med[1];
 }
 
+// Count of mask-true points; every thread gets it.  (irls_loop counts with
+// the same passes, fused with its set-up.)
+__device__ inline int block_count(const float* mask, int n_pts,
+                                  IrlsShared& sh) {
+  const int tid = threadIdx.x;
+  int cnt = 0;
+  for (int i = tid; i < n_pts; i += blockDim.x) cnt += (mask[i] > 0.5f);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) cnt += __shfl_down_sync(kFull, cnt, o);
+  if ((tid & 31) == 0) sh.ired[tid >> 5][0] = cnt;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) total += sh.ired[w][0];
+    sh.n = total;
+  }
+  __syncthreads();
+  return sh.n;
+}
+
+// One robust GN update's statistics at (r00 r01 r10 r11, tx ty), steps 1-4
+// above: the residual pass into rx/ry, the median and MAD of each
+// dimension, then one pass for the 10 normal-equation sums and the Huber
+// error over the n mask-true points, reduced by warp shuffles.  On return
+// (after a barrier) sh.red[w][k] holds warp w's part of sum k (S_u, S_uw,
+// S_uw2, S_ur, S_uwr for x, then for y, then the error; block_total adds
+// them up in warp order); every thread gets sigma_x and sigma_y.
+__device__ void gn_stats_block(const float* sx, const float* sy,
+                               const float* dx, const float* dy,
+                               const float* mask, int n_pts, float* rx,
+                               float* ry, const IrlsParams& P,
+                               IrlsShared& sh, int n, float r00, float r01,
+                               float r10, float r11, float tx, float ty,
+                               float& sig_x, float& sig_y) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nthreads = blockDim.x;
+  for (int i = tid; i < n_pts; i += nthreads) {
+    rx[i] = residual(r00, r01, sx[i], sy[i], tx, dx[i]);
+    ry[i] = residual(r10, r11, sx[i], sy[i], ty, dy[i]);
+  }
+  __syncthreads();
+
+  float med_x, med_y, mad_x, mad_y;
+  median_pair(rx, ry, mask, n_pts, false, 0.0f, 0.0f, n, sh, med_x, med_y);
+  median_pair(rx, ry, mask, n_pts, true, med_x, med_y, n, sh, mad_x, mad_y);
+  sig_x = kMadScale * mad_x;
+  sig_y = kMadScale * mad_y;
+  const float g_x = (sig_x != 0.0f) ? 1.0f / sig_x : 0.0f;
+  const float g_y = (sig_y != 0.0f) ? 1.0f / sig_y : 0.0f;
+
+  float acc[kNumSums];
+#pragma unroll
+  for (int k = 0; k < kNumSums; ++k) acc[k] = 0.0f;
+  for (int i = tid; i < n_pts; i += nthreads) {
+    if (!(mask[i] > 0.5f)) continue;
+    const float ax = rx[i], ay = ry[i];
+    const float ex = ax * ax, ey = ay * ay;
+    const float wgt_x = (ex <= P.k2) ? 1.0f : P.huber_k / sqrtf(ex);
+    const float wgt_y = (ey <= P.k2) ? 1.0f : P.huber_k / sqrtf(ey);
+    const float u_x = wgt_x * g_x;
+    const float u_y = wgt_y * g_y;
+    const float w_x = -r00 * sy[i] + r01 * sx[i];
+    const float w_y = -r10 * sy[i] + r11 * sx[i];
+    acc[0] += u_x;
+    acc[1] += u_x * w_x;
+    acc[2] += u_x * w_x * w_x;
+    acc[3] += u_x * ax;
+    acc[4] += u_x * w_x * ax;
+    acc[5] += u_y;
+    acc[6] += u_y * w_y;
+    acc[7] += u_y * w_y * w_y;
+    acc[8] += u_y * ay;
+    acc[9] += u_y * w_y * ay;
+    const float e = ex + ey;
+    acc[10] += (e <= P.k2) ? e : P.two_k * sqrtf(e) - P.k2;
+  }
+#pragma unroll
+  for (int k = 0; k < kNumSums; ++k) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      acc[k] += __shfl_down_sync(kFull, acc[k], o);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int k = 0; k < kNumSums; ++k) sh.red[warp][k] = acc[k];
+  }
+  __syncthreads();
+}
+
+// Sum k of gn_stats_block over the block: its warps' parts in warp order.
+__device__ __forceinline__ float block_total(const IrlsShared& sh, int k) {
+  float s = 0.0f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) s += sh.red[w][k];
+  return s;
+}
+
 // The whole IRLS loop from identity.  sx/sy: src, dx/dy: matched dst,
 // mask: 1.0 for valid points; rx/ry: n_pts-float scratch each.  Every
 // thread returns out = (r00, r01, r10, r11, tx, ty, iterations).
@@ -263,60 +366,9 @@ __device__ void irls_loop(const float* sx, const float* sy, const float* dx,
     const float r00 = sh.rot[0], r01 = sh.rot[1];
     const float r10 = sh.rot[2], r11 = sh.rot[3];
     const float tx = sh.t[0], ty = sh.t[1];
-    for (int i = tid; i < n_pts; i += nthreads) {
-      rx[i] = residual(r00, r01, sx[i], sy[i], tx, dx[i]);
-      ry[i] = residual(r10, r11, sx[i], sy[i], ty, dy[i]);
-    }
-    __syncthreads();
-
-    float med_x, med_y, mad_x, mad_y;
-    median_pair(rx, ry, mask, n_pts, false, 0.0f, 0.0f, n, sh, med_x,
-                med_y);
-    median_pair(rx, ry, mask, n_pts, true, med_x, med_y, n, sh, mad_x,
-                mad_y);
-    const float sig_x = kMadScale * mad_x;
-    const float sig_y = kMadScale * mad_y;
-    const float g_x = (sig_x != 0.0f) ? 1.0f / sig_x : 0.0f;
-    const float g_y = (sig_y != 0.0f) ? 1.0f / sig_y : 0.0f;
-
-    float acc[kNumSums];
-#pragma unroll
-    for (int k = 0; k < kNumSums; ++k) acc[k] = 0.0f;
-    for (int i = tid; i < n_pts; i += nthreads) {
-      if (!(mask[i] > 0.5f)) continue;
-      const float ax = rx[i], ay = ry[i];
-      const float ex = ax * ax, ey = ay * ay;
-      const float wgt_x = (ex <= P.k2) ? 1.0f : P.huber_k / sqrtf(ex);
-      const float wgt_y = (ey <= P.k2) ? 1.0f : P.huber_k / sqrtf(ey);
-      const float u_x = wgt_x * g_x;
-      const float u_y = wgt_y * g_y;
-      const float w_x = -r00 * sy[i] + r01 * sx[i];
-      const float w_y = -r10 * sy[i] + r11 * sx[i];
-      acc[0] += u_x;
-      acc[1] += u_x * w_x;
-      acc[2] += u_x * w_x * w_x;
-      acc[3] += u_x * ax;
-      acc[4] += u_x * w_x * ax;
-      acc[5] += u_y;
-      acc[6] += u_y * w_y;
-      acc[7] += u_y * w_y * w_y;
-      acc[8] += u_y * ay;
-      acc[9] += u_y * w_y * ay;
-      const float e = ex + ey;
-      acc[10] += (e <= P.k2) ? e : P.two_k * sqrtf(e) - P.k2;
-    }
-#pragma unroll
-    for (int k = 0; k < kNumSums; ++k) {
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        acc[k] += __shfl_down_sync(kFull, acc[k], o);
-      }
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < kNumSums; ++k) sh.red[warp][k] = acc[k];
-    }
-    __syncthreads();
+    float sig_x, sig_y;
+    gn_stats_block(sx, sy, dx, dy, mask, n_pts, rx, ry, P, sh, n, r00, r01,
+                   r10, r11, tx, ty, sig_x, sig_y);
 
     if (tid == 0) {
       float s[kNumSums];

@@ -2,10 +2,14 @@
 
 Counterpart of the solver core of reference src/lib.rs:
 
+- ``error`` and ``huber_error`` (src/lib.rs:38-50): masked sums of the
+  squared residual norms, plain and under Huber's rho;
 - ``jacobian``: J = [R | R (-a_y, a_x)^T] per point (src/lib.rs:176-184);
+- ``gauss_newton_update`` (src/lib.rs:191-216): the plain GN step;
 - ``weighted_gauss_newton_update`` (src/lib.rs:218-261): robust sigma per
   residual dimension, Huber IRLS weights, masked einsum sums, adjugate
-  3x3 solve;
+  3x3 solve; ``weighted_gn_update_cuda`` takes the same step from the
+  packed statistics of the ``gn_stats`` kernels (ops/align2d_cuda.py);
 - ``estimate_transform`` (src/lib.rs:59-84): the inner IRLS loop, up to
   ``inner_max_iter`` iterations with the reference's three stop
   conditions in its order: singular/degenerate -> stop; |delta|^2 below
@@ -37,6 +41,21 @@ def residuals(transform: RigidTransform2, src: Tensor, dst: Tensor) -> Tensor:
     return transform.apply_points(src) - dst
 
 
+def error(transform: RigidTransform2, src: Tensor, dst: Tensor,
+          mask: Tensor) -> Tensor:
+    """Masked sum of squared residual norms. Ref src/lib.rs:38-43."""
+    r = residuals(transform, src, dst)
+    return torch.sum(torch.sum(r * r, dim=-1) * mask.to(r.dtype), dim=-1)
+
+
+def huber_error(transform: RigidTransform2, src: Tensor, dst: Tensor,
+                mask: Tensor, huber_k: float) -> Tensor:
+    """Masked sum of rho(|r|^2, k). Ref src/lib.rs:45-50."""
+    r = residuals(transform, src, dst)
+    return torch.sum(huber.rho(torch.sum(r * r, dim=-1), huber_k)
+                     * mask.to(r.dtype), dim=-1)
+
+
 def jacobian(rot: Tensor, src: Tensor) -> Tensor:
     """Per-point SE(2) Jacobian: rot (..., 2, 2), src (..., N, 2) ->
     (..., N, 2, 3)."""
@@ -54,7 +73,29 @@ def _count_gate(mask: Tensor) -> Tensor:
 class GNUpdate(NamedTuple):
     delta: Tensor  # (..., 3) twist update (zeros where not ok)
     ok: Tensor     # (...,) bool
-    err: Tensor    # (...,) Huber error at the PRE-update transform
+    err: Tensor    # (...,) error at the PRE-update transform, which rides
+                   # along because the residuals are already in hand.
+                   # Update-specific: the weighted (IRLS) updates fill it
+                   # with the Huber error (what the inner loop's stop 3
+                   # compares, src/lib.rs:75-79); gauss_newton_update with
+                   # the unweighted squared-residual sum.  Do not mix the
+                   # two in one stop-condition chain.
+
+
+def gauss_newton_update(transform: RigidTransform2, src: Tensor,
+                        dst: Tensor, mask: Tensor,
+                        det_rel_eps: float = 0.0) -> GNUpdate:
+    """Plain GN step. Ref src/lib.rs:191-216."""
+    maskf = mask.to(src.dtype)
+    j = jacobian(transform.rot, src)
+    r = residuals(transform, src, dst)
+    jtr = torch.einsum("...nik,...ni,...n->...k", j, r, maskf)
+    jtj = torch.einsum("...nik,...nil,...n->...kl", j, j, maskf)
+    x, ok_solve = linalg.solve3x3(jtj, jtr, det_rel_eps)
+    ok = ok_solve & _count_gate(mask)
+    delta = torch.where(ok[..., None], -x, torch.zeros_like(x))
+    err = torch.sum(torch.sum(r * r, dim=-1) * maskf, dim=-1)
+    return GNUpdate(delta, ok, err)
 
 
 def weighted_gauss_newton_update(transform: RigidTransform2, src: Tensor,
@@ -81,6 +122,28 @@ def weighted_gauss_newton_update(transform: RigidTransform2, src: Tensor,
     ok = ok_solve & _count_gate(mask) & stats_valid
     delta = torch.where(ok[..., None], -x, torch.zeros_like(x))
     return GNUpdate(delta, ok, err)
+
+
+def weighted_gn_update_cuda(transform: RigidTransform2, src: Tensor,
+                            dst: Tensor, mask: Tensor, huber_k: float,
+                            det_rel_eps: float = 0.0) -> GNUpdate:
+    """One robust GN update from the packed statistics of the ``gn_stats``
+    kernel (src/dst (N, 2)) or, for B pairs (B, N, 2), of the
+    ``gn_stats_batched`` kernel: the counterpart of
+    ``weighted_gn_update_pallas``, the same math as
+    ``weighted_gauss_newton_update`` with the sums in another order."""
+    from icp_rust_tpu_torch.ops import align2d_cuda
+
+    fn = (align2d_cuda.gn_stats_batched if src.ndim == 3
+          else align2d_cuda.gn_stats)
+    stats = fn(src, dst, mask, transform.rot, transform.t, huber_k)
+    jtj, jtr, err, nf, _, _ = align2d_cuda.assemble_update(stats,
+                                                           transform.rot)
+    x, ok_solve = linalg.solve3x3(jtj.to(src.dtype), jtr.to(src.dtype),
+                                  det_rel_eps)
+    ok = ok_solve & (nf >= 2) & (nf > 0)
+    delta = torch.where(ok[..., None], -x, torch.zeros_like(x))
+    return GNUpdate(delta, ok, err.to(src.dtype))
 
 
 def _delta_sq_physical(delta: Tensor, point_scale: float) -> Tensor:

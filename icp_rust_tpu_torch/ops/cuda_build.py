@@ -39,7 +39,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("nn_list", "irls_loop", "icp2d_frame", "nn_pairs",
            "nn_pairs_list", "irls_loop_batched", "icp2d_frame_pairs",
            "p2l_loop", "p2l_stats", "nn_sweep", "nn_matched",
-           "nn_pruned")
+           "nn_pruned", "gn_stats", "gn_stats_batched")
 # Every header is hashed into every library's name, so an edited header
 # rebuilds whatever includes it.
 HEADERS = ("irls.cuh", "frame.cuh", "nn_pairs.cuh", "p2l.cuh",
@@ -91,6 +91,13 @@ _SIGNATURES = {
     # query, dbf_cm, qbox, bbox, qb_tile, dist, idx, pay; qp, q_tile,
     # db_tile, d_dim, f_dim, m_pad; stream
     "nn_pruned": ("nn_pruned_launch", [_P] * 8 + [_I] * 6 + [_P]),
+    # sx, sy, dx, dy, mask; n; rt, scratch, out; huber_k, k2, two_k; stream
+    "gn_stats": ("gn_stats_launch",
+                 [_P] * 5 + [_I] + [_P] * 3 + [_F] * 3 + [_P]),
+    # sx, sy, dx, dy, mask; b, n; rt, scratch, out; huber_k, k2, two_k;
+    # stream
+    "gn_stats_batched": ("gn_stats_batched_launch",
+                         [_P] * 5 + [_I] * 2 + [_P] * 3 + [_F] * 3 + [_P]),
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}

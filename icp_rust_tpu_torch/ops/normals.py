@@ -28,6 +28,7 @@ import torch
 from torch import Tensor
 
 from icp_rust_tpu_torch.ops import linalg
+from icp_rust_tpu_torch.ops.voxel import segment_sums
 
 # Planarity gate on the mid/largest eigenvalue ratio.  The closed-form f32
 # eigensolver's error floor is ~2e-4 relative to lam2, so the gate sits
@@ -176,14 +177,8 @@ def estimate_normals_voxel(points: Tensor, mask: Tensor, voxel_size: float,
                      dim=-1)
     rows = torch.cat([wf, spts * wf, m2 * wf], dim=-1)  # (N, 10)
     # seg ascends (a cumsum of run starts; invalid rows last, at
-    # ``capacity``), so the segment lengths partition the rows in order.
-    # The lengths are integer counts (order-free) and sum to N by
-    # construction: ``unsafe`` skips the check, a device-to-host read.
-    lengths = torch.zeros(capacity + 1, dtype=torch.int64, device=dev)
-    lengths.scatter_add_(0, seg.to(torch.int64),
-                         torch.ones(n_pts, dtype=torch.int64, device=dev))
-    acc = torch.segment_reduce(rows, "sum", lengths=lengths, axis=0,
-                               unsafe=True)
+    # ``capacity``), so the segments partition the rows in order.
+    acc = segment_sums(rows, seg, capacity + 1)
     cnt = acc[:capacity, 0]
     s1 = acc[:capacity, 1:1 + dim]
     s2 = acc[:capacity, 1 + dim:7 + dim]

@@ -11,10 +11,13 @@ nn_pruned are bitwise equal to their plain versions (indices, distances
 and payload) and to a brute-force sweep.  irls_loop,
 irls_loop_batched, icp2d_frame, icp2d_frame_pairs and p2l_loop take
 their sums in another order than the plain versions: rot and t within
-1e-5, equal iteration counts for p2l_loop.  p2l_stats: the 27 sums and
-the error within 1e-5 of the Cauchy-Schwarz bound of each sum's absolute
-terms, the count exact, sigma within 1e-6 relative.  chip_smoke.py runs
-the same comparisons at the main path's full size.
+1e-5, equal iteration counts for p2l_loop.  p2l_stats, gn_stats and
+gn_stats_batched: each sum and the error within 1e-5 of the
+Cauchy-Schwarz bound of its absolute terms, the count exact, sigma within
+1e-6 relative; the update from gn_stats' statistics against the einsum
+update at the JAX package's gate (delta rtol 2e-4, atol 1e-6).  The voxel hash table on the card equals the CPU's: keys,
+counts and drops exact, point sums to float32 roundoff.  chip_smoke.py
+runs the same comparisons at the paths' full sizes.
 """
 
 import numpy as np
@@ -26,8 +29,8 @@ from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
 from icp_rust_tpu_torch.models.odometry import ate_rmse, \
     run_odometry_fused, run_odometry_p2l_fused
-from icp_rust_tpu_torch.ops import align2d_cuda, align3d, align3d_cuda, \
-    cuda_build, nn_cuda, nn_pairs_cuda
+from icp_rust_tpu_torch.ops import align2d, align2d_cuda, align3d, \
+    align3d_cuda, cuda_build, nn_cuda, nn_pairs_cuda
 from icp_rust_tpu_torch.parallel import batched_icp2d
 from icp_rust_tpu_torch.utils import io
 
@@ -533,3 +536,131 @@ def test_slam_on_the_card_tracks_the_plain_path(dev):
     assert cuda_build.LAUNCHES["nn_sweep"] > 0
     ref = run_slam2d(scans, plain, loop_radius=1.0, min_gap=3)
     assert np.abs(res.optimized_path - ref.optimized_path).max() < 1e-3
+
+
+def _gn_problem(dev, batch=(), n=3000, seed=8):
+    """A rotated, shifted, noisy copy with outliers and a partial mask, at
+    a small transform per pair."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-2, 2, (*batch, n, 2))
+    dst = src @ np.array([[0.99, -0.14], [0.14, 0.99]]).T + [0.3, -0.2]
+    dst = dst + rng.normal(0, 0.05, dst.shape)
+    dst[..., ::17, :] += 3.0
+    mask = rng.random((*batch, n)) > 0.2
+    tw = rng.normal(0, 1, (*batch, 3)) * [0.05, 0.05, 0.02]
+    t = RigidTransform2.from_twist(torch.as_tensor(tw, dtype=torch.float32,
+                                                   device=dev))
+    return [torch.as_tensor(x, dtype=torch.float32, device=dev)
+            for x in (src, dst)] + [torch.as_tensor(mask, device=dev), t]
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_gn_stats_kernels_match_plain(dev, batched):
+    src, dst, mask, t = _gn_problem(dev, (6,) if batched else ())
+    if batched:
+        mask[2] = False  # a fully masked pair
+        mask[3, :] = False
+        mask[3, :101] = True  # an odd count
+    name = "gn_stats_batched" if batched else "gn_stats"
+    before = cuda_build.LAUNCHES[name]
+    upd = align2d.weighted_gn_update_cuda(t, src, dst, mask, 1.345, 1e-9)
+    assert cuda_build.LAUNCHES[name] == before + 1
+    ref = align2d.weighted_gauss_newton_update(t, src, dst, mask, 1.345,
+                                               1e-9)
+    # The einsum update sums in another order; a large step (~0.4 here)
+    # carries its roundoff: the JAX package's gate for this comparison.
+    assert torch.equal(upd.ok, ref.ok)
+    torch.testing.assert_close(upd.delta, ref.delta, atol=1e-6, rtol=2e-4)
+    fn = getattr(align2d_cuda, name)
+    plain = getattr(align2d_cuda, name + "_plain")
+    got = fn(src, dst, mask, t.rot, t.t, 1.345)
+    want = plain(src, dst, mask, t.rot, t.t, 1.345)
+    rel, dn, sig_rel = align2d_cuda.gn_stats_errors(got, want)
+    assert rel <= 1e-5 and dn == 0 and sig_rel <= 1e-6
+    if batched:
+        assert torch.equal(got[2], torch.zeros(16, device=dev))
+        assert not bool(upd.ok[2]) and bool(upd.ok[3])
+
+
+def test_irls_cuh_kernels_agree_after_the_stats_refactor(dev):
+    """The four kernels that share irls.cuh with the stats kernels still
+    match their plain versions, and irls_loop's first iteration takes the
+    step that gn_stats' statistics give (the same block routine)."""
+    sp, sm, dp, dm = _pair(dev, n=700, pad=768, seed=9)
+    cfg = ICPConfig(det_rel_eps=1e-9)
+    args = (sp, dp, sm, cfg.huber_k, cfg.det_rel_eps,
+            cfg.inner_delta_sq_tol, cfg.inner_max_iter, cfg.point_scale)
+    for fn, plain, a in (
+            (align2d_cuda.irls_loop, align2d_cuda.irls_loop_plain, args),
+            (align2d_cuda.irls_loop_batched,
+             align2d_cuda.irls_loop_batched_plain,
+             (sp[None].repeat(3, 1, 1), dp[None].repeat(3, 1, 1),
+              sm[None].repeat(3, 1)) + args[3:])):
+        rot, t, it = fn(*a)
+        rot_p, t_p, it_p = plain(*a)
+        assert torch.equal(it.to(torch.int32), it_p.to(torch.int32))
+        torch.testing.assert_close(rot, rot_p, atol=SOLVER_TOL, rtol=0)
+        torch.testing.assert_close(t, t_p, atol=SOLVER_TOL, rtol=0)
+    for b in ((), (3,)):
+        t0 = RigidTransform2.identity(b, device=dev)
+        s, d = sp.expand(*b, *sp.shape), dp.expand(*b, *dp.shape)
+        ms, md = sm.expand(*b, *sm.shape), dm.expand(*b, *dm.shape)
+        rot, t, _ = align2d_cuda.icp2d_frame(s, d, ms, md, t0, cfg)
+        rot_p, t_p, _ = align2d_cuda.icp2d_frame_plain(s, d, ms, md, t0, cfg)
+        torch.testing.assert_close(rot, rot_p, atol=SOLVER_TOL, rtol=0)
+        torch.testing.assert_close(t, t_p, atol=SOLVER_TOL, rtol=0)
+    ident = RigidTransform2.identity(device=dev)
+    step = align2d.weighted_gn_update_cuda(ident, sp, dp, sm, cfg.huber_k,
+                                           cfg.det_rel_eps)
+    one = RigidTransform2.from_twist(step.delta)
+    rot, t, it = align2d_cuda.irls_loop(sp, dp, sm, cfg.huber_k,
+                                        cfg.det_rel_eps, 0.0, 1,
+                                        cfg.point_scale)
+    assert int(it) == 1
+    torch.testing.assert_close(rot, one.rot, atol=1e-6, rtol=0)
+    torch.testing.assert_close(t, one.t, atol=1e-6, rtol=0)
+
+
+def test_voxel_hash_insert_on_the_card_matches_the_cpu(dev):
+    from icp_rust_tpu_torch.ops import voxel_hash
+
+    rng = np.random.default_rng(10)
+    a = rng.uniform(-6, 6, (12000, 3)).astype(np.float32)
+    b = rng.uniform(-5, 5, (9000, 3)).astype(np.float32)
+    tables = {}
+    for where in ("cpu", dev, dev):
+        m = voxel_hash.make_map(8192, 3, torch.full((3,), -8.0, device=where))
+        drops = []
+        for pts, salt in ((a, 5), (b, 6)):
+            x = torch.as_tensor(pts, device=where)
+            ones = torch.ones(len(pts), dtype=torch.bool, device=where)
+            m, d = voxel_hash.insert(m, x, ones, 0.05, compact_to=3000,
+                                     salt=salt)
+            drops.append(int(d))
+        tables.setdefault(str(where), []).append(
+            ([v.cpu() for v in (m.key, m.cnt, m.psum)], drops))
+    (cpu_t, cpu_d), = tables["cpu"]
+    (c1, d1), (c2, d2) = tables[str(dev)]
+    assert d1 == d2 == cpu_d and sum(cpu_d) > 0
+    for x, y in zip(c1, c2):  # repeatable bitwise on the card
+        assert torch.equal(x, y)
+    assert torch.equal(c1[0], cpu_t[0]) and torch.equal(c1[1], cpu_t[1])
+    torch.testing.assert_close(c1[2], cpu_t[2], rtol=1e-6, atol=1e-5)
+
+
+def test_submap_on_the_card_repeats_and_tracks_the_plain_path(dev):
+    from icp_rust_tpu_torch.models.submap import run_submap_odometry
+
+    frames, _ = io.synthesize_frames3d(5, seed=0)
+    pts, mask = io.pad_points([f[::8] for f in frames])
+    cfg = ICPConfig(nn_dst_tile=512, det_rel_eps=1e-9)
+    kw = dict(voxel_size=0.1, capacity=1 << 14, view_rows=1 << 13)
+    cuda_build.reset_launches()
+    tf, path = run_submap_odometry(pts, mask, cfg, **kw)
+    assert cuda_build.LAUNCHES["nn_list"] > 0
+    assert cuda_build.LAUNCHES["irls_loop"] == cuda_build.LAUNCHES["nn_list"]
+    tf2, again = run_submap_odometry(pts, mask, cfg, **kw)
+    assert np.array_equal(path, again) and torch.equal(tf.rot, tf2.rot)
+    _, plain = run_submap_odometry(
+        pts, mask, cfg.with_(nn_backend="torch", align_backend="torch"), **kw)
+    assert ate_rmse(path, plain) < 1e-3

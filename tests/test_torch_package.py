@@ -25,6 +25,7 @@ from icp_rust_tpu_torch.models.icp_p2l import icp_point_to_plane
 from icp_rust_tpu_torch.models.odometry import run_odometry_fused, \
     run_odometry_p2l_fused
 from icp_rust_tpu_torch.models.slam import run_slam2d, run_slam3d
+from icp_rust_tpu_torch.models.submap import run_submap_odometry
 from icp_rust_tpu_torch.ops import cuda_build
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -82,6 +83,8 @@ def test_importing_the_port_loads_no_jax():
         "import icp_rust_tpu_torch.utils.io, icp_rust_tpu_torch.ops.nn_sweep_cuda\n"
         "import icp_rust_tpu_torch.models.slam, icp_rust_tpu_torch.models.pose_graph\n"
         "import icp_rust_tpu_torch.utils.checkpoint\n"
+        "import icp_rust_tpu_torch.models.submap, icp_rust_tpu_torch.ops.voxel\n"
+        "import icp_rust_tpu_torch.ops.voxel_hash, icp_rust_tpu_torch.utils.metrics\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'icp_rust_tpu' or m.startswith('icp_rust_tpu.')]\n"
         "print(bad)\n"
@@ -105,7 +108,7 @@ def _pair3d(n=256):
 
 @pytest.mark.parametrize("entry", ["icp2d", "icp3d_planar", "odometry",
                                    "icp_point_to_plane", "odometry_p2l",
-                                   "slam2d", "slam3d"])
+                                   "slam2d", "slam3d", "submap"])
 def test_entry_points_raise_without_a_card(entry):
     _no_card()
     pts, mask = _pair3d()
@@ -124,6 +127,8 @@ def test_entry_points_raise_without_a_card(entry):
             run_slam2d([pts[:, :2], pts[:, :2]])
         elif entry == "slam3d":
             run_slam3d([pts, pts])
+        elif entry == "submap":
+            run_submap_odometry(np.stack([pts, pts]), np.stack([mask, mask]))
         else:
             run_odometry_fused(np.stack([pts, pts]), np.stack([mask, mask]))
 
@@ -149,6 +154,8 @@ def test_chip_smoke_fails_without_a_card():
 
 def test_kernel_build_needs_no_toolkit_until_launch():
     # The sources are hashed without nvcc; nothing is compiled on import.
+    # Every TPU kernel has its counterpart: 14 sources.
+    assert len(cuda_build.SOURCES) == 14
     for name in cuda_build.SOURCES:
         path = cuda_build._lib_path(name)
         assert path.parent == cuda_build.BUILD_DIR
