@@ -5,16 +5,26 @@
 
 Builds the fourteen Hopper kernels from ``icp_rust_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together; prints the ptxas register and
-spill lines), then runs these phases; any failure exits non-zero:
+spill lines, nn_list's work-item size and irls_loop's cluster size), then
+runs these phases; any failure exits non-zero:
 
 1. nn_list (survivor-list exact 1-NN) vs its plain version at the main
    path's shapes (frames 0 and 1 of the synthetic sequence, 28,800
    points, xy payload, Morton-sorted): the cold bound, the warm bound of
-   one real outer step, a forced full sweep, a masked db and exact ties.
+   one real outer step, every chunk listed, a forced full sweep (cnt >
+   cap at the TPU kernel's cap of 48), a masked db and exact ties.
    Indices, distances and payload must be bitwise equal, and equal to a
-   brute-force sweep.
-2. irls_loop vs its plain version on frame 1's first-iteration
-   correspondences (N = 28,800): rot and t within IRLS_TOL.
+   brute-force sweep.  Each case prints its walk: chunk-walks, work
+   items, the longest block's chunks.  Timed at the warm shape by its
+   launcher alone and by its wrapper, and at work items of 4, 8 and 16
+   chunks (each bitwise equal to the wrapper's result).
+2. irls_loop vs its plain version on frame 1's correspondences at its
+   first outer iteration (cold) and at its second (warm, the main path's
+   usual 2-iteration call), N = 28,800: rot and t within IRLS_TOL with
+   equal iterations; the first iteration's medians bitwise equal to the
+   exact masked median and its sigmas to gn_stats' at the identity.
+   Timed by its launcher alone at clusters of 8 and 16 blocks and by its
+   wrapper.
 3. icp2d_frame vs its plain version on a 640-point synthetic 2D pair
    padded to 768: rot and t within FRAME_TOL.
 4. The main path: ``run_odometry_fused`` over 96 synthetic 28,800-point
@@ -110,12 +120,17 @@ The last two kernels and the scan-to-submap path:
     GN_STATS_TOL of their Cauchy-Schwarz bounds, the count exact, sigma
     within GN_SIGMA_TOL relative, and the update's delta within
     GN_DELTA_TOL of ``weighted_gauss_newton_update``'s with equal ``ok``.
+    Timed by their launchers alone and by their wrappers.
 19. ``run_submap_odometry`` at ``benchmarks/bench_submap.py``'s width (the
     96 frames padded to 28,800; voxel 0.05 m, capacity 2^17, a 65,536-row
     map view), twice (bitwise equal; the second run timed): frames/s, ATE
     < 0.05 m, no hidden cells, the dropped points printed, nn_list and
     irls_loop launches each equal to the total outer iterations; the plain
     path on the card over the first 8 frames within 1 mm, with no launch.
+    Then nn_list on the inputs of the first run's 16th warm call (at the
+    65,536-row view): bitwise equal to its plain version and to a
+    brute-force sweep of the view, its walk, and its times and bound as in
+    phase 1.
 20. ``run_submap_odometry`` on the JAX package's tests/test_submap.py
     wall world (8 frames of 400 points, voxel 0.03 m, capacity 4096),
     fused and re-voxelize: max error < SUBMAP_2D_GATE_M; nn_matched and
@@ -123,9 +138,11 @@ The last two kernels and the scan-to-submap path:
 
 The launch counts of each path are zeroed just before it and read just
 after.  Prints one ``{"kernels": [...]}`` line, one entry per kernel (the
-fourteen): the contract's keys for its first timed shape and path, its
-launches on every path driven (``launches_by_path``) and the other shapes
-it was timed at (``other_shapes``); then the card's name and power
+fourteen): the contract's keys for its first timed shape and path
+(``ms`` by the launcher alone for kernels 1, 2, 12 and 13, beside
+``wrapper_ms``), its launches on every path driven
+(``launches_by_path``) and the other shapes it was timed at
+(``other_shapes``); then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Bounds:
 the larger of (bytes read once + written once) / 3.35 TB/s and counted
 operations / 67 TFLOP/s (H100 SXM float32 without tensor cores).
@@ -169,7 +186,7 @@ from icp_rust_tpu_torch.models.odometry import ate_rmse, \
 from icp_rust_tpu_torch.models.slam import run_slam2d, run_slam3d
 from icp_rust_tpu_torch.models.submap import run_submap_odometry
 from icp_rust_tpu_torch.ops import align2d, align2d_cuda, align3d, \
-    align3d_cuda, cuda_build, nn_cuda, nn_pairs_cuda, nn_sweep_cuda
+    align3d_cuda, cuda_build, nn_cuda, nn_pairs_cuda, nn_sweep_cuda, robust
 from icp_rust_tpu_torch.ops.nn import nearest_neighbor_matched, nn_torch
 from icp_rust_tpu_torch.ops.normals import estimate_normals_voxel
 from icp_rust_tpu_torch.parallel.sharded import batched_icp2d
@@ -229,6 +246,9 @@ GN_DELTA_TOL = 1e-5
 # The submap workload (benchmarks/bench_submap.py:47): ~54k occupied cells
 # at 96 frames, a 2^17-slot table (load ~0.41) and a 2^16-row view.
 SUBMAP_KW = dict(voxel_size=0.05, capacity=1 << 17, view_rows=1 << 16)
+# The warm nn_list call of the submap path that kernel 1 is timed on: the
+# 16th, in frame 2 or 3, where the map view is full width.
+SUBMAP_NN_CALL = 16
 # The wall world of the JAX package's tests/test_submap.py and its gate.
 SUBMAP_2D_KW = dict(voxel_size=0.03, capacity=4096)
 SUBMAP_2D_GATE_M = 0.02
@@ -258,6 +278,22 @@ def time_ms(fn, device, reps: int, warmup: int = 1) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def launcher_ms(name: str, args, device, reps: int = 50):
+    """Mean time of a kernel's launcher alone on prepared arguments: CUDA
+    events over ``reps`` launches with no wrapper work between them (events
+    over back-to-back wrapper calls time the slower of host and device).
+    None on the CPU, where there is no kernel."""
+    if torch.device(device).type != "cuda":
+        return None
+    fn = cuda_build.launcher(name)
+
+    def call():
+        status = fn(*args)
+        if status != 0:
+            raise RuntimeError(f"{name} launch failed: {status}")
+    return time_ms(call, device, reps=reps)
 
 
 def bound_ms(n_bytes: float, n_ops: float):
@@ -297,19 +333,30 @@ def _first_pair(device, stride):
 
 
 def _nn_list_case(name, query, db, dmask_c, payload, qb_fn, device,
-                  tile: int, q_tile: int):
+                  tile: int, q_tile: int, cap=None):
     """One nn_list check: the kernel vs its plain version (bitwise dist,
     idx, payload) and vs a brute-force sweep (idx, dist, and the winner's
-    payload where a valid point exists)."""
+    payload where a valid point exists).  ``cap`` defaults to every chunk,
+    as ``nn_seeded`` lists them; a smaller one forces full sweeps."""
     n = query.shape[0]
     qp = -(-n // q_tile) * q_tile
     d_dim = query.shape[1]
     pack = nn_cuda.pack_db(db, dmask_c, payload, db_tile=tile)
-    n_chunks = pack.dbf_cm.shape[1] // 128
-    cap = min(nn_cuda._LIST_CAP, n_chunks)
     query_p = torch.zeros((qp, d_dim), dtype=torch.float32, device=device)
     query_p[:n] = query
-    qb = qb_fn(query_p, pack)
+    return _nn_list_check(name, query_p, pack, qb_fn(query_p, pack), d_dim,
+                          q_tile, cap, brute=(query, db, dmask_c, payload,
+                                              tile))
+
+
+def _nn_list_check(name, query_p, pack, qb, d_dim, q_tile, cap=None,
+                   brute=None):
+    """Kernel 1 at one call's inputs (a packed db and the bounds): bitwise
+    against its plain version (and against a brute-force sweep when
+    ``brute`` gives the unpacked inputs); prints the walk."""
+    device = query_p.device
+    n_chunks = pack.dbf_cm.shape[1] // 128
+    cap = n_chunks if cap is None else cap
     lists, cnt = nn_cuda._survivor_lists(query_p, pack.cbox, qb, d_dim,
                                          q_tile, cap)
     args = (query_p, pack.dbf_cm, lists, cnt, d_dim, q_tile, cap)
@@ -320,44 +367,77 @@ def _nn_list_case(name, query, db, dmask_c, payload, qb_fn, device,
         if not torch.equal(a, b):
             raise RuntimeError(f"nn_list {name}: {what} differs from the "
                                "plain version")
-    brute = nn_torch(query, db, dmask_c, tile=tile)
-    hit = torch.isfinite(brute.dist_sq)
-    want_pay = payload[brute.index.long()]
-    if not (torch.equal(got[1][:n], brute.index)
-            and torch.equal(nn_cuda._trim_sentinel(got[0][:n]),
-                            brute.dist_sq)
-            and torch.equal(got[2][:n][hit], want_pay[hit])):
-        raise RuntimeError(f"nn_list {name}: differs from brute force")
-    walked = torch.where(cnt > cap, n_chunks, cnt)
+    checked = "plain"
+    if brute is not None:
+        query, db, dmask_c, payload, tile = brute
+        n = query.shape[0]
+        ref = nn_torch(query, db, dmask_c, tile=tile)
+        hit = torch.isfinite(ref.dist_sq)
+        want_pay = payload[ref.index.long()]
+        if not (torch.equal(got[1][:n], ref.index)
+                and torch.equal(nn_cuda._trim_sentinel(got[0][:n]),
+                                ref.dist_sq)
+                and torch.equal(got[2][:n][hit], want_pay[hit])):
+            raise RuntimeError(f"nn_list {name}: differs from brute force")
+        checked = "plain and brute force"
+    walk = nn_cuda.walk_stats(cnt, cap, n_chunks)
     fin = torch.isfinite(got[0])
     err = float(torch.max(torch.abs(got[0][fin] - want[0][fin]))) \
         if bool(fin.any()) else 0.0
     case_ms = time_ms(lambda: nn_cuda.nn_list(*args), device, reps=5)
-    print(f"# nn_list {name}: bitwise equal to plain and brute force; "
-          f"chunks walked per tile mean {float(walked.float().mean()):.2f}"
-          f" max {int(walked.max())} of {n_chunks} "
-          f"(full sweeps {int((cnt > cap).sum())}); {case_ms:.4f} ms")
-    return dict(args=args, walked=walked, err=err, dist=got[0][:n],
-                pay=got[2][:n])
+    print(f"# nn_list {name}: bitwise equal to {checked}; "
+          f"{walk['chunk_walks']} chunk-walks in {walk['items']} work items "
+          f"of <= {nn_cuda.ITEM_CHUNKS} (longest block {walk['longest']} "
+          f"chunks; full sweeps {walk['full_sweeps']}; {walk['blocks']} "
+          f"blocks) over {cnt.shape[0]} tiles of {n_chunks} chunks, cap "
+          f"{cap}; {case_ms:.4f} ms")
+    n = brute[0].shape[0] if brute is not None else query_p.shape[0]
+    return dict(args=args, walk=walk, err=err, dist=got[0][:n],
+                pay=got[2][:n], out=got)
 
 
-def _nn_list_record(case, q_tile: int, device):
-    """Kernel 1's timing, plain timing and bound at one case's shapes."""
+def _nn_list_record(case, q_tile: int, device, path: str):
+    """Kernel 1's timing (its launcher alone, and its wrapper), plain
+    timing and bound at one case's shapes; on the card also the launcher
+    at work items of 4, 8 and 16 chunks, each bitwise equal to the
+    wrapper's result."""
     args = case["args"]
     query_p, dbf_cm = args[0], args[1]
     d_dim = args[4]
-    ms = time_ms(lambda: nn_cuda.nn_list(*args), device, reps=50)
+    wrapper_ms = time_ms(lambda: nn_cuda.nn_list(*args), device, reps=50)
     plain_ms = time_ms(lambda: nn_cuda.nn_list_plain(*args), device, reps=3)
+    item_ms, empty_ms = {}, None
+    if torch.device(device).type == "cuda":
+        for item in (4, 8, 16):
+            largs, out, part = nn_cuda._nn_list_args(*args, item=item)
+            item_ms[item] = launcher_ms("nn_list", largs, device)
+            _sync(device)
+            if not all(torch.equal(a, b) for a, b in zip(out, case["out"])):
+                raise RuntimeError(f"nn_list {path}: work items of {item} "
+                                   "chunks change the result")
+            del part
+        # The same grid with every walk empty: launch and exiting blocks.
+        empty = (*args[:3], torch.zeros_like(args[3]), *args[4:])
+        largs, _, part = nn_cuda._nn_list_args(*empty)
+        empty_ms = launcher_ms("nn_list", largs, device)
+        del part
+    ms = item_ms.get(nn_cuda.ITEM_CHUNKS, wrapper_ms)
     qp = query_p.shape[0]
     f_dim = dbf_cm.shape[0] - d_dim
-    pairs = float(case["walked"].sum()) * 128 * q_tile
+    pairs = float(case["walk"]["chunk_walks"]) * 128 * q_tile
     n_bytes = (qp * d_dim * 4 + dbf_cm.numel() * 4 + args[2].numel() * 4
                + args[3].numel() * 4 + qp * (4 + 4 + 4 * f_dim))
     b, by = bound_ms(n_bytes, pairs * NN_OPS_PER_PAIR_3D)
+    print(f"# nn_list {path}: launcher alone {ms} ms (work items of 4, 8, "
+          f"16 chunks: {item_ms}; every walk empty: {empty_ms}), wrapper "
+          f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.6f} ms "
+          f"({by})")
     return dict(name="nn_list", route="cuda",
                 source="icp_rust_tpu_torch/csrc/nn_list.cu",
                 replaces="icp_rust_tpu/ops/nn_pallas.py:873", ms=ms,
-                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None)
+                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+                path=path, extra=dict(wrapper_ms=wrapper_ms, walk=case["walk"],
+                                      item_ms=item_ms, empty_ms=empty_ms))
 
 
 def phase_nn_list(device="cuda", stride: int = 1, tile: int = 2048,
@@ -395,9 +475,13 @@ def phase_nn_list(device="cuda", stride: int = 1, tile: int = 2048,
 
     warm = run_case("warm", src1, dst, dmask, warm_bound)
     errs.append(warm["err"])
-    errs.append(run_case(
-        "full-sweep", src1, dst, dmask,
-        lambda q, p: torch.full((qp,), 1e30, device=device))["err"])
+    # Every chunk listed; then the cnt > cap path, at the TPU kernel's cap.
+    every = lambda q, p: torch.full((qp,), 1e30, device=device)  # noqa
+    errs.append(run_case("every-chunk", src1, dst, dmask, every)["err"])
+    n_chunks = -(-dst.shape[0] // tile) * tile // 128
+    errs.append(_nn_list_case("full-sweep", src1, dst, dmask, dst[:, :2],
+                              every, device, tile, q_tile,
+                              cap=min(48, n_chunks - 1))["err"])
     gen = torch.Generator(device="cpu").manual_seed(5)
     drop = torch.rand(dst.shape[0], generator=gen).to(device) < 0.5
     errs.append(run_case("masked-db", src, dst, dmask & ~drop, cold)["err"])
@@ -409,40 +493,101 @@ def phase_nn_list(device="cuda", stride: int = 1, tile: int = 2048,
     errs.append(tie["err"])
 
     # Timing at the main path's warm shape.
-    rec = _nn_list_record(warm, q_tile, device)
-    rec.update(path="main", max_abs_err=max(errs))
+    rec = _nn_list_record(warm, q_tile, device, "main")
+    rec.update(max_abs_err=max(errs))
     return rec
 
 
 def phase_irls(device="cuda", stride: int = 1):
-    """Kernel 2 vs its plain version on frame 1's first correspondences."""
+    """Kernel 2 vs its plain version on frame 1's correspondences at its
+    first outer iteration (cold) and at its second (warm: the main path's
+    usual call, one step and the stopping iteration)."""
     cfg = _config()
     src, smask, dst, dmask = _first_pair(device, stride)
-    res, matched = nearest_neighbor_matched(
-        src, dst, dmask, payload=dst[:, :2], backend="torch",
-        tile=cfg.nn_dst_tile)
-    s_xy = src[:, :2].contiguous()
-    args = (s_xy, matched, smask, cfg.huber_k, cfg.det_rel_eps,
-            cfg.inner_delta_sq_tol, cfg.inner_max_iter, cfg.point_scale)
+    xy = src[:, :2].contiguous()
+    recs = []
+    for name in ("cold", "warm"):
+        query = torch.cat([xy, src[:, 2:]], dim=-1)
+        _, matched = nearest_neighbor_matched(
+            query, dst, dmask, payload=dst[:, :2], backend="torch",
+            tile=cfg.nn_dst_tile)
+        args = (xy, matched, smask, cfg.huber_k, cfg.det_rel_eps,
+                cfg.inner_delta_sq_tol, cfg.inner_max_iter, cfg.point_scale)
+        recs.append(_irls_record(name, args, device))
+        step = align2d.estimate_transform(
+            xy, matched, smask, cfg.with_(align_backend="torch"))
+        xy = step.apply_points(xy)
+    return recs
+
+
+def _irls_record(name, args, device):
+    """Kernel 2 at one call's inputs: rot and t within IRLS_TOL of the
+    plain loop with equal iterations; on the card its first iteration's
+    medians bitwise equal to the exact masked median, its sigmas to
+    gn_stats' at the identity (irls.cuh's one-block medians), the launcher
+    alone at clusters of 8 and 16 blocks; times and bound."""
     rot, t, it = align2d_cuda.irls_loop(*args)
     rot_p, t_p, it_p = align2d_cuda.irls_loop_plain(*args)
     err = max(float(torch.max(torch.abs(rot - rot_p))),
               float(torch.max(torch.abs(t - t_p))))
-    print(f"# irls_loop: iterations kernel {int(it)} plain {int(it_p)}; "
-          f"max |diff| rot/t {err:.3e} (tol {IRLS_TOL})")
-    if not err <= IRLS_TOL:
-        raise RuntimeError(f"irls_loop differs from its plain version: {err}")
-    ms = time_ms(lambda: align2d_cuda.irls_loop(*args), device, reps=20)
+    print(f"# irls_loop {name}: iterations kernel {int(it)} plain "
+          f"{int(it_p)}; max |diff| rot/t {err:.3e} (tol {IRLS_TOL})")
+    if not (err <= IRLS_TOL and int(it) == int(it_p)):
+        raise RuntimeError(f"irls_loop {name} differs from its plain "
+                           f"version: {err}, iterations {int(it)} vs "
+                           f"{int(it_p)}")
+    src, dst, mask = args[:3]
+    cluster_ms, one_iter_ms = {}, None
+    if torch.device(device).type == "cuda":
+        out = align2d_cuda.irls_loop_out(*args)
+        r = (src - dst).T
+        med, _ = robust.masked_median(r, mask[None].expand(r.shape))
+        ident = torch.eye(2, device=src.device)
+        sig = align2d_cuda.gn_stats(src, dst, mask, ident,
+                                    torch.zeros(2, device=src.device),
+                                    args[3])[12:14]
+        if not (torch.equal(out[8:10], med) and torch.equal(out[10:12], sig)):
+            raise RuntimeError(f"irls_loop {name}: first medians/sigmas "
+                               f"{out[8:12].tolist()} vs {med.tolist()} "
+                               f"{sig.tolist()}")
+        print(f"# irls_loop {name}: first iteration's medians bitwise equal "
+              "to the exact median, sigmas to gn_stats'")
+        # One iteration alone (max_iter 1): with the 2-iteration time it
+        # splits a call into set-up and iterations.
+        largs, _, keep = align2d_cuda._irls_loop_args(*args[:6], 1,
+                                                     args[7])
+        one_iter_ms = launcher_ms("irls_loop", largs, device)
+        del keep
+        for c in (8, 16):
+            largs, o, _ = align2d_cuda._irls_loop_args(*args, cluster=c)
+            cluster_ms[c] = launcher_ms("irls_loop", largs, device)
+            _sync(device)
+            d = float(torch.max(torch.abs(o[:6] - out[:6])))
+            if not (d <= IRLS_TOL and bool(o[6] == out[6])
+                    and torch.equal(o[8:12], out[8:12])):
+                raise RuntimeError(f"irls_loop {name}: a cluster of {c} "
+                                   f"moves the result by {d}")
+    wrapper_ms = time_ms(lambda: align2d_cuda.irls_loop(*args), device,
+                         reps=50)
+    ms = cluster_ms.get(align2d_cuda.IRLS_CLUSTER, wrapper_ms)
     plain_ms = time_ms(lambda: align2d_cuda.irls_loop_plain(*args), device,
                        reps=2)
-    n = s_xy.shape[0]
-    ops = float(int(it)) * float(smask.sum()) * IRLS_OPS_PER_POINT
-    b, by = bound_ms(5 * n * 4 + 8 * 4, ops)
-    return dict(name="irls_loop", route="cuda", path="main",
+    n = src.shape[0]
+    ops = float(int(it)) * float(mask.sum()) * IRLS_OPS_PER_POINT
+    b, by = bound_ms(4 * n * 4 + n + 12 * 4, ops)
+    print(f"# irls_loop {name}: launcher alone {ms} ms (clusters of 8, 16: "
+          f"{cluster_ms}; one iteration: {one_iter_ms}), wrapper "
+          f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.7f} ms "
+          f"({by})")
+    return dict(name="irls_loop", route="cuda",
+                path="main" if name == "cold" else "main-" + name,
                 source="icp_rust_tpu_torch/csrc/irls_loop.cu",
                 replaces="icp_rust_tpu/ops/align2d_pallas.py:714",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None,
+                extra=dict(wrapper_ms=wrapper_ms, cluster_ms=cluster_ms,
+                           one_iteration_ms=one_iter_ms,
+                           iterations=int(it)))
 
 
 def pair2d(device, n: int = 640, pad: int = 768, seed: int = 1):
@@ -1023,9 +1168,8 @@ def phase_nn_list_p2l(device="cuda", stride: int = 1, tile: int = 2048,
     sentinel = int((pay2[:, 3] >= m_p2l._C_VALID_MAX).sum())
     print(f"# nn_list p2l masked-db: {sentinel} db rows carry the sentinel "
           "plane offset")
-    rec = _nn_list_record(warm, q_tile, device)
-    rec.update(path="p2l", max_abs_err=max(c["err"], warm["err"],
-                                           masked["err"]))
+    rec = _nn_list_record(warm, q_tile, device, "p2l")
+    rec.update(max_abs_err=max(c["err"], warm["err"], masked["err"]))
     return rec
 
 
@@ -1731,7 +1875,12 @@ def phase_gn_stats(device="cuda", stride: int = 1,
             ("gn_stats_batched", 467, (bs, bd, bk, bt.rot, bt.t, k))):
         fn = getattr(align2d_cuda, kern)
         plain = getattr(align2d_cuda, kern + "_plain")
-        ms = time_ms(lambda: fn(*args), device, reps=20)
+        wrapper_ms = time_ms(lambda: fn(*args), device, reps=50)
+        ms = wrapper_ms
+        if torch.device(device).type == "cuda":
+            largs, _, keep = align2d_cuda._gn_args(kern, *args)
+            ms = launcher_ms(kern, largs, device)
+            del keep
         plain_ms = time_ms(lambda: plain(*args), device, reps=3)
         n_pts, n_pairs = args[0].shape[-2], args[0][..., 0, 0].numel()
         b, by = bound_ms(5 * n_pairs * n_pts * 4 + n_pairs * (6 + 16) * 4,
@@ -1741,7 +1890,10 @@ def phase_gn_stats(device="cuda", stride: int = 1,
                          replaces=f"icp_rust_tpu/ops/align2d_pallas.py:{line}",
                          max_abs_err=worst[kern][1], ms=ms, plain_ms=plain_ms,
                          bound_ms=b, bound_by=by, library_ms=None,
-                         launches=launches[kern], max_rel_err=worst[kern][0]))
+                         launches=launches[kern], max_rel_err=worst[kern][0],
+                         extra=dict(wrapper_ms=wrapper_ms)))
+        print(f"# {kern}: launcher alone {ms:.4f} ms, wrapper "
+              f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms")
     return recs
 
 
@@ -1768,16 +1920,41 @@ def _run_submap(pts, mask, cfg, device, with_metrics: bool = True, **kw):
             hidden)
 
 
+def _capture_warm_nn(call: int):
+    """Patch ``nn_cuda.nn_seeded`` to keep a copy of the inputs of its
+    ``call``-th warm call (or of the last, if there are fewer).  Returns
+    (the dict that receives them, a function that undoes the patch)."""
+    real = nn_cuda.nn_seeded
+    seen = {"warm_calls": 0}
+
+    def spy(query_p, pack, q_bound, d_dim, q_tile, warm=None):
+        if warm and seen["warm_calls"] < call:
+            seen["warm_calls"] += 1
+            seen["inputs"] = (query_p.clone(), nn_cuda.PackedDB(
+                pack.dbf_cm.clone(), pack.cbox.clone()), q_bound.clone(),
+                d_dim, q_tile)
+        return real(query_p, pack, q_bound, d_dim, q_tile, warm=warm)
+
+    nn_cuda.nn_seeded = spy
+    return seen, lambda: setattr(nn_cuda, "nn_seeded", real)
+
+
 def phase_submap(device="cuda", n_frames: int = 96, stride: int = 1,
                  plain_frames: int = 8, tile: int = 2048, kw=None):
     """The scan-to-submap path at bench_submap.py's width, twice (bitwise
     equal; the second run timed), then the plain path on the first
-    frames.  ``kw``: the map settings, for subsampled frames."""
+    frames.  The first run keeps the inputs of its 16th warm nn_list call
+    (frame 2 or 3, at the map view), which kernel 1 is then checked and
+    timed on.  ``kw``: the map settings, for subsampled frames."""
     kw = SUBMAP_KW if kw is None else kw
     pts, mask, gt = frames3d(n_frames, stride)
     cfg = _config(nn_dst_tile=tile)
-    tf1, path1, _, first_sec, _, _, _ = _run_submap(pts, mask, cfg, device,
-                                                    **kw)
+    seen, unpatch = _capture_warm_nn(SUBMAP_NN_CALL)
+    try:
+        tf1, path1, _, first_sec, _, _, _ = _run_submap(pts, mask, cfg,
+                                                        device, **kw)
+    finally:
+        unpatch()
     tf, path, stats, sec, launches, dropped, hidden = _run_submap(
         pts, mask, cfg, device, **kw)
     if not (np.array_equal(path, path1) and torch.equal(tf.rot, tf1.rot)
@@ -1814,8 +1991,20 @@ def phase_submap(device="cuda", n_frames: int = 96, stride: int = 1,
         raise RuntimeError(f"submap plain path launched kernels: {p_launch}")
     if not d < PLAIN_GATE_M:
         raise RuntimeError(f"submap kernel vs plain trajectory {d} m")
+    query_p, pack, qb, d_dim, q_tile = seen["inputs"]
+    # Brute force over the view as packed: its valid rows, their payload,
+    # for the real queries (padding rows carry -inf bounds, ops/nn.py).
+    n = int(torch.sum(qb > float("-inf")))
+    db = pack.dbf_cm[:d_dim].T.contiguous()
+    brute = (query_p[:n], db, db[:, 0] < nn_cuda._SENTINEL / 2,
+             pack.dbf_cm[d_dim:].T.contiguous(), tile)
+    case = _nn_list_check(f"submap view (warm call {seen['warm_calls']}, "
+                          f"{pack.dbf_cm.shape[1]} rows)", query_p, pack, qb,
+                          d_dim, q_tile, brute=brute)
+    rec = _nn_list_record(case, q_tile, device, "submap")
+    rec.update(max_abs_err=case["err"], launches=launches["nn_list"])
     return dict(launches=launches, ate=ate, fps=fps, seconds=sec,
-                outer_total=total, dropped=dropped)
+                outer_total=total, dropped=dropped, nn_list=rec)
 
 
 def walls_sequence(n_frames: int = 8, n_pts: int = 400, seed: int = 0):
@@ -1957,7 +2146,11 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"# card: {smi}")
-    records = [phase_nn_list(device), phase_irls(device), phase_frame(device)]
+    print(f"# nn_list: work items of {nn_cuda.ITEM_CHUNKS} chunks; "
+          f"irls_loop: a thread-block cluster of {align2d_cuda.IRLS_CLUSTER}"
+          " blocks")
+    records = [phase_nn_list(device), *phase_irls(device),
+               phase_frame(device)]
     main_run = phase_main(device)
     run_2d = phase_2d(device)
     records += phase_nn_pairs(device)
@@ -1972,6 +2165,7 @@ def main() -> int:
     slam2 = phase_slam2d(device)
     records += phase_gn_stats(device)
     sub = phase_submap(device)
+    records.append(sub["nn_list"])
     sub_2d = phase_submap_2d(device)
     if profile_run:
         profile_main(device)
@@ -1982,6 +2176,7 @@ def main() -> int:
     launches = {
         ("nn_list", "main"): main_run["launches"]["nn_list"],
         ("irls_loop", "main"): main_run["launches"]["irls_loop"],
+        ("irls_loop", "main-warm"): main_run["launches"]["irls_loop"],
         ("icp2d_frame", "2d"): run_2d["launches"]["icp2d_frame"],
         ("nn_pairs", "batched"): batched["launches"]["nn_pairs"],
         ("nn_pairs_list", "batched"): batched["launches"]["nn_pairs_list"],
@@ -2023,6 +2218,7 @@ def main() -> int:
         entry = entries.get(rec["name"])
         if entry is None:
             entry = entries[rec["name"]] = {k: rec[k] for k in keys}
+            entry.update(rec.get("extra", {}))
             entry["launches_by_path"] = {rec["path"]: rec["launches"]}
             entry["launches_by_path"].update(
                 (p, n[rec["name"]]) for p, n in runs.items()
@@ -2031,7 +2227,7 @@ def main() -> int:
         else:
             entry["other_shapes"].append({k: rec[k] for k in (
                 "path", "launches", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by")})
+                "bound_ms", "bound_by")} | rec.get("extra", {}))
     if sorted(entries) != sorted(cuda_build.SOURCES):
         raise RuntimeError(f"kernels line has {sorted(entries)}")
     print(f"# submap: {sub['fps']:.2f} frames/s, ATE {sub['ate']:.6f} m, "

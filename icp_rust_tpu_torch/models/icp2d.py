@@ -18,12 +18,13 @@ translation is rescaled on exit (exact with huber_k co-scaled).
 
 Both drivers take one scan pair or a batch of B pairs: src (B, N, D)
 against dst (B, M, D), or against one shared dst (M, D), with (B,)-batched
-warm starts.  A batch runs in lockstep: each outer iteration searches and
-solves every pair at once (the pair-grid NN kernels and the batched IRLS
-kernel), a lane at its fixed point stays bitwise unchanged, and the loop
-exits when all lanes are fixed.  With ``frame_backend="pairs"`` a batched
-``icp2d`` runs instead as one pair-frame kernel launch, each pair to its
-own fixed point.
+warm starts; more batch axes are flattened into the one pair axis and
+restored on the result.  A batch runs in lockstep: each outer iteration
+searches and solves every pair at once (the pair-grid NN kernels and the
+batched IRLS kernel), a lane at its fixed point stays bitwise unchanged,
+and the loop exits when all lanes are fixed.  With
+``frame_backend="pairs"`` a batched ``icp2d`` runs instead as one
+pair-frame kernel launch, each pair to its own fixed point.
 
 Entry points run on ``device`` ("cuda" by default); with no card they
 raise unless the caller passes ``device="cpu"``.
@@ -222,15 +223,18 @@ def _stats_2d(src_t, matched, mask, config, dist_sq, it):
 def _prepare(src, dst, src_mask, dst_mask, initial_transform,
              config: ICPConfig, device):
     """Move the inputs to the device and into solver units; broadcast a
-    shared db and an unbatched warm start to a batch's pair axis."""
+    shared db and an unbatched warm start to a batch's pair axis.  Two or
+    more batch axes are flattened into the one pair axis the loop takes.
+    Returns (src, dst, src_mask, dst_mask, t0, batch): ``batch`` is src's
+    batch shape, for ``_unflatten``."""
     dt = config.compute_dtype
     dev = resolve_device(device, dt)
     src = torch.as_tensor(src).to(device=dev, dtype=dt)
     dst = torch.as_tensor(dst).to(device=dev, dtype=dt)
-    if src.ndim not in (2, 3) or dst.ndim not in (2, src.ndim):
+    if src.ndim < 2 or dst.ndim not in (2, src.ndim):
         raise ValueError(
-            "src must be (N, D) or (B, N, D), dst (M, D) or (B, M, D) "
-            f"with src's rank; got {tuple(src.shape)}, {tuple(dst.shape)}")
+            "src must be (..., N, D), dst (M, D) or (..., M, D) with src's "
+            f"rank; got {tuple(src.shape)}, {tuple(dst.shape)}")
     src_mask = torch.as_tensor(src_mask).to(device=dev, dtype=torch.bool)
     dst_mask = torch.as_tensor(dst_mask).to(device=dev, dtype=torch.bool)
     dst, dst_mask = _broadcast_db(src, dst, dst_mask)
@@ -240,8 +244,24 @@ def _prepare(src, dst, src_mask, dst_mask, initial_transform,
     if t0.t.shape[:-1] != batch:
         t0 = RigidTransform2(t0.rot.expand(*batch, 2, 2),
                              t0.t.expand(*batch, 2))
+    if len(batch) > 1:
+        src, dst = src.flatten(0, -3), dst.flatten(0, -3)
+        src_mask, dst_mask = src_mask.flatten(0, -2), dst_mask.flatten(0, -2)
+        t0 = RigidTransform2(t0.rot.reshape(-1, 2, 2), t0.t.reshape(-1, 2))
     return (_scaled(src, config), _scaled(dst, config), src_mask, dst_mask,
-            t0)
+            t0, batch)
+
+
+def _unflatten(out, batch):
+    """Give a result of the flattened loop (a transform, or (transform,
+    ICPStats)) the caller's batch axes back."""
+    if len(batch) <= 1:
+        return out
+    t, stats = out if isinstance(out, tuple) else (out, None)
+    t = RigidTransform2(t.rot.reshape(*batch, 2, 2), t.t.reshape(*batch, 2))
+    if stats is None:
+        return t
+    return t, ICPStats(*[f.reshape(batch) for f in stats])
 
 
 def _icp_loop(src, dst, src_mask, dst_mask, t0, config: ICPConfig,
@@ -324,17 +344,18 @@ def icp2d(src, dst, src_mask, dst_mask,
     frame_kernel_max points run as one ``icp2d_frame`` launch when the
     solver resolves to the kernels, and a batch as one
     ``icp2d_frame_pairs`` launch with ``frame_backend="pairs"``."""
-    src, dst, src_mask, dst_mask, t0 = _prepare(
+    src, dst, src_mask, dst_mask, t0, batch = _prepare(
         src, dst, src_mask, dst_mask, initial_transform, config, device)
     kind = _use_frame_kernel(src, dst, config, return_stats)
     if kind:
         rot, t, _ = align2d_cuda.icp2d_frame(src, dst, src_mask, dst_mask,
                                              t0, config)
-        return _unscale_transform(RigidTransform2(rot, t),
-                                  config.point_scale)
-    return _finish(*_icp_loop(src, dst, src_mask, dst_mask, t0, config,
-                              src_presorted, planar=False)[:3],
-                   config, return_stats)
+        return _unflatten(_unscale_transform(RigidTransform2(rot, t),
+                                             config.point_scale), batch)
+    return _unflatten(_finish(*_icp_loop(src, dst, src_mask, dst_mask, t0,
+                                         config, src_presorted,
+                                         planar=False)[:3],
+                              config, return_stats), batch)
 
 
 def icp3d_planar(src, dst, src_mask, dst_mask,
@@ -346,8 +367,9 @@ def icp3d_planar(src, dst, src_mask, dst_mask,
     src/dst: (N|M, 3), or (B, N|M, 3).  Parity: reference Icp3d::estimate
     (src/lib.rs:148-173).  ``src_presorted``: src already permuted by
     :func:`presort_src` (bitwise-identical hoist)."""
-    src, dst, src_mask, dst_mask, t0 = _prepare(
+    src, dst, src_mask, dst_mask, t0, batch = _prepare(
         src, dst, src_mask, dst_mask, initial_transform, config, device)
-    return _finish(*_icp_loop(src, dst, src_mask, dst_mask, t0, config,
-                              src_presorted, planar=True)[:3],
-                   config, return_stats)
+    return _unflatten(_finish(*_icp_loop(src, dst, src_mask, dst_mask, t0,
+                                         config, src_presorted,
+                                         planar=True)[:3],
+                              config, return_stats), batch)

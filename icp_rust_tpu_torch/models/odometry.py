@@ -43,12 +43,24 @@ def _run_sequence(frames, masks, config: ICPConfig, with_metrics: bool,
         rots.append(t.rot)
         ts.append(t.t)
         path.append(t.inverse().t)
-    transforms = transform_cls(torch.stack(rots), torch.stack(ts))
-    path = torch.stack(path).to(torch.float64).cpu().numpy()
+    # A one-frame sequence gives a 0-length frame axis, as the JAX
+    # package's lax.scan over no frames does.
+    transforms = transform_cls(_stack(rots, t.rot), _stack(ts, t.t))
+    path = _stack(path, t.t).to(torch.float64).cpu().numpy()
     if with_metrics:
-        stacked = ICPStats(*[torch.stack(list(f)) for f in zip(*stats)])
+        if stats:
+            stacked = ICPStats(*[torch.stack(list(f)) for f in zip(*stats)])
+        else:
+            empty = t.t.new_empty((0,))
+            stacked = ICPStats(empty.to(torch.int32), empty, empty, empty)
         return transforms, path, stacked
     return transforms, path
+
+
+def _stack(xs, like):
+    """torch.stack of per-frame tensors shaped like ``like``; (0, ...)
+    when there is none."""
+    return torch.stack(xs) if xs else like.new_empty((0, *like.shape))
 
 
 def run_odometry_fused(frames, masks, config: ICPConfig = ICPConfig(),

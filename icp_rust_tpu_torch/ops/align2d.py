@@ -190,10 +190,12 @@ def irls_loop_torch(src: Tensor, dst: Tensor, mask: Tensor, huber_k: float,
 
 def use_cuda_align(src: Tensor, backend: str) -> bool:
     """Resolve the align backend: the kernel for "cuda", and for "auto"
-    on float32."""
+    on float32 with at most one pair axis, where the JAX package's
+    ``use_pallas`` takes its kernels (``src.ndim in (2, 3)``)."""
     if backend == "cuda":
         return True
-    return backend == "auto" and src.dtype == torch.float32
+    return (backend == "auto" and src.dtype == torch.float32
+            and src.ndim in (2, 3))
 
 
 def estimate_transform(src: Tensor, dst: Tensor, mask: Tensor,

@@ -2,7 +2,8 @@
 versions:
 
 - ``csrc/irls_loop.cu``: the whole inner IRLS loop of one pair in one
-  launch (align2d_pallas ``_inner_loop_kernel``);
+  launch on a thread-block cluster of ``IRLS_CLUSTER`` blocks
+  (align2d_pallas ``_inner_loop_kernel``; ``csrc/irls_cluster.cuh``);
 - ``csrc/irls_loop_batched.cu``: the same loop for B pairs in one launch,
   one block per pair (``_inner_loop_batched_kernel``);
 - ``csrc/icp2d_frame.cu``: a whole 2D ICP call in one launch
@@ -16,9 +17,9 @@ versions:
   (``_gn_batched_kernel``).
 
 All six run the device routines of ``csrc/irls.cuh`` (the two stats
-kernels its ``gn_stats_block``, one iteration's statistics of the loop),
-and the two frame kernels the block body of ``csrc/frame.cuh``, so they
-share one op sequence.
+kernels its ``gn_stats_block``, one iteration's statistics of the loop;
+irls_loop its helpers, spread over a cluster), and the two frame kernels
+the block body of ``csrc/frame.cuh``, so they share one op sequence.
 
 Plain versions: the inner loops' is ``align2d.irls_loop_torch`` (the
 ``align_backend="torch"`` loop, batched over pairs); the frames' is the
@@ -47,6 +48,10 @@ from icp_rust_tpu_torch.ops.nn_cuda import _SENTINEL
 
 _SMALL_ANGLE_F32 = float(torch.finfo(torch.float32).eps) ** 0.25
 FRAME_MAX_POINTS = 1536
+# Blocks in irls_loop's thread-block cluster (16 measured faster than 8
+# on an H100, PERF.md).  Which points each block sums follows from it, so
+# it is a constant, not a knob.
+IRLS_CLUSTER = 16
 
 
 def _solver_params(huber_k: float, det_rel_eps: float, tol_d2: float,
@@ -82,11 +87,36 @@ def irls_loop_plain(src: Tensor, dst: Tensor, mask: Tensor, huber_k: float,
 irls_loop_batched_plain = irls_loop_plain
 
 
+def _irls_loop_args(src: Tensor, dst: Tensor, mask: Tensor, huber_k: float,
+                    det_rel_eps: float, tol_d2: float, max_iter: int,
+                    point_scale: float, cluster: int = IRLS_CLUSTER):
+    """Check the CUDA inputs of the irls_loop kernel and allocate its
+    output and scratch.  The kernel reads src/dst (N, 2) float32 and the
+    bool mask (N,) in place, with their strides.  Returns (the launcher's
+    arguments, out (12,), the scratch): out holds r00 r01 r10 r11 tx ty
+    iterations 0, then the first iteration's median x, median y, sigma x,
+    sigma y."""
+    _check_cuda_f32("irls_loop", src, dst)
+    n = src.shape[0]
+    if src.shape != (n, 2) or dst.shape != (n, 2) or mask.shape != (n,):
+        raise ValueError("irls_loop: src/dst must be (N, 2), mask (N,)")
+    if mask.dtype != torch.bool or mask.device != src.device:
+        raise TypeError(f"irls_loop: mask must be bool on {src.device}")
+    buf = torch.empty(12 + 2 * n, dtype=torch.float32, device=src.device)
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    args = (src.data_ptr(), *src.stride(), dst.data_ptr(), *dst.stride(),
+            mask.data_ptr(), mask.stride(0), n, buf[12:].data_ptr(),
+            buf.data_ptr(),
+            *_solver_params(huber_k, det_rel_eps, tol_d2, max_iter,
+                            point_scale), cluster, stream)
+    return args, buf[:12], buf
+
+
 def irls_loop(src: Tensor, dst: Tensor, mask: Tensor, huber_k: float,
               det_rel_eps: float, tol_d2: float, max_iter: int,
               point_scale: float):
     """The fixed-correspondence IRLS loop from identity.  src/dst (N, 2)
-    in solver units, mask (N,), huber_k in solver units.  Returns
+    in solver units, mask (N,) bool, huber_k in solver units.  Returns
     (rot (2, 2), t (2,), iterations): a 0-d tensor, int32 from the plain
     version, float from the kernel."""
     if src.device.type == "cpu":
@@ -94,23 +124,27 @@ def irls_loop(src: Tensor, dst: Tensor, mask: Tensor, huber_k: float,
                                tol_d2, max_iter, point_scale)
     if src.device.type != "cuda":
         raise ValueError(f"irls_loop: unsupported device {src.device}")
-    _check_cuda_f32("irls_loop", src, dst)
-    n = src.shape[0]
-    if src.shape != (n, 2) or dst.shape != (n, 2) or mask.shape != (n,):
-        raise ValueError("irls_loop: src/dst must be (N, 2), mask (N,)")
-    cols = [src[:, 0].contiguous(), src[:, 1].contiguous(),
-            dst[:, 0].contiguous(), dst[:, 1].contiguous(),
-            mask.to(device=src.device, dtype=torch.float32).contiguous()]
-    scratch = torch.empty(2 * n, dtype=torch.float32, device=src.device)
-    out = torch.empty(8, dtype=torch.float32, device=src.device)
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    status = cuda_build.launcher("irls_loop")(
-        *[c.data_ptr() for c in cols], n, scratch.data_ptr(), out.data_ptr(),
-        *_solver_params(huber_k, det_rel_eps, tol_d2, max_iter, point_scale),
-        stream)
-    cuda_build.LAUNCHES["irls_loop"] += 1
-    cuda_build.check(status, "irls_loop")
+    out = irls_loop_out(src, dst, mask, huber_k, det_rel_eps, tol_d2,
+                        max_iter, point_scale)
     return out[:4].reshape(2, 2), out[4:6], out[6]
+
+
+def irls_loop_out(src: Tensor, dst: Tensor, mask: Tensor, huber_k: float,
+                  det_rel_eps: float, tol_d2: float, max_iter: int,
+                  point_scale: float) -> Tensor:
+    """Launch irls_loop on CUDA tensors; returns its (12,) output (see
+    ``_irls_loop_args``)."""
+    args, out, _scratch = _irls_loop_args(src, dst, mask, huber_k,
+                                          det_rel_eps, tol_d2, max_iter,
+                                          point_scale)
+    status = cuda_build.launcher("irls_loop")(*args)
+    cuda_build.LAUNCHES["irls_loop"] += 1
+    if status == -1:
+        raise RuntimeError(
+            f"irls_loop: no thread-block cluster of {IRLS_CLUSTER} blocks "
+            "can be placed on this card")
+    cuda_build.check(status, "irls_loop")
+    return out
 
 
 def irls_loop_batched(src: Tensor, dst: Tensor, mask: Tensor,
@@ -286,6 +320,19 @@ def _gn_launch(name: str, src: Tensor, dst: Tensor, mask: Tensor,
                rot: Tensor, t: Tensor, huber_k: float) -> Tensor:
     """Launch gn_stats (src (N, 2)) or gn_stats_batched (src (B, N, 2)) on
     CUDA tensors; returns the (16,) or (B, 16) output."""
+    args, out, _scratch = _gn_args(name, src, dst, mask, rot, t, huber_k)
+    status = cuda_build.launcher(name)(*args)
+    cuda_build.LAUNCHES[name] += 1
+    cuda_build.check(status, name)
+    return out
+
+
+def _gn_args(name: str, src: Tensor, dst: Tensor, mask: Tensor,
+             rot: Tensor, t: Tensor, huber_k: float):
+    """Check the CUDA inputs of gn_stats or gn_stats_batched and prepare
+    their columns, output and scratch.  Returns (the launcher's arguments,
+    out, the prepared tensors that the arguments point into, which the
+    caller holds until the launch is enqueued)."""
     if src.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {src.device}")
     _check_cuda_f32(name, src, dst)
@@ -309,13 +356,10 @@ def _gn_launch(name: str, src: Tensor, dst: Tensor, mask: Tensor,
     stream = torch.cuda.current_stream(src.device).cuda_stream
     # ctypes rounds each float to f32 once (k * k and 2 k taken in double
     # first), as the TPU kernel's f32 constants are.
-    status = cuda_build.launcher(name)(
-        *[c.data_ptr() for c in cols], *batch, n, rt.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), huber_k, huber_k * huber_k,
-        2.0 * huber_k, stream)
-    cuda_build.LAUNCHES[name] += 1
-    cuda_build.check(status, name)
-    return out
+    args = (*[c.data_ptr() for c in cols], *batch, n, rt.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), huber_k, huber_k * huber_k,
+            2.0 * huber_k, stream)
+    return args, out, (cols, rt, scratch)
 
 
 def gn_stats(src: Tensor, dst: Tensor, mask: Tensor, rot: Tensor, t: Tensor,

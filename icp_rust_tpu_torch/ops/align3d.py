@@ -118,10 +118,13 @@ def weighted_gn_update_p2l_cuda(transform: RigidTransform3, src: Tensor,
     return GNUpdate6(delta, ok, err.to(src.dtype))
 
 
-# The p2l loop's backend resolves as the SE(2) solver's: the kernel route
-# for "cuda", and for "auto" on float32.  The kernel takes any N (the TPU
-# kernel's N % 128 == 0 comes from its (M, 128) layout, not copied here).
-use_cuda_p2l = use_cuda_align
+def use_cuda_p2l(src: Tensor, backend: str) -> bool:
+    """Resolve the p2l loop's backend: the kernel route for "cuda", and
+    for "auto" on one float32 pair, as the JAX package's ``use_pallas``
+    needs ``src.ndim == 2``.  The kernel takes any N (the TPU kernel's
+    N % 128 == 0 comes from its (M, 128) layout, not copied here)."""
+    return use_cuda_align(src, backend) and (backend == "cuda"
+                                             or src.ndim == 2)
 
 
 def _loop_torch(src, dst, normals, mask, huber_k: float, config: ICPConfig):

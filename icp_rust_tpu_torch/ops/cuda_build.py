@@ -20,8 +20,8 @@ right where it launches its kernel, and nowhere else.
 
 ``launcher(name)`` is the one place that knows each library's C
 interface: every pointer and the stream go as ``c_void_p``, every int as
-``c_int``, every float as ``c_float``, and each entry point returns
-``cudaGetLastError()`` as an int.
+``c_int`` (a stride as ``c_longlong``), every float as ``c_float``, and
+each entry point returns ``cudaGetLastError()`` as an int.
 """
 
 from __future__ import annotations
@@ -42,21 +42,23 @@ SOURCES = ("nn_list", "irls_loop", "icp2d_frame", "nn_pairs",
            "nn_pruned", "gn_stats", "gn_stats_batched")
 # Every header is hashed into every library's name, so an edited header
 # rebuilds whatever includes it.
-HEADERS = ("irls.cuh", "frame.cuh", "nn_pairs.cuh", "p2l.cuh",
-           "nn_sweep.cuh")
+HEADERS = ("irls.cuh", "irls_cluster.cuh", "frame.cuh", "nn_pairs.cuh",
+           "p2l.cuh", "nn_sweep.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--fmad=false")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_float)
 # name -> (C entry point, argument types); see csrc/<name>.cu.
 _SIGNATURES = {
-    # query, dbf_cm, lists, cnt, dist, idx, pay; n_tiles, q_tile, d_dim,
-    # f_dim, m_pad, cap; stream
-    "nn_list": ("nn_list_launch", [_P] * 7 + [_I] * 6 + [_P]),
-    # sx, sy, dx, dy, mask; n; scratch, out; solver params; stream
+    # query, dbf_cm, lists, cnt, dist, idx, pay, part, ticket; n_tiles,
+    # q_tile, d_dim, f_dim, m_pad, cap, item; stream
+    "nn_list": ("nn_list_launch", [_P] * 9 + [_I] * 7 + [_P]),
+    # src, its two strides, dst, its two strides, mask, its stride; n;
+    # scratch, out; solver params; cluster; stream
     "irls_loop": ("irls_loop_launch",
-                  [_P] * 5 + [_I] + [_P] * 2 + [_F] * 5 + [_I] + [_F] * 2
-                  + [_P]),
+                  [_P, _L, _L] * 2 + [_P, _L, _I] + [_P] * 2 + [_F] * 5
+                  + [_I] + [_F] * 2 + [_I, _P]),
     # src, smask, dst; n, m; t0, out; solver params; outer_iters, stream
     "icp2d_frame": ("icp2d_frame_launch",
                     [_P] * 3 + [_I] * 2 + [_P] * 2 + [_F] * 5 + [_I]

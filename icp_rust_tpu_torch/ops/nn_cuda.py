@@ -10,6 +10,13 @@ bound does not exceed the tile's upper bound on its queries' NN distance²
 can be in any of the tile's queries' final tie sets, so the result is
 bit-identical to the unpruned sweep, lowest index winning ties.
 
+The TPU kernel kept its lists in scalar-prefetch SMEM and so capped them
+at 48 chunks; ``nn_seeded`` lists every survivor (``cap = n_chunks``), so
+no tile falls back to the full sweep.  The kernel cuts each tile's walk
+into work items of ``ITEM_CHUNKS`` consecutive entries, one block each,
+and merges a tile's partials in item order (``work_items`` is its
+schedule; ``csrc/nn_list.cu``).
+
 The db preparation (``pack_db``), the cold-iteration bound
 (``_center_bound``) and the survivor-list build are plain torch code
 here, copied op for op from the JAX package with its one-sided margins
@@ -35,8 +42,13 @@ from icp_rust_tpu_torch.ops import cuda_build
 # makes the same contract hold in f64, where (3e19)^2 is finite.
 _SENTINEL = 3e19
 _CHUNK = 128
-_LIST_CAP = 48
 _LIST_GROUPS = 4
+# Chunks per work item of the nn_list kernel: the longest block's walk.
+ITEM_CHUNKS = 4
+# Per device, the kernel's per-tile tickets: zero between launches (the
+# merging block resets its tile's), so no call clears them.  Calls on one
+# device share them, as they share its stream.
+_TICKETS: dict = {}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -197,17 +209,41 @@ def nn_list_plain(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
     return dist, idx, pay
 
 
-def nn_list(query_p: Tensor, dbf_cm: Tensor, lists: Tensor, cnt: Tensor,
-            d_dim: int, q_tile: int, cap: int):
-    """Survivor-list 1-NN: the kernel on a CUDA tensor, the plain version
-    on a CPU tensor.  query_p (Qp, D) with Qp a multiple of q_tile;
-    dbf_cm (D + F, m_pad); lists (Qp/q_tile, cap) int32; cnt (Qp/q_tile,)
-    int32.  Returns (dist, idx, pay) before sentinel trimming."""
-    if query_p.device.type == "cpu":
-        return nn_list_plain(query_p, dbf_cm, lists, cnt, d_dim, q_tile,
-                             cap)
-    if query_p.device.type != "cuda":
-        raise ValueError(f"nn_list: unsupported device {query_p.device}")
+def work_items(cnt: Tensor, cap: int, n_chunks: int,
+               item: int = ITEM_CHUNKS) -> Tensor:
+    """The nn_list kernel's schedule: each tile's walk (its first cnt list
+    entries, or every chunk when cnt > cap) cut into items of at most
+    ``item`` consecutive entries.  Returns (tile, begin, end) int64 rows,
+    by tile, then by begin; a tile with an empty walk has none."""
+    walk = torch.where(cnt > cap, n_chunks, cnt).to(torch.int64).cpu()
+    n_items = (walk + item - 1) // item
+    tile = torch.repeat_interleave(torch.arange(walk.shape[0]), n_items)
+    first = torch.cumsum(n_items, 0) - n_items
+    begin = (torch.arange(tile.shape[0]) - first[tile]) * item
+    end = torch.minimum(walk[tile], begin + item)
+    return torch.stack([tile, begin, end], dim=1)
+
+
+def walk_stats(cnt: Tensor, cap: int, n_chunks: int,
+               item: int = ITEM_CHUNKS) -> dict:
+    """What one nn_list call walks (a host read; for reports): chunk-walks
+    over all tiles, work items, the longest block's chunks, tiles on the
+    full sweep, and the blocks the grid launches."""
+    items = work_items(cnt, cap, n_chunks, item)
+    span = items[:, 2] - items[:, 1]
+    return dict(chunk_walks=int(span.sum()), items=int(items.shape[0]),
+                longest=int(span.max()) if items.shape[0] else 0,
+                full_sweeps=int((cnt > cap).sum()),
+                blocks=cnt.shape[0] * -(-max(n_chunks, cap) // item))
+
+
+def _nn_list_args(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
+                  cnt: Tensor, d_dim: int, q_tile: int, cap: int,
+                  item: int = ITEM_CHUNKS):
+    """Check the CUDA inputs of the nn_list kernel and allocate its
+    outputs and scratch.  Returns (the launcher's arguments, (dist, idx,
+    pay), the scratch, which the caller holds until the launch is
+    enqueued)."""
     for name, x, dt in (("query", query_p, torch.float32),
                         ("dbf_cm", dbf_cm, torch.float32),
                         ("lists", lists, torch.int32),
@@ -221,20 +257,48 @@ def nn_list(query_p: Tensor, dbf_cm: Tensor, lists: Tensor, cnt: Tensor,
     f_dim = dbf_cm.shape[0] - d_dim
     m_pad = dbf_cm.shape[1]
     if (qp % q_tile or q_tile % 32 or q_tile > 1024 or m_pad % _CHUNK
-            or query_p.shape[1] != d_dim or lists.shape[1] != cap):
-        raise ValueError("nn_list: bad shapes")
-    dist = torch.empty((qp,), dtype=torch.float32, device=query_p.device)
-    idx = torch.empty((qp,), dtype=torch.int32, device=query_p.device)
-    pay = torch.empty((qp, f_dim), dtype=torch.float32,
-                      device=query_p.device)
-    stream = torch.cuda.current_stream(query_p.device).cuda_stream
-    status = cuda_build.launcher("nn_list")(query_p.data_ptr(), dbf_cm.data_ptr(), lists.data_ptr(),
-                cnt.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-                pay.data_ptr() if f_dim else None, qp // q_tile, q_tile,
-                d_dim, f_dim, m_pad, cap, stream)
+            or query_p.shape[1] != d_dim or lists.shape[1] != cap
+            or dbf_cm.data_ptr() % 16):
+        raise ValueError("nn_list: bad shapes (or dbf_cm not 16-byte "
+                         "aligned)")
+    dev = query_p.device
+    n_tiles = qp // q_tile
+    grid_y = -(-max(m_pad // _CHUNK, cap) // item)
+    tickets = _TICKETS.get(dev)
+    if tickets is None or tickets.shape[0] < n_tiles:
+        tickets = _TICKETS[dev] = torch.zeros(max(n_tiles, 1024),
+                                              dtype=torch.int32, device=dev)
+    part = torch.empty(n_tiles * grid_y * (2 + f_dim) * q_tile,
+                       dtype=torch.float32, device=dev)
+    dist = torch.empty((qp,), dtype=torch.float32, device=dev)
+    idx = torch.empty((qp,), dtype=torch.int32, device=dev)
+    pay = torch.empty((qp, f_dim), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (query_p.data_ptr(), dbf_cm.data_ptr(), lists.data_ptr(),
+            cnt.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+            pay.data_ptr() if f_dim else None, part.data_ptr(),
+            tickets.data_ptr(), n_tiles, q_tile, d_dim, f_dim, m_pad, cap,
+            item, stream)
+    return args, (dist, idx, pay), part
+
+
+def nn_list(query_p: Tensor, dbf_cm: Tensor, lists: Tensor, cnt: Tensor,
+            d_dim: int, q_tile: int, cap: int):
+    """Survivor-list 1-NN: the kernel on a CUDA tensor, the plain version
+    on a CPU tensor.  query_p (Qp, D) with Qp a multiple of q_tile;
+    dbf_cm (D + F, m_pad); lists (Qp/q_tile, cap) int32; cnt (Qp/q_tile,)
+    int32.  Returns (dist, idx, pay) before sentinel trimming."""
+    if query_p.device.type == "cpu":
+        return nn_list_plain(query_p, dbf_cm, lists, cnt, d_dim, q_tile,
+                             cap)
+    if query_p.device.type != "cuda":
+        raise ValueError(f"nn_list: unsupported device {query_p.device}")
+    args, out, _part = _nn_list_args(query_p, dbf_cm, lists, cnt, d_dim,
+                                     q_tile, cap)
+    status = cuda_build.launcher("nn_list")(*args)
     cuda_build.LAUNCHES["nn_list"] += 1
     cuda_build.check(status, "nn_list")
-    return dist, idx, pay
+    return out
 
 
 def nn_seeded(query_p: Tensor, pack: PackedDB, q_bound: Tensor, d_dim: int,
@@ -243,9 +307,8 @@ def nn_seeded(query_p: Tensor, pack: PackedDB, q_bound: Tensor, d_dim: int,
     seeds take the list built from ``q_bound``; iteration 1 (+inf bounds)
     takes one built from the chunk-center bound.  ``warm`` selects the
     branch statically (None decides from the bounds); exactness never
-    depends on it."""
-    n_chunks = pack.dbf_cm.shape[1] // _CHUNK
-    cap = min(_LIST_CAP, n_chunks)
+    depends on it.  The lists hold every survivor (no cap)."""
+    cap = pack.dbf_cm.shape[1] // _CHUNK
     if warm is None:
         warm = bool(torch.any(torch.isfinite(q_bound)))
     qb = q_bound if warm else _center_bound(query_p, pack.cbox, d_dim)

@@ -143,12 +143,19 @@ def test_irls_plain_degenerate_is_identity(n_valid):
 
 def test_batched_inner_loop_is_not_ported_on_the_kernel_route():
     """One pair axis takes the batched kernel route (its plain version on
-    the CPU); more than one batch axis is not ported there."""
+    the CPU); more than one batch axis is not ported there: "cuda"
+    refuses it, and "auto" takes the plain loop, as the JAX package's
+    "pallas" takes its XLA loop."""
     src, dst, mask = _problem(0, n=128, dtype=np.float32)
     b = lambda x: _t(np.stack([x, x]))  # noqa: E731
     with pytest.raises(NotImplementedError, match="_inner_loop_batched"):
         align2d.estimate_transform(b(b(src)), b(b(dst)), b(b(mask)),
-                                   ICPConfig())
+                                   ICPConfig(align_backend="cuda"))
+    two = align2d.estimate_transform(b(b(src)), b(b(dst)), b(b(mask)),
+                                     ICPConfig())
+    plain = align2d.estimate_transform(b(b(src)), b(b(dst)), b(b(mask)),
+                                       ICPConfig(align_backend="torch"))
+    assert torch.equal(two.rot, plain.rot) and torch.equal(two.t, plain.t)
     out = align2d.estimate_transform(b(src), b(dst), b(mask), ICPConfig())
     plain = align2d.estimate_transform(b(src), b(dst), b(mask),
                                        ICPConfig(align_backend="torch"))
@@ -199,3 +206,22 @@ def test_frame_plain_matches_pallas_interpret(seed, warm):
     np.testing.assert_allclose(t.numpy(), np.array(jt), atol=FRAME_TOL,
                                rtol=0)
     assert 1 <= it <= cfg.outer_iters and 1 <= int(jit) <= cfg.outer_iters
+
+
+def test_estimate_transform_over_two_batch_axes_matches_jax():
+    """float32 src/dst (2, 2, 256, 2) with the default config: the port's
+    "auto" and the JAX package's "pallas" both take their plain loops
+    (the kernels serve at most one pair axis)."""
+    rng = np.random.default_rng(21)
+    lanes = [_problem(seed, n=256, dtype=np.float32)
+             for seed in rng.integers(0, 1000, 4)]
+    src, dst, mask = (np.stack([lane[k] for lane in lanes]).reshape(
+        2, 2, *lanes[0][k].shape) for k in range(3))
+    got = align2d.estimate_transform(_t(src), _t(dst), _t(mask), ICPConfig())
+    want = j_align.estimate_transform(jnp.asarray(src), jnp.asarray(dst),
+                                      jnp.asarray(mask), JaxConfig())
+    assert got.rot.shape == (2, 2, 2, 2) and got.t.shape == (2, 2, 2)
+    np.testing.assert_allclose(got.rot.numpy(), np.array(want.rot),
+                               atol=IRLS_TOL, rtol=0)
+    np.testing.assert_allclose(got.t.numpy(), np.array(want.t),
+                               atol=IRLS_TOL, rtol=0)

@@ -8,7 +8,8 @@ and ``--noconftest`` keeps the JAX test setup out):
 
 Tolerances: nn_list, nn_pairs, nn_pairs_list, nn_sweep, nn_matched and
 nn_pruned are bitwise equal to their plain versions (indices, distances
-and payload) and to a brute-force sweep.  irls_loop,
+and payload) and to a brute-force sweep.  irls_loop's medians and sigmas
+are bitwise those of the exact median and of gn_stats.  irls_loop,
 irls_loop_batched, icp2d_frame, icp2d_frame_pairs and p2l_loop take
 their sums in another order than the plain versions: rot and t within
 1e-5, equal iteration counts for p2l_loop.  p2l_stats, gn_stats and
@@ -65,8 +66,7 @@ def test_nn_list_kernel_bitwise_equal_to_plain(dev, bound):
     pack = nn_cuda.pack_db(db, mask, db[:, :2], db_tile=512)
     qp = torch.zeros((1024, 3), device=dev)
     qp[:1000] = query
-    n_chunks = pack.dbf_cm.shape[1] // 128
-    cap = min(nn_cuda._LIST_CAP, n_chunks)
+    cap = pack.dbf_cm.shape[1] // 128
     if bound == "cold":
         qb = nn_cuda._center_bound(qp, pack.cbox, 3)
     elif bound == "warm":
@@ -81,6 +81,45 @@ def test_nn_list_kernel_bitwise_equal_to_plain(dev, bound):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("length", ["0", "1", "S", "S+1", "all",
+                                    "overflow"])
+def test_nn_list_kernel_at_item_boundaries(dev, length):
+    """Lists of 0, 1, S, S + 1 and every chunk (the cap lifted), and
+    cnt > cap (every chunk walked): bitwise equal to the plain version,
+    one launch, and two launches bitwise equal (the merge runs in item
+    order, whatever order the blocks finish in)."""
+    query, db, mask = _cloud(dev, m=8192, q=1000, seed=4)
+    db[1::2] = db[0::2]  # exact ties between neighbouring chunks
+    pack = nn_cuda.pack_db(db, mask, db[:, :2], db_tile=512)
+    n_chunks = pack.dbf_cm.shape[1] // 128
+    s = nn_cuda.ITEM_CHUNKS
+    walk = {"0": 0, "1": 1, "S": s, "S+1": s + 1, "all": n_chunks,
+            "overflow": n_chunks}[length]
+    cap = s if length == "overflow" else n_chunks
+    qp = torch.zeros((1024, 3), device=dev)
+    qp[:1000] = query
+    gen = torch.Generator(device="cpu").manual_seed(walk)
+    lists = torch.zeros((4, cap), dtype=torch.int32)
+    for tile in range(4):
+        ids = torch.sort(torch.randperm(n_chunks, generator=gen)[:min(
+            walk, cap)]).values
+        lists[tile, :len(ids)] = ids.to(torch.int32)
+    lists = lists.to(dev)
+    cnt = torch.full((4,), cap + 1 if length == "overflow" else walk,
+                     dtype=torch.int32, device=dev)
+    args = (qp, pack.dbf_cm, lists, cnt, 3, 256, cap)
+    before = cuda_build.LAUNCHES["nn_list"]
+    got = nn_cuda.nn_list(*args)
+    again = nn_cuda.nn_list(*args)
+    assert cuda_build.LAUNCHES["nn_list"] == before + 2
+    want = nn_cuda.nn_list_plain(*args)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if walk == 0:
+        assert bool(torch.isinf(got[0]).all()) and not bool(got[1].any())
 
 
 def test_kernels_refuse_float64(dev):
@@ -147,6 +186,62 @@ def test_irls_loop_kernel_degenerate_is_identity(dev, n_valid):
                                        1.0)
     assert torch.equal(rot, torch.eye(2, device=dev))
     assert torch.equal(t, torch.zeros(2, device=dev))
+
+
+def _correspondences(dev, n, seed):
+    """n matched points: dst = R src + t + noise, every 17th an outlier."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-20, 20, (n, 2))
+    c, s = np.cos(0.02), np.sin(0.02)
+    dst = src @ np.array([[c, -s], [s, c]]).T + [0.15, -0.1]
+    dst += rng.normal(0, 0.02, dst.shape)
+    dst[::17] += 2.0
+    return (torch.as_tensor(src, dtype=torch.float32, device=dev),
+            torch.as_tensor(dst, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("n", [0, 1, 999, 1000, 1001, 28800, 140000,
+                               "strided"])
+def test_irls_loop_cluster_medians_bitwise_and_counts(dev, n):
+    """The cluster kernel at an all-masked input, one point, an odd and an
+    even count, a count that is not a multiple of the cluster, the main
+    path's 28,800 points, slices too large to stage (140,000), and
+    strided views: rot and t within SOLVER_TOL of the plain loop with
+    equal iterations; the first iteration's medians bitwise equal to the
+    exact masked median of the residuals, its sigmas bitwise equal to
+    gn_stats' at the identity (the one-block median code of irls.cuh)."""
+    from icp_rust_tpu_torch.ops import robust
+
+    size = 28800 if n == "strided" else max(n, 256 if n == 0 else 1)
+    src, dst = _correspondences(dev, size, seed=size)
+    mask = torch.full((size,), n != 0, dtype=torch.bool, device=dev)
+    if n == "strided":
+        wide = torch.zeros((size, 3), device=dev)
+        wide[:, 1:] = src
+        src = wide[:, 1:]
+        dst = dst.T.contiguous().T
+        mask = torch.ones((2 * size,), dtype=torch.bool, device=dev)[::2]
+        assert not (src.is_contiguous() or dst.is_contiguous()
+                    or mask.is_contiguous())
+    args = (src, dst, mask, 1.345, 1e-9, 1e-6, 200, 1.0)
+    out = align2d_cuda.irls_loop_out(*args)
+    rot, t, it = align2d_cuda.irls_loop(*args)
+    rot_p, t_p, it_p = align2d_cuda.irls_loop_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:7], torch.cat([rot.reshape(4), t, it[None]]))
+    assert int(it) == int(it_p)
+    torch.testing.assert_close(rot, rot_p, atol=SOLVER_TOL, rtol=0)
+    torch.testing.assert_close(t, t_p, atol=SOLVER_TOL, rtol=0)
+    r = (src - dst).T
+    med, _ = robust.masked_median(r, mask[None].expand(r.shape))
+    assert torch.equal(out[8:10], med)
+    if n == 0:
+        assert not bool(out[8:12].any())
+        return
+    ident = torch.eye(2, device=dev)
+    stats = align2d_cuda.gn_stats(src, dst, mask, ident,
+                                  torch.zeros(2, device=dev), 1.345)
+    assert torch.equal(out[10:12], stats[12:14])
 
 
 @pytest.mark.parametrize("n,pad", [(600, 768), (1400, 1536)])

@@ -237,3 +237,31 @@ def test_float64_point_scale_matches_jax(planar):
                                atol=F64_TOL)
     np.testing.assert_allclose(got.t.numpy(), np.array(want.t),
                                atol=F64_TOL * 3000.0)
+
+
+def test_icp2d_over_two_batch_axes_matches_jax():
+    """float32 src/dst (2, 2, 256, 2), all valid, an identity warm start
+    of batch (2, 2): the port flattens the batch axes into its one pair
+    axis and restores them on the transforms and the stats."""
+    rng = np.random.default_rng(9)
+    src = rng.uniform(-5, 5, (2, 2, 256, 2))
+    tw = rng.normal(0, 1, (2, 2, 3)) * [0.05, 0.05, 0.03]
+    dst = np.stack([[oracle.Transform.from_twist(tw[i, j]).apply(src[i, j])
+                     for j in range(2)] for i in range(2)])
+    dst = (dst + rng.normal(0, 0.005, dst.shape)).astype(np.float32)
+    src = src.astype(np.float32)
+    mask = np.ones((2, 2, 256), bool)
+    t, st = m.icp2d(src, dst, mask, mask, TT.identity((2, 2)), ICPConfig(),
+                    return_stats=True, **CPU)
+    jt, jst = j_icp.icp2d(jnp.asarray(src), jnp.asarray(dst),
+                          jnp.asarray(mask), jnp.asarray(mask),
+                          JT.identity((2, 2)), JaxConfig(),
+                          return_stats=True)
+    assert t.rot.shape == (2, 2, 2, 2) and t.t.shape == (2, 2, 2)
+    assert st.huber_error.shape == (2, 2)
+    np.testing.assert_allclose(t.rot.numpy(), np.array(jt.rot),
+                               atol=F32_TOL, rtol=0)
+    np.testing.assert_allclose(t.t.numpy(), np.array(jt.t), atol=F32_TOL,
+                               rtol=0)
+    np.testing.assert_allclose(st.inlier_fraction.numpy(),
+                               np.array(jst.inlier_fraction), atol=1e-6)

@@ -210,3 +210,73 @@ def test_wrapper_launches_or_raises_off_the_cpu():
     cnt = torch.zeros((1,), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="unsupported device"):
         nn_cuda.nn_list(q, dbf, lists, cnt, 3, 256, 16)
+
+
+def _items_merged(query_p, dbf_cm, lists, cnt, d_dim, q_tile, cap, item):
+    """A torch emulation of the nn_list kernel's schedule: one partial per
+    work item of ``nn_cuda.work_items`` (the plain version over that
+    item's chunks alone), merged per tile in item order with a strict
+    '<', as the tile's last block merges them."""
+    n_chunks = dbf_cm.shape[1] // 128
+    qp, f_dim = query_p.shape[0], dbf_cm.shape[0] - d_dim
+    dist = torch.full((qp,), float("inf"))
+    idx = torch.zeros((qp,), dtype=torch.int32)
+    pay = torch.zeros((qp, f_dim))
+    for tile, begin, end in nn_cuda.work_items(cnt, cap, n_chunks,
+                                               item).tolist():
+        ids = (torch.arange(begin, end, dtype=torch.int32)
+               if int(cnt[tile]) > cap else lists[tile, begin:end])
+        sl = slice(tile * q_tile, (tile + 1) * q_tile)
+        d, i, p = nn_cuda.nn_list_plain(
+            query_p[sl], dbf_cm, ids[None], torch.tensor([len(ids)],
+                                                         dtype=torch.int32),
+            d_dim, q_tile, len(ids))
+        win = d < dist[sl]
+        dist[sl] = torch.where(win, d, dist[sl])
+        idx[sl] = torch.where(win, i, idx[sl])
+        pay[sl] = torch.where(win[:, None], p, pay[sl])
+    return dist, idx, pay
+
+
+@pytest.mark.parametrize("case", ["lists", "ties", "masked-db", "full"])
+def test_nn_list_work_items_cover_and_merge_bitwise(case):
+    """The kernel's split of each tile's walk into items of S chunks covers
+    the walk exactly once in ascending order, and per-item partials merged
+    in item order equal the single sweep (nn_list_plain) bitwise: ties go
+    to the lowest index, a fully masked db gives (+inf, 0, 0), and
+    cnt > cap walks every chunk."""
+    rng = np.random.default_rng(31)
+    db, dm = _morton_sorted_db(rng, 2048, 3)
+    q = db[:512] + np.float32(0.02)
+    if case == "ties":
+        db = np.concatenate([db[:1024], db[:1024]])
+        dm = np.ones(2048, bool)
+        q = db[:512].copy()
+    elif case == "masked-db":
+        dm = np.zeros(2048, bool)
+    pack = nn_cuda.pack_db(_t(db), _t(dm), _t(db[:, :2]), db_tile=256)
+    n_chunks = pack.dbf_cm.shape[1] // 128
+    cap = 5 if case == "full" else n_chunks
+    qp = _t(q)
+    qb = nn_cuda._center_bound(qp, pack.cbox, 3)
+    lists, cnt = nn_cuda._survivor_lists(qp, pack.cbox, qb, 3, 128, cap)
+    if case == "full":
+        assert bool((cnt > cap).any())
+    item = 3
+    items = nn_cuda.work_items(cnt, cap, n_chunks, item)
+    for tile in range(cnt.shape[0]):
+        mine = items[items[:, 0] == tile]
+        walk = n_chunks if int(cnt[tile]) > cap else int(cnt[tile])
+        assert mine[:, 1].tolist() == list(range(0, walk, item))
+        assert torch.equal(mine[1:, 1], mine[:-1, 2])
+        assert (int(mine[-1, 2]) if walk else len(mine)) == walk
+        assert bool(((mine[:, 2] - mine[:, 1]) <= item).all())
+    stats = nn_cuda.walk_stats(cnt, cap, n_chunks, item)
+    assert stats["items"] == items.shape[0]
+    assert stats["longest"] <= item
+    want = nn_cuda.nn_list_plain(qp, pack.dbf_cm, lists, cnt, 3, 128, cap)
+    got = _items_merged(qp, pack.dbf_cm, lists, cnt, 3, 128, cap, item)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if case == "masked-db":
+        assert bool(torch.isinf(want[0]).all()) and not want[1].any()

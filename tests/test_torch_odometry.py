@@ -111,6 +111,35 @@ def test_run_odometry_fused_2d_frame_kernel_route():
     np.testing.assert_array_equal(path, plain)
 
 
+@pytest.mark.parametrize("dim", [2, 3])
+def test_one_frame_sequence_gives_empty_results_as_jax(dim):
+    """A one-frame sequence, (1, 128, 2) through run_odometry_fused and
+    (1, 128, 3) through run_odometry_p2l_fused: an empty path, transforms
+    and stats with a 0-length frame axis, as the JAX package's lax.scan
+    over no frames gives."""
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-3, 3, (1, 128, dim)).astype(np.float32)
+    mask = np.ones((1, 128), bool)
+    if dim == 2:
+        got = odometry.run_odometry_fused(pts, mask, REFERENCE_CONFIG,
+                                          with_metrics=True, device="cpu")
+        want = j_odo.run_odometry_fused(pts, mask, J_REF, with_metrics=True)
+        width = 2
+    else:
+        got = odometry.run_odometry_p2l_fused(pts, mask, REFERENCE_CONFIG,
+                                              with_metrics=True,
+                                              device="cpu")
+        want = j_odo.run_odometry_p2l_fused(pts, mask, J_REF,
+                                            with_metrics=True)
+        width = 3
+    (tf, path, st), (jtf, jpath, jst) = got, want
+    assert path.shape == np.shape(jpath) == (0, width)
+    assert tf.rot.shape == np.shape(jtf.rot) == (0, width, width)
+    assert tf.t.shape == np.shape(jtf.t) == (0, width)
+    for name in st._fields:
+        assert tuple(getattr(st, name).shape) == np.shape(getattr(jst, name))
+
+
 @pytest.fixture
 def chip_smoke():
     sys.path.insert(0, ROOT)
@@ -126,7 +155,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(chip_smoke, capsys):
     wrapper takes its kernel's plain version."""
     recs = [
         chip_smoke.phase_nn_list("cpu", stride=24, tile=256, q_tile=64),
-        chip_smoke.phase_irls("cpu", stride=24),
+        *chip_smoke.phase_irls("cpu", stride=24),
         chip_smoke.phase_frame("cpu", n=120, pad=128),
     ]
     for rec in recs:

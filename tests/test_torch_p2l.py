@@ -392,7 +392,24 @@ def test_p2l_loop_batched_torch_route_and_kernel_route_raises():
     with pytest.raises(NotImplementedError, match="batched"):
         align3d.estimate_transform_p2l(
             *[x.to(torch.float32) if x.is_floating_point() else x
-              for x in batch], KERNEL_CFG)
+              for x in batch], KERNEL_CFG.with_(align_backend="cuda"))
+
+
+def test_p2l_loop_batched_auto_route_matches_jax():
+    """float32 (2, 256, 3) with the default config: "auto" takes the
+    plain loop, as the JAX package's "pallas" takes its XLA loop (its
+    kernel needs src.ndim == 2)."""
+    lanes = [_p2l_problem(seed=s) for s in (12, 13)]
+    batch = [np.stack([lane[k] for lane in lanes]) for k in range(4)]
+    t = align3d.estimate_transform_p2l(
+        *[torch.as_tensor(x) for x in batch], ICPConfig())
+    j_t = j_align3d.estimate_transform_p2l(
+        *[jnp.asarray(x) for x in batch], JaxConfig())
+    assert t.rot.shape == (2, 3, 3) and t.t.shape == (2, 3)
+    np.testing.assert_allclose(t.rot.numpy(), _np(j_t.rot), atol=LOOP_TOL,
+                               rtol=0)
+    np.testing.assert_allclose(t.t.numpy(), _np(j_t.t), atol=LOOP_TOL,
+                               rtol=0)
 
 
 @pytest.mark.parametrize("masked", [True, False])
