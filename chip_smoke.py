@@ -5,8 +5,9 @@
 
 Builds the fourteen Hopper kernels from ``icp_rust_tpu_torch/csrc`` (one
 ``nvcc`` per source, started together; prints the ptxas register and
-spill lines, nn_list's work-item size and irls_loop's cluster size), then
-runs these phases; any failure exits non-zero:
+spill lines, nn_list's and nn_pruned's work-item sizes and irls_loop's
+and p2l_loop's cluster sizes), then runs these phases; any failure exits
+non-zero:
 
 1. nn_list (survivor-list exact 1-NN) vs its plain version at the main
    path's shapes (frames 0 and 1 of the synthetic sequence, 28,800
@@ -69,7 +70,13 @@ workload of benchmarks/bench_p2l.py), with voxel normals at 0.3 m:
 11. p2l_loop vs its plain version on frame 1's first-iteration
     correspondences (N = 28,800): rot and t within IRLS_TOL, equal
     iteration counts; one plane, five points, sigma = 0 and an all-masked
-    input each stop at iteration 1 with the identity, in both.
+    input each stop at iteration 1 with the identity, in both; the first
+    iteration's median and MAD bitwise equal to the exact median
+    (torch.kthvalue), its sigma to p2l_stats'.  Timed by its launcher
+    alone at clusters of 4, 8 and 16 blocks, one iteration and the
+    call's, at 28,800, 28,160 (SLAM 3D), 14,400, 7,200 and 3,072 points
+    (SLAM small), each within IRLS_TOL of the plain loop with equal
+    iterations, and by its wrapper.
 12. p2l_stats vs its plain version at the identity and at one warm
     transform, through ``align3d.weighted_gn_update_p2l_cuda``: the 27
     sums and the error within P2L_STATS_TOL relative, the count exact,
@@ -89,9 +96,14 @@ The full-sequence SLAM paths:
     brute-force sweep, bitwise (dist, idx, payload): nn_pruned at
     run_slam3d's full width (frames 0 and 1 as it pads them, 28,160
     points, unsorted and Morton-sorted), with exact ties, a masked db,
-    the p2l payload unseeded and a fully masked db; nn_sweep and
-    nn_matched (p2l payload) on 3072-point frames, fully masked dbs, and
-    8 pairs of full xy scans with a batch axis (xy payload).
+    the p2l payload unseeded and a fully masked db, each also bitwise
+    equal to its schedule's emulation, whose sweeps per work item it
+    prints; nn_sweep and nn_matched (p2l payload) on 3072-point frames,
+    fully masked dbs, and 8 pairs of full xy scans with a batch axis (xy
+    payload).  nn_pruned timed at full width by its launcher alone at
+    work items of 1, 2 and 4 tiles and 2, 4 and 8 queries a thread (each
+    bitwise equal), beside its instruction floor (the time its counted
+    instructions take at the card's float32 instruction rate).
 15. ``run_slam3d`` over the 96 frames with its defaults (loop radius 1 m,
     gap 8, at most 16 candidates, voxel normals at 0.3 m), twice (the
     second run timed): frames/s, candidates, closures (gate >= 1), graph
@@ -139,8 +151,8 @@ The last two kernels and the scan-to-submap path:
 The launch counts of each path are zeroed just before it and read just
 after.  Prints one ``{"kernels": [...]}`` line, one entry per kernel (the
 fourteen): the contract's keys for its first timed shape and path
-(``ms`` by the launcher alone for kernels 1, 2, 12 and 13, beside
-``wrapper_ms``), its launches on every path driven
+(``ms`` by the launcher alone for kernels 1, 2, 6, 11, 12 and 13,
+beside ``wrapper_ms``), its launches on every path driven
 (``launches_by_path``) and the other shapes it was timed at
 (``other_shapes``); then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Bounds:
@@ -215,6 +227,14 @@ IRLS_OPS_PER_POINT = 194
 # icp2d_frame's 2D sweep 2 + 2 + 1 + 1.
 NN_OPS_PER_PAIR_3D = 10
 NN_OPS_PER_PAIR_2D = 6
+# Instructions a pair issues in nn_pruned's inner loop (csrc/nn_pruned.cu,
+# no fused multiply-add): D sub, D mul, D - 1 add, a compare, two selects.
+NN_INSTR_PER_PAIR = {2: 8, 3: 11}
+# The H100 SXM's float32 instruction rate: 132 SMs x 128 lanes at its 1.98 GHz
+# boost clock, one instruction a lane a cycle.  PEAK_F32_PER_S counts a
+# fused multiply-add as two operations; a kernel that may not fuse issues
+# at most this many.
+PEAK_F32_INSTR_PER_S = 132 * 128 * 1.98e9
 # Operations per valid point and p2l IRLS iteration, counted from
 # csrc/p2l.cuh: residual 26 (p = R s + t 18, n . (p - d) 8); median 4
 # radix passes of ~7 plus a count/max pass of 3, the MAD's 5 passes 2 more
@@ -1202,9 +1222,66 @@ def _degenerate_p2l(src, matched, m_n, mask):
             "all-masked": (src, matched, m_n, torch.zeros_like(mask))}
 
 
+def exact_median(v: torch.Tensor) -> torch.Tensor:
+    """The median of the 1-D float32 ``v`` by torch.kthvalue: the middle
+    order statistic, or the mean of the two middle ones (0 when empty)."""
+    n = v.shape[0]
+    if n == 0:
+        return torch.zeros((), dtype=v.dtype, device=v.device)
+    hi = torch.kthvalue(v, n // 2 + 1).values
+    if n % 2:
+        return hi
+    return 0.5 * (torch.kthvalue(v, n // 2).values + hi)
+
+
+def p2l_first_stats(src, dst, nrm, mask, huber_k: float):
+    """Kernel 11's first-iteration median, MAD and sigma, held against the
+    exact median (torch.kthvalue of the residuals at the identity) and
+    against kernel 14's sigma there: True when bitwise equal."""
+    out = align3d_cuda.p2l_loop_out(src, dst, nrm, mask, huber_k, 1e-6, 1,
+                                    1.0)
+    r = align3d_cuda.identity_residuals(src, dst, nrm, mask)[mask > 0.5]
+    med = exact_median(r)
+    mad = exact_median(torch.abs(r - med))
+    sig = align3d_cuda.p2l_stats(src, dst, nrm, mask,
+                                 torch.eye(3, device=src.device),
+                                 torch.zeros(3, device=src.device),
+                                 huber_k)[29]
+    return bool(torch.equal(out[13], med) and torch.equal(out[14], mad)
+                and torch.equal(out[15], sig))
+
+
+def _p2l_cluster_times(args, device):
+    """Kernel 11 by its launcher alone at clusters of 4, 8 and 16 blocks,
+    one iteration (max_iter 1) and the call's own: {C: (one, call)} in
+    ms.  Each cluster's result within IRLS_TOL of the plain loop with
+    equal iterations."""
+    rot_p, t_p, it_p = align3d_cuda.p2l_loop_plain(*args)
+    times = {}
+    for c in (4, 8, 16):
+        largs, out, keep = align3d_cuda._p2l_loop_args(*args, cluster=c)
+        call_ms = launcher_ms("p2l_loop", largs, device)
+        _sync(device)
+        d = max(float(torch.max(torch.abs(out[:9].reshape(3, 3) - rot_p))),
+                float(torch.max(torch.abs(out[9:12] - t_p))))
+        if not (d <= IRLS_TOL and int(out[12]) == int(it_p)):
+            raise RuntimeError(f"p2l_loop: a cluster of {c} gives {d}, "
+                               f"{int(out[12])} iterations vs {int(it_p)}")
+        one_args, _, keep1 = align3d_cuda._p2l_loop_args(*args[:6], 1,
+                                                         args[7], cluster=c)
+        times[c] = (launcher_ms("p2l_loop", one_args, device), call_ms)
+        del keep, keep1
+    return times
+
+
 def phase_p2l_loop(device="cuda", stride: int = 1):
     """Kernel 11 vs its plain version on frame 1's first-iteration
-    correspondences, and the degenerate systems."""
+    correspondences, and the degenerate systems; on the card its first
+    medians and sigma bitwise, and its launcher alone at clusters of 4, 8
+    and 16 blocks, one iteration and the call's, at the p2l path's
+    28,800 points, SLAM 3D's 28,160, half and a quarter of the p2l
+    path's, and SLAM small's 3,072 (where the cluster-size rule
+    changes)."""
     cfg = _config()
     src, matched, m_n, mask = _first_p2l_correspondences(device, stride)
     solver = (cfg.huber_k, cfg.inner_delta_sq_tol, cfg.inner_max_iter,
@@ -1232,16 +1309,46 @@ def phase_p2l_loop(device="cuda", stride: int = 1):
                                    f"{int(it_d)} iterations")
         print(f"# p2l_loop {name}: kernel and plain stop at iteration 1 "
               "with the identity")
-    ms = time_ms(lambda: align3d_cuda.p2l_loop(*args), device, reps=20)
+    cluster_ms = {}
+    if torch.device(device).type == "cuda":
+        if not p2l_first_stats(src, matched, m_n, mask, cfg.huber_k):
+            raise RuntimeError("p2l_loop: first median, MAD or sigma not "
+                               "bitwise the exact ones")
+        print("# p2l_loop: first median and MAD bitwise equal to the exact "
+              "median, sigma to p2l_stats'")
+        n = src.shape[0]
+        for name, sl in (("p2l", slice(None)), ("slam3d", slice(0, 28160)),
+                         ("half", slice(0, n, 2)), ("quarter", slice(0, n, 4)),
+                         ("slam3d-small", slice(0, n, 9))):
+            sub = tuple(x[sl][:3072] if name == "slam3d-small" else x[sl]
+                        for x in args[:4]) + solver
+            cluster_ms[name] = _p2l_cluster_times(sub, device)
+            one, call = zip(*cluster_ms[name].values())
+            print(f"# p2l_loop {name} ({sub[0].shape[0]} points): launcher "
+                  f"alone at clusters of 4, 8, 16: one iteration "
+                  f"{list(one)} ms, the call {list(call)} ms")
+    wrapper_ms = time_ms(lambda: align3d_cuda.p2l_loop(*args), device,
+                         reps=20)
+    cluster = align3d_cuda.p2l_cluster(src.shape[0])
+    ms = cluster_ms["p2l"][cluster][1] if cluster_ms else wrapper_ms
     plain_ms = time_ms(lambda: align3d_cuda.p2l_loop_plain(*args), device,
                        reps=1)
     ops = float(int(it)) * float(mask.sum()) * P2L_OPS_PER_POINT
-    b, by = bound_ms(10 * src.shape[0] * 4 + 16 * 4, ops)
+    n_pts = src.shape[0]
+    b, by = bound_ms(9 * 4 * n_pts + mask.element_size() * n_pts + 16 * 4,
+                     ops)
+    print(f"# p2l_loop: launcher alone {ms} ms ({int(it)} iterations, a "
+          f"cluster of {cluster}), wrapper "
+          f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b:.7f} ms "
+          f"({by})")
     return dict(name="p2l_loop", route="cuda", path="p2l",
                 source="icp_rust_tpu_torch/csrc/p2l_loop.cu",
                 replaces="icp_rust_tpu/ops/align3d_pallas.py:252",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=None, iterations=int(it))
+                bound_by=by, library_ms=None,
+                extra=dict(wrapper_ms=wrapper_ms, iterations=int(it),
+                           cluster_ms={k: {str(c): v for c, v in d.items()}
+                                       for k, d in cluster_ms.items()}))
 
 
 def phase_p2l_stats(device="cuda", stride: int = 1):
@@ -1455,46 +1562,86 @@ def _sweep_check(kind, name, query, db, dmask, payload, device,
     fin = torch.isfinite(got[0])
     err = float(torch.max(torch.abs(got[0][fin] - want[0][fin]))) \
         if bool(fin.any()) else 0.0
-    walked = None
+    sweeps = None
+    tiles = ""
     if kind == "nn_pruned":
-        walked = nn_sweep_cuda.tiles_walked(*args)
+        # The kernel's schedule emulated: its result bitwise, its sweeps
+        # per work item.
+        *emul, sweeps = nn_sweep_cuda.pruned_items(*args)
+        _equal_or_raise(got, emul, f"{what} (the items' emulation)")
+        threads, q = nn_sweep_cuda._block_shape(
+            q_tile, nn_sweep_cuda.QUERIES_PER_THREAD)
+        slots = (args[0].shape[0] // (threads * q)
+                 * (args[1].shape[1] // db_tile))
+        tiles = (f"; (group of {threads * q} queries, db tile) sweeps "
+                 f"{sum(sweeps)} of {slots}, by work item of "
+                 f"{nn_sweep_cuda.ITEM_TILES} tiles {sweeps}")
     on_card = torch.device(device).type == "cuda"
     case_ms = time_ms(lambda: fn(*args), device, reps=3 if on_card else 1)
     batch = f"{query.shape[0]} x " if query.ndim == 3 else ""
-    tiles = ""
-    if walked is not None:
-        slots = (args[0].shape[0] // nn_sweep_cuda.SUB
-                 * (args[1].shape[1] // db_tile))
-        tiles = f"; (block, db tile) sweeps {walked} of {slots}"
     print(f"# {what}: bitwise equal to plain and brute force; {batch}{n} "
           f"queries x {db.shape[-2]} db points ({int(dmask.sum())} valid), "
           f"F = {0 if payload is None else payload.shape[-1]}{tiles}; "
           f"{case_ms:.4f} ms")
     return dict(kind=kind, fn=fn, plain=plain, args=args, err=err,
-                walked=walked, n=n, valid=float(dmask.sum()), db_tile=db_tile)
+                sweeps=sweeps, n=n, valid=float(dmask.sum()), db_tile=db_tile,
+                out=got)
 
 
 _SWEEP_SOURCES = {"nn_sweep": 55, "nn_matched": 177, "nn_pruned": 385}
 
 
+def _pruned_schedules(case, device):
+    """Kernel 6 by its launcher alone at work items of 1, 2 and 4 tiles (4
+    queries a thread) and at 2 and 8 queries a thread (items of 2 tiles),
+    each bitwise equal to the wrapper's result: {"T=..,Q=..": ms}."""
+    out = {}
+    if torch.device(device).type != "cuda":
+        return out
+    for t_items, q in ((1, 4), (2, 4), (4, 4), (2, 2), (2, 8)):
+        largs, res, part = nn_sweep_cuda._nn_pruned_args(
+            *case["args"], item_tiles=t_items, q_per_thread=q)
+        out[f"T={t_items},Q={q}"] = launcher_ms("nn_pruned", largs, device,
+                                                reps=20)
+        _sync(device)
+        if not all(torch.equal(a, b) for a, b in zip(res, case["out"])):
+            raise RuntimeError(f"nn_pruned: items of {t_items} tiles and "
+                               f"{q} queries a thread change the result")
+        del part
+    return out
+
+
 def _sweep_record(case, path: str, device, max_abs_err: float):
     """Kernel 4, 5 or 6's timing, plain timing and bound at one case's
     shapes.  Operations: every (query, valid db point) pair of the plain
-    sweeps; for kernel 6 the pairs of the (block, db tile) sweeps it
-    makes on these inputs."""
+    sweeps; for kernel 6 the pairs of the (group, db tile) sweeps it
+    makes on these inputs, whose instruction floor it also gives:
+    NN_INSTR_PER_PAIR instructions a pair at PEAK_F32_INSTR_PER_S."""
     kind, args = case["kind"], case["args"]
     query_p, dbf_cm = args[0], args[1]
     d_dim = query_p.shape[-1]
     reps = 20 if torch.device(device).type == "cuda" else 1
-    ms = time_ms(lambda: case["fn"](*args), device, reps=reps)
+    wrapper_ms = time_ms(lambda: case["fn"](*args), device, reps=reps)
     plain_ms = time_ms(lambda: case["plain"](*args), device, reps=2)
     b = query_p.shape[0] if query_p.ndim == 3 else 1
     qp = query_p.shape[-2]
     f_dim = dbf_cm.shape[-2] - d_dim
     per_pair = NN_OPS_PER_PAIR_3D if d_dim == 3 else NN_OPS_PER_PAIR_2D
+    extra, ms = {}, wrapper_ms
     if kind == "nn_pruned":
-        pairs = float(case["walked"]) * nn_sweep_cuda.SUB * case["db_tile"]
+        threads, q = nn_sweep_cuda._block_shape(
+            args[6], nn_sweep_cuda.QUERIES_PER_THREAD)
+        pairs = float(sum(case["sweeps"])) * threads * q * case["db_tile"]
         tables = sum(x.numel() * 4 for x in args[2:5])
+        schedules = _pruned_schedules(case, device)
+        ms = schedules.get(f"T={nn_sweep_cuda.ITEM_TILES},"
+                           f"Q={nn_sweep_cuda.QUERIES_PER_THREAD}", ms)
+        floor = pairs * NN_INSTR_PER_PAIR[d_dim] / PEAK_F32_INSTR_PER_S * 1e3
+        extra = dict(wrapper_ms=wrapper_ms, schedules_ms=schedules,
+                     sweeps_by_item=case["sweeps"], instruction_floor_ms=floor)
+        print(f"# nn_pruned {path}: launcher alone {ms} ms (items of T "
+              f"tiles, Q queries a thread: {schedules}), wrapper "
+              f"{wrapper_ms:.4f} ms; instruction floor {floor:.4f} ms")
     else:
         pairs = float(case["n"]) * case["valid"]
         tables = 0
@@ -1505,7 +1652,7 @@ def _sweep_record(case, path: str, device, max_abs_err: float):
                 source=f"icp_rust_tpu_torch/csrc/{kind}.cu",
                 replaces=f"icp_rust_tpu/ops/nn_pallas.py:{_SWEEP_SOURCES[kind]}",
                 max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by, library_ms=None)
+                bound_ms=bound, bound_by=by, library_ms=None, extra=extra)
 
 
 def phase_nn_sweeps(device="cuda", stride: int = 1, small: int = 3072,
@@ -2121,11 +2268,30 @@ def profile_submap(device="cuda", n_frames: int = 96):
     print(avgs.table(sort_by="self_device_time_total", row_limit=20))
 
 
+def _kernel_instance(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name, e.g.
+    nn_pruned_kernelILi3ELi4EE (D = 3, Q = 4)."""
+    i, name = mangled.find("N") + 1, mangled
+    while 0 < i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    args = re.match(r"I(?:L\w+?E)+E", mangled[i:])
+    return name + (args.group(0) if args else "")
+
+
 def _ptxas_lines(report: dict):
+    """ptxas' register, spill and shared-memory lines of each kernel
+    instance."""
     for name, log in sorted(report.items()):
+        entry = ""
         for line in log.splitlines():
+            m = re.search(r"entry function '(\w+)'", line)
+            if m:
+                entry = " " + _kernel_instance(m.group(1))
             if "registers" in line or "spill" in line:
-                print(f"# ptxas {name}: {line.strip()}")
+                print(f"# ptxas {name}{entry}: {line.strip()}")
 
 
 def main() -> int:
@@ -2148,7 +2314,10 @@ def main() -> int:
     print(f"# card: {smi}")
     print(f"# nn_list: work items of {nn_cuda.ITEM_CHUNKS} chunks; "
           f"irls_loop: a thread-block cluster of {align2d_cuda.IRLS_CLUSTER}"
-          " blocks")
+          f" blocks; p2l_loop: a cluster of 16 blocks above "
+          f"{align3d_cuda.P2L_CLUSTER_16_ABOVE} points, else 8; nn_pruned: "
+          f"work items of {nn_sweep_cuda.ITEM_TILES} "
+          f"tiles, {nn_sweep_cuda.QUERIES_PER_THREAD} queries a thread")
     records = [phase_nn_list(device), *phase_irls(device),
                phase_frame(device)]
     main_run = phase_main(device)

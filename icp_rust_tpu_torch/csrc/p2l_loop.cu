@@ -6,76 +6,149 @@
 // _p2l_loop_kernel (wrapper estimate_transform_p2l_pallas; core
 // _p2l_stats_core, _median_radix2_single, _chol_solve6).
 //
-// Design (a) of irls_loop.cu: ONE block, streaming the ten (N,) input
-// columns from global memory.  At N = 28,800 they are 1.15 MB, beyond one
-// SM's 227 KB of shared memory; they and the 115 KB residual scratch stay
-// resident in the 50 MB L2.  Per iteration the block makes 12 passes:
-// residuals, 4 radix + 1 count/max pass for each of median and MAD, one
-// sums pass; then thread 0 solves the 6x6 system and updates the
-// transform (csrc/p2l.cuh).  What bounds it on this card: the serial chain
-// of block-wide passes and barriers on one SM (L2 bandwidth of one SM and
-// latency), not device memory or arithmetic.
+// Design: one thread-block cluster of C blocks of 512 threads
+// (p2l_cluster.cuh), launched with cudaLaunchKernelEx and a cluster
+// dimension; the wrapper takes C = 16 above 16,384 points, else 8
+// (ops/align3d_cuda.p2l_cluster).  Each block holds its 1/C slice of the
+// points in shared memory (41 bytes a point: 74 KB at N = 28,800 and C =
+// 16) or, when the slice exceeds 200 KB, reads it in place from global
+// memory; src, dst and normals (N, 3) and the bool or float mask are read
+// in place with their strides.
 //
-// 1024 threads, as irls_loop: the sums pass keeps 28 running sums per
-// thread besides the point's J, and 1024 threads cap a thread at 64
-// registers.  ptxas (CUDA 12.8) fits that with no spill, where a
-// 512-thread bound without a minimum block count made it choose 64
-// registers all the same and spill 20 bytes.  chip_smoke.py prints
-// ptxas' report.
+// What bounds it on this card: the serial chain of an iteration's 12
+// passes (residuals, 4 radix and 1 count/max pass for each of median and
+// MAD, the sums), each ending in a barrier, and the 6x6 tail.  Bytes and
+// operations are a loose bound (the data are read once).  Spread over C
+// SMs, a pass reads 1/C of the points from each block's own shared
+// memory instead of all of them from L2 through one SM, and ends in a
+// cluster barrier and a DSMEM exchange of at most 256 counts or 28 sums.
 //
-// Output (16 floats): r00..r22 (row-major), tx ty tz, iterations, 0 0 0.
-#include "p2l.cuh"
+// Output (16 floats): r00..r22 (row-major), tx ty tz, iterations, then
+// the first iteration's median, MAD and sigma (0 when max_iter < 1).
+#include "p2l_cluster.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
+// Shared memory a block may take for its staged slice: above it the
+// slice stays in global memory.
+constexpr int kStageBudget = 200 * 1024;
 
-__global__ void __launch_bounds__(kThreads)
-p2l_loop_kernel(icp::P2lCols c, int n_pts, float* r, icp::P2lParams P,
-                float* out) {
-  __shared__ icp::P2lShared sh;
-  const int n = icp::p2l_count(c.mask, n_pts, sh);
-  if (threadIdx.x == 0) {
+// Two instances, so that the staged one, the card's usual, keeps its few
+// slice registers and ptxas reports each: kStaged holds the block's slice
+// in shared memory, else it reads the points in place.
+template <bool kStaged>
+__global__ void __launch_bounds__(icp::kP2lClusterThreads)
+p2l_cluster_kernel(const float* __restrict__ src, long long s0, long long s1,
+                   const float* __restrict__ dst, long long d0, long long d1,
+                   const float* __restrict__ nrm, long long n0, long long n1,
+                   const void* __restrict__ mask, long long m0, int mask_f32,
+                   int n_pts, float* scratch, icp::P2lParams P, float* out) {
+  extern __shared__ __align__(16) float stage[];
+  __shared__ icp::P2lClusterShared sh;
+  const int n_blocks = (int)cooperative_groups::this_cluster().num_blocks();
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int per = (n_pts + n_blocks - 1) / n_blocks;
+  const int lo = min(n_pts, rank * per);
+  const int n_loc = min(n_pts, lo + per) - lo;
+  const unsigned char* mb = static_cast<const unsigned char*>(mask);
+  const float* mf = static_cast<const float*>(mask);
+  if constexpr (kStaged) {
+    // Columns sx sy sz dx dy dz nx ny nz r, per floats each, then the
+    // mask bytes.
+    float* f = stage;
+    unsigned char* m = reinterpret_cast<unsigned char*>(stage + 10 * per);
+    for (int i = threadIdx.x; i < n_loc; i += blockDim.x) {
+      const long long k = lo + i;
 #pragma unroll
-    for (int k = 0; k < 9; ++k) sh.rot[k] = (k % 4 == 0) ? 1.0f : 0.0f;
-    sh.t[0] = 0.0f;
-    sh.t[1] = 0.0f;
-    sh.t[2] = 0.0f;
-    sh.prev_err = FLT_MAX;
-    sh.it = 0;
-    sh.done = 0;
-  }
-  __syncthreads();
-  while (sh.it < P.max_iter && sh.done == 0) {
-    const float sig = icp::p2l_stats(c, n_pts, r, n, P, sh);
-    if (threadIdx.x == 0) icp::p2l_step(sh, n, sig, P);
+      for (int c = 0; c < 3; ++c) {
+        f[c * per + i] = src[k * s0 + c * s1];
+        f[(3 + c) * per + i] = dst[k * d0 + c * d1];
+        f[(6 + c) * per + i] = nrm[k * n0 + c * n1];
+      }
+      m[i] = mask_f32 ? (mf[k * m0] > 0.5f) : (mb[k * m0] != 0);
+    }
     __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    for (int k = 0; k < 9; ++k) out[k] = sh.rot[k];
-    for (int k = 0; k < 3; ++k) out[9 + k] = sh.t[k];
-    out[12] = (float)sh.it;
-    out[13] = 0.0f;
-    out[14] = 0.0f;
-    out[15] = 0.0f;
+    icp::p2l_loop_cluster(icp::P2lStagedSlice{f, m, per, n_loc, f + 9 * per},
+                          P, sh, out);
+  } else {
+    icp::p2l_loop_cluster(
+        icp::P2lGlobalSlice{src + lo * s0, dst + lo * d0, nrm + lo * n0, s0,
+                            s1, d0, d1, n0, n1,
+                            mask_f32 ? nullptr : mb + lo * m0,
+                            mask_f32 ? mf + lo * m0 : nullptr, m0,
+                            scratch + lo, n_loc},
+        P, sh, out);
   }
 }
 
 }  // namespace
 
-// Columns sx sy sz dx dy dz nx ny nz mask, each (n,) float32; r: (n,)
-// scratch; out: (16,).  Returns cudaGetLastError().
-extern "C" int p2l_loop_launch(const float* sx, const float* sy,
-                               const float* sz, const float* dx,
-                               const float* dy, const float* dz,
-                               const float* nx, const float* ny,
-                               const float* nz, const float* mask, int n,
-                               float* r, float* out, float huber_k, float k2,
-                               float two_k, float tol_d2, int max_iter,
-                               float s2, float small_angle, void* stream) {
-  icp::P2lCols c{sx, sy, sz, dx, dy, dz, nx, ny, nz, mask};
+// src, dst, normals (n, 3) with element strides (s0, s1), (d0, d1), (n0,
+// n1); mask (n,) with stride m0, bool (mask_f32 = 0) or float32 (true
+// above 0.5); scratch: n floats (the residuals when the slices are not
+// staged); out: 16 floats.  cluster: blocks in the cluster, 1-16.
+// Returns cudaGetLastError(), the launch API's error, or -1 when no
+// cluster of that size can be placed on this card.
+extern "C" int p2l_loop_launch(const float* src, long long s0, long long s1,
+                               const float* dst, long long d0, long long d1,
+                               const float* nrm, long long n0, long long n1,
+                               const void* mask, long long m0, int mask_f32,
+                               int n, float* scratch, float* out,
+                               float huber_k, float k2, float two_k,
+                               float tol_d2, int max_iter, float s2,
+                               float small_angle, int cluster,
+                               void* stream) {
+  static bool attributes_set = false;
+  static int placed_cluster = 0;
+  static size_t placed_smem = 0;
+  if (cluster < 1 || cluster > icp::kP2lMaxCluster) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!attributes_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        p2l_cluster_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kStageBudget);
+    for (auto fn : {p2l_cluster_kernel<true>, p2l_cluster_kernel<false>}) {
+      if (e == cudaSuccess) {
+        e = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      }
+    }
+    if (e != cudaSuccess) return static_cast<int>(e);
+    attributes_set = true;
+  }
+  const int per = (n + cluster - 1) / cluster;
+  size_t smem = ((size_t)per * icp::kP2lStagedPointBytes + 15) / 16 * 16;
+  const bool staged = smem <= (size_t)kStageBudget;
+  if (!staged) smem = 0;
+  const auto kernel =
+      staged ? p2l_cluster_kernel<true> : p2l_cluster_kernel<false>;
+
   icp::P2lParams P{huber_k, k2, two_k, tol_d2, max_iter, s2, small_angle};
-  p2l_loop_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      c, n, r, P, out);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(icp::kP2lClusterThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (cluster != placed_cluster || smem != placed_smem) {
+    int n_clusters = 0;
+    const cudaError_t e =
+        cudaOccupancyMaxActiveClusters(&n_clusters, kernel, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (n_clusters < 1) return -1;
+    placed_cluster = cluster;
+    placed_smem = smem;
+  }
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kernel, src, s0, s1, dst, d0, d1, nrm, n0, n1,
+                         mask, m0, mask_f32, n, scratch, P, out);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,24 +2,28 @@
 PyTorch versions:
 
 - ``csrc/p2l_loop.cu``: the whole fixed-correspondence p2l IRLS loop of
-  one cloud in one launch (align3d_pallas ``_p2l_loop_kernel``);
+  one cloud in one launch on a thread-block cluster of ``p2l_cluster(N)``
+  blocks (align3d_pallas ``_p2l_loop_kernel``; ``csrc/p2l_cluster.cuh``);
 - ``csrc/p2l_stats.cu``: one GN update's packed statistics at a given
-  transform (``_p2l_kernel``).
+  transform, one block (``_p2l_kernel``).
 
-Both run the block routine of ``csrc/p2l.cuh``, so they share one op
-sequence.  The plain versions follow the TPU kernels' op sequence, not the
-``align_backend="torch"`` loop: the exact radix median and MAD of the
-scalar residual (``ops/select``), the 21 + 6 sums and the Huber error, and
-for the loop the 6x6 Cholesky in ``_chol_solve6``'s order written out
-over the six indices, ``ok = solve_ok & n >= 6 & sigma != 0`` with no
-residual gate, the stop order of ``align3d_pallas.py:285-290`` and the
-SE(3) exp with the ``eps_f32**0.25`` branch.  A wrapper takes the plain
-version only for a CPU tensor; a CUDA tensor reaches the kernel or raises.
-The kernels take float32 only.
+Both run the routines of ``csrc/p2l.cuh`` (p2l_loop its scalar tail and
+the one-block median's exact order statistics, spread over a cluster), so
+they share one op sequence.  The plain versions follow the TPU kernels'
+op sequence, not the ``align_backend="torch"`` loop: the exact radix
+median and MAD of the scalar residual (``ops/select``), the 21 + 6 sums
+and the Huber error, and for the loop the 6x6 Cholesky in
+``_chol_solve6``'s order written out over the six indices, ``ok =
+solve_ok & n >= 6 & sigma != 0`` with no residual gate, the stop order of
+``align3d_pallas.py:285-290`` and the SE(3) exp with the
+``eps_f32**0.25`` branch.  A wrapper takes the plain version only for a
+CPU tensor; a CUDA tensor reaches the kernel or raises.  The kernels take
+float32 only.
 
 Tolerance against the plain versions: float32 roundoff of the sums, which
-are taken in another order (block tree vs torch reductions); the medians
-are exact order statistics of residuals that may differ in their last bit.
+are taken in another order (float64 over the cluster, rounded once, or a
+float32 block tree, vs torch reductions); the medians are exact order
+statistics of residuals that may differ in their last bit.
 """
 
 from __future__ import annotations
@@ -30,6 +34,16 @@ from torch import Tensor
 from icp_rust_tpu_torch.ops import cuda_build, robust
 
 _SMALL_ANGLE_F32 = float(torch.finfo(torch.float32).eps) ** 0.25
+# Blocks in p2l_loop's thread-block cluster: 16 above this many points,
+# else 8 (on an H100 16 is 6-10 % faster at 28,160-28,800 points, 8 is
+# 3-19 % faster at 3,072-14,400; PERF.md).  Which points each block sums
+# follows from N alone, so it is a rule, not a knob.
+P2L_CLUSTER_16_ABOVE = 16384
+
+
+def p2l_cluster(n: int) -> int:
+    """The cluster size p2l_loop launches for n points."""
+    return 16 if n > P2L_CLUSTER_16_ABOVE else 8
 # (i, j) -> index into the 21 row-major upper-triangle sums.
 _SYM6 = [[min(i, j) * 6 - min(i, j) * (min(i, j) - 1) // 2
           + abs(i - j) for j in range(6)] for i in range(6)]
@@ -43,16 +57,35 @@ def _columns(src: Tensor, dst: Tensor, normals: Tensor, mask: Tensor):
     return cols + [mask.to(device=src.device, dtype=src.dtype).contiguous()]
 
 
-def _stats_core(rot9, t3, cols, huber_k: float):
-    """_p2l_stats_core on tensors: returns (jtj (21 0-d), jtr (6 0-d),
-    err, sigma, n) at the transform (rot9, t3) (0-d tensors)."""
-    sx, sy, sz, dx, dy, dz, nx, ny, nz, mf = cols
+def _residuals(rot9, t3, cols):
+    """(px, py, pz, r): the moved points p = R s + t and the residuals r =
+    n . (p - d) at the transform (rot9, t3) (0-d tensors), in the kernels'
+    op order."""
+    sx, sy, sz, dx, dy, dz, nx, ny, nz, _ = cols
     r00, r01, r02, r10, r11, r12, r20, r21, r22 = rot9
     tx, ty, tz = t3
     px = r00 * sx + r01 * sy + r02 * sz + tx
     py = r10 * sx + r11 * sy + r12 * sz + ty
     pz = r20 * sx + r21 * sy + r22 * sz + tz
-    r = nx * (px - dx) + ny * (py - dy) + nz * (pz - dz)
+    return px, py, pz, nx * (px - dx) + ny * (py - dy) + nz * (pz - dz)
+
+
+def identity_residuals(src: Tensor, dst: Tensor, normals: Tensor,
+                       mask: Tensor) -> Tensor:
+    """The residuals of the loop's first iteration (at the identity), as
+    the kernels and the plain versions form them."""
+    cols = _columns(src, dst, normals, mask)
+    one = torch.ones((), dtype=src.dtype, device=src.device)
+    zero = torch.zeros_like(one)
+    rot9 = [one, zero, zero, zero, one, zero, zero, zero, one]
+    return _residuals(rot9, [zero, zero, zero], cols)[3]
+
+
+def _stats_core(rot9, t3, cols, huber_k: float):
+    """_p2l_stats_core on tensors: returns (jtj (21 0-d), jtr (6 0-d),
+    err, sigma, n) at the transform (rot9, t3) (0-d tensors)."""
+    nx, ny, nz, mf = cols[6:]
+    px, py, pz, r = _residuals(rot9, t3, cols)
 
     mask = mf > 0.5
     med, _ = robust.masked_median(r, mask)
@@ -217,6 +250,51 @@ def _check(name: str, src, dst, normals, mask) -> int:
     return n
 
 
+def _p2l_loop_args(src: Tensor, dst: Tensor, normals: Tensor, mask: Tensor,
+                   huber_k: float, tol_d2: float, max_iter: int,
+                   point_scale: float, cluster: int | None = None):
+    """Check the CUDA inputs of the p2l_loop kernel and allocate its output
+    and scratch.  The kernel reads src, dst and normals (N, 3) float32 and
+    the bool or float32 mask (N,) in place, with their strides.  Returns
+    (the launcher's arguments, out (16,), the scratch): out holds r00..r22
+    (row-major), tx ty tz, iterations, then the first iteration's median,
+    MAD and sigma.  ``cluster`` defaults to ``p2l_cluster(N)``."""
+    n = _check("p2l_loop", src, dst, normals, mask)
+    cluster = p2l_cluster(n) if cluster is None else cluster
+    if (mask.dtype not in (torch.bool, torch.float32)
+            or mask.device != src.device):
+        raise TypeError(f"p2l_loop: mask must be bool or float32 on "
+                        f"{src.device}")
+    buf = torch.empty(16 + n, dtype=torch.float32, device=src.device)
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    # ctypes rounds each float to f32 once (k*k, 2k and s^2 taken in
+    # double first), as the TPU kernel's f32 constants are.
+    args = (src.data_ptr(), *src.stride(), dst.data_ptr(), *dst.stride(),
+            normals.data_ptr(), *normals.stride(), mask.data_ptr(),
+            mask.stride(0), int(mask.dtype == torch.float32), n,
+            buf[16:].data_ptr(), buf.data_ptr(), huber_k, huber_k * huber_k,
+            2.0 * huber_k, tol_d2, int(max_iter), point_scale * point_scale,
+            _SMALL_ANGLE_F32, cluster, stream)
+    return args, buf[:16], buf
+
+
+def p2l_loop_out(src: Tensor, dst: Tensor, normals: Tensor, mask: Tensor,
+                 huber_k: float, tol_d2: float, max_iter: int,
+                 point_scale: float) -> Tensor:
+    """Launch p2l_loop on CUDA tensors; returns its (16,) output (see
+    ``_p2l_loop_args``)."""
+    args, out, _scratch = _p2l_loop_args(src, dst, normals, mask, huber_k,
+                                         tol_d2, max_iter, point_scale)
+    status = cuda_build.launcher("p2l_loop")(*args)
+    cuda_build.LAUNCHES["p2l_loop"] += 1
+    if status == -1:
+        raise RuntimeError(
+            f"p2l_loop: no thread-block cluster of {args[-2]} blocks can be "
+            "placed on this card")
+    cuda_build.check(status, "p2l_loop")
+    return out
+
+
 def p2l_loop(src: Tensor, dst: Tensor, normals: Tensor, mask: Tensor,
              huber_k: float, tol_d2: float, max_iter: int,
              point_scale: float):
@@ -228,19 +306,8 @@ def p2l_loop(src: Tensor, dst: Tensor, normals: Tensor, mask: Tensor,
     if src.device.type == "cpu":
         return p2l_loop_plain(src, dst, normals, mask, huber_k, tol_d2,
                               max_iter, point_scale)
-    n = _check("p2l_loop", src, dst, normals, mask)
-    cols = _columns(src, dst, normals, mask)
-    scratch = torch.empty(n, dtype=torch.float32, device=src.device)
-    out = torch.empty(16, dtype=torch.float32, device=src.device)
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    # ctypes rounds each float to f32 once (k*k, 2k and s^2 taken in
-    # double first), as the TPU kernel's f32 constants are.
-    status = cuda_build.launcher("p2l_loop")(
-        *[c.data_ptr() for c in cols], n, scratch.data_ptr(),
-        out.data_ptr(), huber_k, huber_k * huber_k, 2.0 * huber_k, tol_d2,
-        int(max_iter), point_scale * point_scale, _SMALL_ANGLE_F32, stream)
-    cuda_build.LAUNCHES["p2l_loop"] += 1
-    cuda_build.check(status, "p2l_loop")
+    out = p2l_loop_out(src, dst, normals, mask, huber_k, tol_d2, max_iter,
+                       point_scale)
     return out[:9].reshape(3, 3), out[9:12], out[12]
 
 

@@ -43,7 +43,7 @@ SOURCES = ("nn_list", "irls_loop", "icp2d_frame", "nn_pairs",
 # Every header is hashed into every library's name, so an edited header
 # rebuilds whatever includes it.
 HEADERS = ("irls.cuh", "irls_cluster.cuh", "frame.cuh", "nn_pairs.cuh",
-           "p2l.cuh", "nn_sweep.cuh")
+           "p2l.cuh", "p2l_cluster.cuh", "nn_sweep.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--fmad=false")
 
@@ -77,11 +77,12 @@ _SIGNATURES = {
     "icp2d_frame_pairs": ("icp2d_frame_pairs_launch",
                           [_P] * 3 + [_I] * 3 + [_P] * 2 + [_F] * 5 + [_I]
                           + [_F] * 2 + [_I, _P]),
-    # sx sy sz dx dy dz nx ny nz mask; n; scratch, out; huber_k, k2, two_k,
-    # tol_d2; max_iter; s2, small_angle; stream
+    # src, dst, normals, each with its two strides; mask, its stride;
+    # mask_f32, n; scratch, out; huber_k, k2, two_k, tol_d2; max_iter; s2,
+    # small_angle; cluster, stream
     "p2l_loop": ("p2l_loop_launch",
-                 [_P] * 10 + [_I] + [_P] * 2 + [_F] * 4 + [_I] + [_F] * 2
-                 + [_P]),
+                 [_P, _L, _L] * 3 + [_P, _L] + [_I] * 2 + [_P] * 2
+                 + [_F] * 4 + [_I] + [_F] * 2 + [_I, _P]),
     # sx sy sz dx dy dz nx ny nz mask; n; rt, scratch, out; huber_k, k2,
     # two_k; stream
     "p2l_stats": ("p2l_stats_launch",
@@ -90,9 +91,10 @@ _SIGNATURES = {
     "nn_sweep": ("nn_sweep_launch", [_P] * 4 + [_I] * 4 + [_P]),
     # query, dbf_cm, dist, idx, pay; b, qp, d_dim, f_dim, m_pad; stream
     "nn_matched": ("nn_matched_launch", [_P] * 5 + [_I] * 5 + [_P]),
-    # query, dbf_cm, qbox, bbox, qb_tile, dist, idx, pay; qp, q_tile,
-    # db_tile, d_dim, f_dim, m_pad; stream
-    "nn_pruned": ("nn_pruned_launch", [_P] * 8 + [_I] * 6 + [_P]),
+    # query, dbf_cm, qbox, bbox, qb_tile, dist, idx, pay, part, ticket;
+    # qp, q_tile, db_tile, d_dim, f_dim, m_pad, item, threads,
+    # q_per_thread; stream
+    "nn_pruned": ("nn_pruned_launch", [_P] * 10 + [_I] * 9 + [_P]),
     # sx, sy, dx, dy, mask; n; rt, scratch, out; huber_k, k2, two_k; stream
     "gn_stats": ("gn_stats_launch",
                  [_P] * 5 + [_I] + [_P] * 3 + [_F] * 3 + [_P]),

@@ -12,25 +12,31 @@ tiles or more, and ``nn_pallas_matched`` unseeded or with a wide payload).
 ``search`` is the routing of those two functions minus the seeded
 survivor-list branch, which ``ops/nn.py`` takes first.
 
-All three kernels take queries ``SUB`` at a time, one block per group and
+Kernels 4 and 5 take queries ``SUB`` at a time, one block per group and
 one thread per query, and stage the coordinate-major db
 (``_dbf_cm_matched``: D sentinel-filled coordinate rows, then F payload
-rows) through shared memory 128 points at a time.
+rows) through shared memory 128 points at a time; they sweep every point
+in ascending order with a strict '<' on a scalar (distance, index,
+payload) carry: the lowest index wins ties.  A leading batch axis is one
+more grid axis.
 
-- Kernels 4 and 5 sweep every point in ascending order with a strict '<'
-  on a scalar (distance, index, payload) carry: the lowest index wins
-  ties.  A leading batch axis is one more grid axis.
-- Kernel 6 visits the db tiles of its query tile ``i`` diagonal first:
-  tiles s..n-1 ascending, then s-1..0 descending, s = i q_tile // db_tile.
-  Its carry update is lexicographic on (distance, index), so the lowest
-  index wins ties in any visit order.  A tile (after tile 0 of the order)
-  is skipped when the squared distance between the query tile's box and
-  the db tile's box, deflated by 1 - 16 eps, is above the block's
-  threshold min(max of its queries' current bests, qb_tile[i]).  A skipped
-  tile holds no point of any of the block's queries' tie sets, so the
-  result is the unpruned sweep's, bit for bit.  The threshold is taken
-  over the block's ``SUB`` queries, not over the whole query tile as on
-  the TPU: it is smaller or equal, and exact for the same reason.
+Kernel 6 visits the db tiles of its query tile ``i`` diagonal first:
+tiles s..n-1 ascending, then s-1..0 descending, s = i q_tile // db_tile.
+That order is cut into work items of ``ITEM_TILES`` consecutive tiles,
+one block each, and a block holds ``QUERIES_PER_THREAD`` queries a thread
+(``_block_shape``: the block's group of queries lies inside one query
+tile).  A tile (after tile 0 of the order) is skipped when the squared
+distance between the query tile's box and the db tile's box, deflated by
+1 - 16 eps, is above the block's threshold min(max of its queries'
+current bests in its item, qb_tile[i]).  A skipped tile holds no point of
+any of the block's queries' tie sets, so each item's best is the
+lexicographic (distance, index) minimum over the tiles it may hold a
+winner in, and the items' lexicographic merge is the unpruned sweep's
+result, bit for bit.  The winner's payload is read from the packed db
+after the merge.  The plain version ``nn_pruned_plain`` walks the
+whole order per block of ``SUB`` queries, as the TPU kernel walks it per
+query tile; ``pruned_items`` emulates the kernel's items and counts their
+sweeps.
 
 With no valid db point a query gets (+inf, 0, 0): sentinel distances
 overflow to +inf in float32 and never win a strict compare.  ``search``
@@ -52,6 +58,14 @@ from icp_rust_tpu_torch.ops.nn_cuda import _dbf_cm_matched, _round_up, \
 
 SUB = 128
 _STAGE = 128
+# Kernel 6: db tiles per work item (one block each) and queries per
+# thread, both measured on an H100 (PERF.md).  They set which tiles each
+# block may prune, never the result, so they are constants, not knobs.
+ITEM_TILES = 2
+QUERIES_PER_THREAD = 4
+_PRUNED_Q = (2, 4, 8)
+# Per-device tickets of kernel 6's query groups, zero between launches.
+_TICKETS: dict = {}
 # (D, payload width) of the kernel instances, what the callers pass: the
 # unmatched sweeps; the matched xy of icp2d (2D) and icp3d_planar (3D), the
 # matched 3D point (the default payload) and the p2l [n, c] rows.
@@ -128,10 +142,25 @@ def nn_sweep_plain(query_p: Tensor, db_cm: Tensor, tile: int = 1024):
     return dist, idx
 
 
+def _box_lb(qbox_rows: Tensor, bbox: Tensor, d_dim: int) -> Tensor:
+    """Squared distances (rows, n_db) between query-tile boxes and db-tile
+    boxes, dims summed in order and deflated by 1 - 16 eps, as the kernel
+    forms its prune test."""
+    lb = torch.zeros((qbox_rows.shape[0], bbox.shape[0]),
+                     dtype=qbox_rows.dtype, device=qbox_rows.device)
+    for k in range(d_dim):
+        a = bbox[None, :, k] - qbox_rows[:, None, 4 + k]
+        b = qbox_rows[:, None, k] - bbox[None, :, 4 + k]
+        gap = torch.clamp(torch.maximum(a, b), min=0.0)
+        lb = lb + gap * gap
+    return lb * (1.0 - 16.0 * torch.finfo(qbox_rows.dtype).eps)
+
+
 def _pruned_sweep(query_p, dbf_cm, qbox, bbox, qb_tile, d_dim: int,
                   q_tile: int, db_tile: int):
-    """Kernel 6's visit order, prune test and carry update, vectorised over
-    its blocks of SUB queries.  Returns (dist, idx, pay, tiles walked)."""
+    """Kernel 6's visit order, prune test and lexicographic carry over the
+    whole order, vectorised over blocks of SUB queries.  Returns (dist,
+    idx, pay, tiles walked)."""
     qp = query_p.shape[0]
     f_dim = dbf_cm.shape[0] - d_dim
     n_db = dbf_cm.shape[1] // db_tile
@@ -141,13 +170,7 @@ def _pruned_sweep(query_p, dbf_cm, qbox, bbox, qb_tile, d_dim: int,
     start = blk_qt * q_tile // db_tile
     tiles = dbf_cm.reshape(d_dim + f_dim, n_db, db_tile)
     q_b = query_p.reshape(n_blk, SUB, d_dim)
-    lb = torch.zeros((n_blk, n_db), dtype=dt, device=dev)
-    for k in range(d_dim):
-        a = bbox[None, :, k] - qbox[blk_qt][:, None, 4 + k]
-        b = qbox[blk_qt][:, None, k] - bbox[None, :, 4 + k]
-        gap = torch.clamp(torch.maximum(a, b), min=0.0)
-        lb = lb + gap * gap
-    lb = lb * (1.0 - 16.0 * torch.finfo(dt).eps)
+    lb = _box_lb(qbox[blk_qt], bbox, d_dim)
     qbt = qb_tile[blk_qt]
     maxd = qbt
     best = torch.full((n_blk, SUB), float("inf"), dtype=dt, device=dev)
@@ -177,19 +200,127 @@ def _pruned_sweep(query_p, dbf_cm, qbox, bbox, qb_tile, d_dim: int,
 def nn_pruned_plain(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor,
                     bbox: Tensor, qb_tile: Tensor, d_dim: int, q_tile: int,
                     db_tile: int):
-    """Plain PyTorch version of kernel 6, in its visit order, with its prune
-    test and lexicographic carry.  Returns (dist, idx, pay)."""
+    """Plain PyTorch version of kernel 6: the zig-zag order with its prune
+    test and lexicographic carry, per block of SUB queries.  Returns
+    (dist, idx, pay)."""
     return _pruned_sweep(query_p, dbf_cm, qbox, bbox, qb_tile, d_dim,
                          q_tile, db_tile)[:3]
 
 
 def tiles_walked(query_p, dbf_cm, qbox, bbox, qb_tile, d_dim: int,
                  q_tile: int, db_tile: int) -> int:
-    """The (block, db tile) sweeps kernel 6 makes on these inputs: its
-    prune decisions follow the carries, which are bitwise the plain
-    version's."""
+    """The (block of SUB queries, db tile) sweeps of the plain version on
+    these inputs: how much its prune test skips."""
     return _pruned_sweep(query_p, dbf_cm, qbox, bbox, qb_tile, d_dim,
                          q_tile, db_tile)[3]
+
+
+def _block_shape(q_tile: int, q_per_thread: int):
+    """Kernel 6's block: (threads, queries a thread).  The largest of 128,
+    64 and 32 threads whose group of threads x Q queries divides q_tile
+    (a multiple of SUB), Q halved first where even 32 threads' group does
+    not."""
+    if q_per_thread not in _PRUNED_Q:
+        raise ValueError(f"nn_pruned: queries per thread must be one of "
+                         f"{_PRUNED_Q}, got {q_per_thread}")
+    q = q_per_thread
+    while q_tile % (32 * q):
+        q //= 2
+    threads = 128
+    while q_tile % (threads * q):
+        threads //= 2
+    return threads, q
+
+
+def pruned_items(query_p, dbf_cm, qbox, bbox, qb_tile, d_dim: int,
+                 q_tile: int, db_tile: int, item_tiles: int = ITEM_TILES,
+                 q_per_thread: int = QUERIES_PER_THREAD):
+    """Kernel 6's schedule on tensors: per group of threads x Q queries
+    (``_block_shape``), the zig-zag order cut into items of
+    ``item_tiles``, each item with its own carry and threshold, a tile
+    swept into a fresh carry merged lexicographically, the items merged
+    lexicographically, the payload read at the winner.  Returns (dist,
+    idx, pay, sweeps): sweeps[k] counts the (group, db tile) sweeps of
+    item k over all groups."""
+    threads, q = _block_shape(q_tile, q_per_thread)
+    g = threads * q
+    qp = query_p.shape[0]
+    f_dim = dbf_cm.shape[0] - d_dim
+    n_db = dbf_cm.shape[1] // db_tile
+    n_grp = qp // g
+    dev, dt = query_p.device, query_p.dtype
+    grp_qt = torch.arange(n_grp, device=dev) * g // q_tile
+    start = grp_qt * q_tile // db_tile
+    tiles = dbf_cm[:d_dim].reshape(d_dim, n_db, db_tile)
+    q_g = query_p.reshape(n_grp, g, d_dim)
+    lb = _box_lb(qbox[grp_qt], bbox, d_dim)
+    qbt = qb_tile[grp_qt]
+    rows = torch.arange(n_grp, device=dev)
+    inf = torch.full((n_grp, g), float("inf"), dtype=dt, device=dev)
+    zero = torch.zeros((n_grp, g), dtype=torch.int64, device=dev)
+    best, bi, sweeps = inf, zero, []
+    for k in range(0, n_db, item_tiles):
+        ib, ii, maxd, count = inf, zero, qbt, 0
+        for j in range(k, min(n_db, k + item_tiles)):
+            actual = torch.where(j >= n_db - start, n_db - 1 - j, start + j)
+            run = (lb[rows, actual] <= maxd) | (j == 0)
+            t = tiles[:, actual].transpose(0, 1)  # (n_grp, D, db_tile)
+            ld, li = torch.min(_tile_dist(q_g, t, d_dim), dim=-1)
+            gi = li + actual[:, None] * db_tile
+            better = run[:, None] & ((ld < ib) | ((ld == ib) & (gi < ii)))
+            ib = torch.where(better, ld, ib)
+            ii = torch.where(better, gi, ii)
+            maxd = torch.where(run, torch.minimum(torch.amax(ib, dim=1), qbt),
+                               maxd)
+            count += int(run.sum())
+        better = (ib < best) | ((ib == best) & (ii < bi))
+        best = torch.where(better, ib, best)
+        bi = torch.where(better, ii, bi)
+        sweeps.append(count)
+    best, bi = best.reshape(qp), bi.reshape(qp)
+    pay = dbf_cm[d_dim:, bi].T
+    pay = torch.where(torch.isinf(best)[:, None], torch.zeros_like(pay), pay)
+    return best, bi.to(torch.int32), pay, sweeps
+
+
+def _nn_pruned_args(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor,
+                    bbox: Tensor, qb_tile: Tensor, d_dim: int, q_tile: int,
+                    db_tile: int, item_tiles: int = ITEM_TILES,
+                    q_per_thread: int = QUERIES_PER_THREAD):
+    """Check the CUDA inputs of kernel 6 and allocate its outputs and
+    scratch.  Returns (the launcher's arguments, (dist, idx, pay), the
+    scratch, which the caller holds until the launch is enqueued)."""
+    qp = query_p.shape[0]
+    m_pad = dbf_cm.shape[1]
+    f_dim = dbf_cm.shape[0] - d_dim
+    _check("nn_pruned", query_p, (("query", query_p, torch.float32),
+                                  ("dbf_cm", dbf_cm, torch.float32),
+                                  ("qbox", qbox, torch.float32),
+                                  ("bbox", bbox, torch.float32),
+                                  ("qb_tile", qb_tile, torch.float32)),
+           d_dim, f_dim, PRUNED_INSTANCES)
+    if dbf_cm.data_ptr() % 16 or item_tiles < 1:
+        raise ValueError("nn_pruned: dbf_cm must be 16-byte aligned and "
+                         "work items hold at least one tile")
+    threads, q = _block_shape(q_tile, q_per_thread)
+    n_grp = qp // (threads * q)
+    n_items = -(-(m_pad // db_tile) // item_tiles)
+    dev = query_p.device
+    tickets = _TICKETS.get(dev)
+    if tickets is None or tickets.shape[0] < n_grp:
+        tickets = _TICKETS[dev] = torch.zeros(max(n_grp, 1024),
+                                              dtype=torch.int32, device=dev)
+    part = torch.empty(qp * n_items * 2, dtype=torch.float32, device=dev)
+    dist = torch.empty((qp,), dtype=torch.float32, device=dev)
+    idx = torch.empty((qp,), dtype=torch.int32, device=dev)
+    pay = torch.empty((qp, f_dim), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (query_p.data_ptr(), dbf_cm.data_ptr(), qbox.data_ptr(),
+            bbox.data_ptr(), qb_tile.data_ptr(), dist.data_ptr(),
+            idx.data_ptr(), pay.data_ptr() if f_dim else None,
+            part.data_ptr(), tickets.data_ptr(), qp, q_tile, db_tile, d_dim,
+            f_dim, m_pad, item_tiles, threads, q, stream)
+    return args, (dist, idx, pay), part
 
 
 def _check(name: str, query_p: Tensor, tables, d_dim: int, f_dim: int,
@@ -288,26 +419,12 @@ def nn_pruned(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor, bbox: Tensor,
     if query_p.device.type == "cpu":
         return nn_pruned_plain(query_p, dbf_cm, qbox, bbox, qb_tile, d_dim,
                                q_tile, db_tile)
-    f_dim = dbf_cm.shape[0] - d_dim
-    _check("nn_pruned", query_p, (("query", query_p, torch.float32),
-                                  ("dbf_cm", dbf_cm, torch.float32),
-                                  ("qbox", qbox, torch.float32),
-                                  ("bbox", bbox, torch.float32),
-                                  ("qb_tile", qb_tile, torch.float32)),
-           d_dim, f_dim, PRUNED_INSTANCES)
-    dev = query_p.device
-    dist = torch.empty((qp,), dtype=torch.float32, device=dev)
-    idx = torch.empty((qp,), dtype=torch.int32, device=dev)
-    pay = torch.empty((qp, f_dim), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    status = cuda_build.launcher("nn_pruned")(
-        query_p.data_ptr(), dbf_cm.data_ptr(), qbox.data_ptr(),
-        bbox.data_ptr(), qb_tile.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-        pay.data_ptr() if f_dim else None, qp, q_tile, db_tile, d_dim, f_dim,
-        m_pad, stream)
+    args, out, _part = _nn_pruned_args(query_p, dbf_cm, qbox, bbox, qb_tile,
+                                       d_dim, q_tile, db_tile)
+    status = cuda_build.launcher("nn_pruned")(*args)
     cuda_build.LAUNCHES["nn_pruned"] += 1
     cuda_build.check(status, "nn_pruned")
-    return dist, idx, pay
+    return out
 
 
 def prepare_pruned(query: Tensor, db: Tensor, db_mask=None, payload=None,

@@ -467,6 +467,55 @@ def test_p2l_kernels_refuse_float64(dev):
                                torch.zeros(3, device=dev), 1.345)
 
 
+@pytest.mark.parametrize("n", [0, 5, 6, 999, 1000, 3072, 28800, 140000])
+def test_p2l_loop_cluster_medians_bitwise_and_counts(dev, n):
+    """The cluster kernel at no valid point, 5 (too few: identity), 6, an
+    odd and an even count, SLAM small's 3,072 points, the p2l path's
+    28,800 and slices too large to stage (140,000): rot and t within
+    SOLVER_TOL of the plain loop with equal iterations; the first
+    iteration's median and MAD bitwise equal to the exact masked median
+    (torch.kthvalue), its sigma bitwise equal to p2l_stats' at the
+    identity (the one-block median code of p2l.cuh)."""
+    import chip_smoke
+
+    size = max(n, 256)
+    src, dst, nrm, mask = _p2l_problem(dev, n=size, seed=size)
+    mask = torch.arange(size, device=dev) < n
+    args = (src, dst, nrm, mask, 1.345, 1e-6, 200, 1.0)
+    out = align3d_cuda.p2l_loop_out(*args)
+    rot, t, it = align3d_cuda.p2l_loop(*args)
+    rot_p, t_p, it_p = align3d_cuda.p2l_loop_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:13], torch.cat([rot.reshape(9), t, it[None]]))
+    assert int(it) == int(it_p)
+    torch.testing.assert_close(rot, rot_p, atol=SOLVER_TOL, rtol=0)
+    torch.testing.assert_close(t, t_p, atol=SOLVER_TOL, rtol=0)
+    if n < 6:
+        assert int(it) == 1 and torch.equal(rot, torch.eye(3, device=dev))
+    if n == 0:
+        assert not bool(out[13:16].any())
+        return
+    assert chip_smoke.p2l_first_stats(src, dst, nrm, mask, 1.345)
+
+
+def test_p2l_loop_reads_strided_views_and_a_bool_mask(dev):
+    """src, dst and normals as columns of one (N, 9) tensor and a strided
+    bool mask give bitwise the output of contiguous inputs and a float
+    mask."""
+    src, dst, nrm, mask = _p2l_problem(dev, n=28800, seed=9)
+    wide = torch.cat([src, dst, nrm], dim=1)
+    views = (wide[:, 0:3], wide[:, 3:6], wide[:, 6:9])
+    strided = torch.zeros(2 * mask.shape[0], dtype=torch.bool, device=dev)
+    strided[::2] = mask
+    assert not any(v.is_contiguous() for v in views)
+    got = align3d_cuda.p2l_loop_out(*views, strided[::2], 1.345, 1e-6, 200,
+                                    1.0)
+    want = align3d_cuda.p2l_loop_out(src, dst, nrm, mask.float(), 1.345,
+                                     1e-6, 200, 1.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def _sweep_cloud(dev, b=None, q=700, m=1500, d=3, seed=5, sort=False):
     """Queries near a partly masked db (optionally Morton-sorted), with a
     4-row payload; a leading batch axis of ``b``."""
@@ -560,6 +609,53 @@ def test_nn_pruned_kernel_bitwise_equal_to_plain(dev, f_dim, seeds, sort):
     _brute_equal(got[1][:1200], nn_cuda._trim_sentinel(got[0][:1200]),
                  got[2][:1200] if f_dim else None, query, db, mask,
                  pay[:, :f_dim])
+
+
+@pytest.mark.parametrize("case", ["shorter", "T", "T+1", "all", "ties",
+                                  "all-masked"])
+def test_nn_pruned_kernel_at_item_boundaries(dev, case):
+    """Kernel 6's work items of T = ITEM_TILES tiles: an order shorter than
+    an item, exactly one item, one item and one tile, six tiles, exact
+    ties whose copies lie in different items, and a fully masked db.
+    Bitwise equal to the plain version, to the schedule's emulation and
+    to brute force; two launches bitwise equal (the items merge
+    lexicographically, whatever order the blocks finish in)."""
+    from icp_rust_tpu_torch.ops import nn_sweep_cuda
+
+    t = nn_sweep_cuda.ITEM_TILES
+    n_db, f_dim = {"shorter": (max(t - 1, 1), 0), "T": (t, 3),
+                   "T+1": (t + 1, 4), "all": (6, 0), "ties": (6, 3),
+                   "all-masked": (6, 4)}[case]
+    m = n_db * 256
+    query, db, mask, pay = _sweep_cloud(dev, q=min(600, m), m=m, seed=8)
+    if case == "ties":  # copies 3 tiles apart
+        db = torch.cat([db[:768], db[:768]])
+        mask = torch.ones(1536, dtype=torch.bool, device=dev)
+        query = db[:768][torch.randperm(768, device=dev)]
+        pay = db
+    elif case == "all-masked":
+        mask = torch.zeros_like(mask)
+    pay = pay[:, :f_dim]
+    args = nn_sweep_cuda.prepare_pruned(query, db, mask,
+                                        pay if f_dim else None, 256,
+                                        256) + (3, 256, 256)
+    before = cuda_build.LAUNCHES["nn_pruned"]
+    got = nn_sweep_cuda.nn_pruned(*args)
+    again = nn_sweep_cuda.nn_pruned(*args)
+    assert cuda_build.LAUNCHES["nn_pruned"] == before + 2
+    want = nn_sweep_cuda.nn_pruned_plain(*args)
+    emul = nn_sweep_cuda.pruned_items(*args)
+    torch.cuda.synchronize()
+    for a, b, c, e in zip(got, want, again, emul):
+        assert torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, e)
+    q = query.shape[0]
+    _brute_equal(got[1][:q], nn_cuda._trim_sentinel(got[0][:q]),
+                 got[2][:q] if f_dim else None, query, db, mask, pay)
+    if case == "ties":
+        assert bool((got[1][:q] < 768).all())
+    if case == "all-masked":
+        assert bool(torch.isinf(got[0]).all()) and not bool(got[1].any())
+        assert not bool(got[2].any())
 
 
 def test_nn_sweep_kernels_ties_and_all_masked_db(dev):

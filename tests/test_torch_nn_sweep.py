@@ -122,6 +122,61 @@ def test_pruned_plain_matches_nn_pruned_2d(d, f_dim, q_tile, seeds):
     assert 0 < walked < (len(qp) // sw.SUB) * (dbf.shape[1] // db_tile)
 
 
+@pytest.mark.parametrize("case,d,f_dim,q_tile,item", [
+    ("sorted", 3, 4, 256, 3), ("unsorted", 2, 2, 512, 1),
+    ("ties", 3, 0, 256, 2), ("tight", 3, 0, 128, 4)])
+def test_pruned_items_merge_bitwise(case, d, f_dim, q_tile, item):
+    """Kernel 6's schedule (``pruned_items``): each query group's zig-zag
+    order cut into work items of ``item`` tiles, each item with its own
+    carry and threshold, the items merged lexicographically, the payload
+    read at the winner.  Bitwise equal to the plain version (one walk of
+    the whole order) and to a brute-force sweep, and to _nn_pruned_2d in
+    interpret mode (distances within D - 1 ulp): Morton-sorted tiles that
+    prune, unsorted ones, exact ties whose copies lie in different items,
+    and tight seeds.  Every item is swept from its first position only
+    where the prune test lets it, position 0 always."""
+    db_tile = 256
+    query, db, dm, pay = _cloud(80 + d, 1024, 2048, d,
+                                sort=case in ("sorted", "tight"))
+    if case == "ties":  # every point twice, 4 tiles apart
+        db = np.concatenate([db[:1024], db[:1024]])
+        dm = np.ones(2048, bool)
+        query = db[np.random.default_rng(5).permutation(1024)]
+    qp, dbf = _packed(query, db, dm, pay[:, :f_dim], q_tile, db_tile)
+    qb = np.full(len(qp), np.inf, np.float32)
+    if case == "tight":
+        true = j_nn.nn_xla(jnp.asarray(qp), jnp.asarray(db),
+                           jnp.asarray(dm)).dist_sq
+        qb = np.array(true) * np.float32(1 + 32 * F32_EPS)
+    want = j_pallas._nn_pruned_2d(jnp.asarray(qp), jnp.asarray(dbf),
+                                  jnp.asarray(qb), d_dim=d, q_tile=q_tile,
+                                  db_tile=db_tile, interpret=True)
+    q_t, dbf_t = _t(qp), _t(dbf)
+    args = (q_t, dbf_t, sw._query_boxes(q_t, q_tile),
+            nn_cuda._tile_boxes(dbf_t[:d], db_tile),
+            sw._qb_tile(_t(qb), q_tile), d, q_tile, db_tile)
+    *got, sweeps = sw.pruned_items(*args, item_tiles=item)
+    for a, b in zip(got, sw.nn_pruned_plain(*args)):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(got[1].numpy(), np.array(want[1]))
+    _close(got[0].numpy(), want[0], d)
+    if f_dim:
+        np.testing.assert_array_equal(got[2].numpy(), np.array(want[2]))
+    brute = nn.nn_torch(_t(query), _t(db), _t(dm))
+    assert torch.equal(got[1][:len(query)], brute.index)
+    assert torch.equal(nn_cuda._trim_sentinel(got[0][:len(query)]),
+                       brute.dist_sq)
+    if case == "ties":
+        assert bool((got[1] < 1024).all())
+    threads, q = sw._block_shape(q_tile, sw.QUERIES_PER_THREAD)
+    n_groups, n_db = len(qp) // (threads * q), 2048 // db_tile
+    assert len(sweeps) == -(-n_db // item)
+    assert sweeps[0] >= n_groups
+    assert all(s <= n_groups * item for s in sweeps)
+    if case in ("sorted", "tight"):
+        assert sum(sweeps) < n_groups * n_db  # the items do prune
+
+
 @pytest.mark.parametrize("d", [2, 3])
 @pytest.mark.parametrize("m", [900, 1500])
 def test_nearest_neighbor_matches_nn_pallas_and_nn_xla(d, m):
