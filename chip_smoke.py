@@ -47,8 +47,13 @@ frames, each subsampled to a seeded count in 411-670 points, padded to
    ties, and 4 pairs at the 4096-point db limit.  Indices, distances and
    payload must be bitwise equal, and equal to a brute-force sweep.
 7. irls_loop_batched vs its plain version on the 209 pairs' first-iteration
-   correspondences, plus an all-masked pair and a one-point pair: rot and
-   t within IRLS_TOL per pair; prints the iteration counts.
+   correspondences, plus an all-masked pair and a one-point pair, and on
+   every call of phase 17's ``run_slam2d`` over 12 full xy frames
+   (captured; 11 pairs of 28,160 points): rot and t within IRLS_TOL per
+   pair with equal iteration counts, the degenerate pairs at the identity
+   after 1 iteration.  Timed by its launcher alone on the wrapper's route,
+   on one block a pair and at clusters of 1, 2, 4, 8 and 16 blocks a pair,
+   and by its wrapper; prints the clusters the card holds at once.
 8. icp2d_frame_pairs vs its plain version on the 209 unsorted pairs: rot
    and t within FRAME_TOL per pair, equal outer iteration counts.
 9. The batched path: ``parallel.sharded.batched_icp2d`` with
@@ -103,7 +108,10 @@ The full-sequence SLAM paths:
     payload).  nn_pruned timed at full width by its launcher alone at
     work items of 1, 2 and 4 tiles and 2, 4 and 8 queries a thread (each
     bitwise equal), beside its instruction floor (the time its counted
-    instructions take at the card's float32 instruction rate).
+    instructions take at the card's float32 instruction rate); nn_matched
+    bitwise equal to its schedule's emulation too, and timed likewise at
+    work items of 1 chunk to the whole db and 2, 4 and 8 queries a
+    thread.
 15. ``run_slam3d`` over the 96 frames with its defaults (loop radius 1 m,
     gap 8, at most 16 candidates, voxel normals at 0.3 m), twice (the
     second run timed): frames/s, candidates, closures (gate >= 1), graph
@@ -146,18 +154,26 @@ The last two kernels and the scan-to-submap path:
 20. ``run_submap_odometry`` on the JAX package's tests/test_submap.py
     wall world (8 frames of 400 points, voxel 0.03 m, capacity 4096),
     fused and re-voxelize: max error < SUBMAP_2D_GATE_M; nn_matched and
-    irls_loop launch.
+    irls_loop launch.  Then nn_matched on the inputs of the fused run's
+    last call (captured): bitwise equal to its plain version and its
+    schedule's emulation, timed as in phase 14.
 
 The launch counts of each path are zeroed just before it and read just
 after.  Prints one ``{"kernels": [...]}`` line, one entry per kernel (the
 fourteen): the contract's keys for its first timed shape and path
-(``ms`` by the launcher alone for kernels 1, 2, 6, 11, 12 and 13,
+(``ms`` by the launcher alone for kernels 1, 2, 4, 6, 7, 11, 12 and 13,
 beside ``wrapper_ms``), its launches on every path driven
 (``launches_by_path``) and the other shapes it was timed at
 (``other_shapes``); then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Bounds:
 the larger of (bytes read once + written once) / 3.35 TB/s and counted
 operations / 67 TFLOP/s (H100 SXM float32 without tensor cores).
+
+    python3 chip_smoke.py --times
+
+builds the kernels and only times kernels 4 and 7 by their launchers
+alone at every shape their paths give them (``kernel_times``): one JSON
+line, to compare two trees in one run on one card.
 
     python3 chip_smoke.py --profile
 
@@ -932,9 +948,9 @@ def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
     return records
 
 
-def phase_irls_batched(device="cuda", n_scans: int = BATCH_SCANS,
-                       pad: int = BATCH_PAD):
-    """Kernel 7 vs its plain version on the pairs' first-iteration
+def _irls_batched_inputs(device, n_scans: int = BATCH_SCANS,
+                         pad: int = BATCH_PAD):
+    """Kernel 7's arguments on the batched pairs' first-iteration
     correspondences, plus an all-masked and a one-point pair."""
     cfg = _config()
     src, smask, dst, dmask = _batch(device, n_scans, pad, sort=True)
@@ -945,42 +961,141 @@ def phase_irls_batched(device="cuda", n_scans: int = BATCH_SCANS,
     s = torch.cat([src, src[:2]])
     mt = torch.cat([matched, matched[:2]])
     mk = torch.cat([smask, extra])
-    args = (s, mt, mk, cfg.huber_k, cfg.det_rel_eps, cfg.inner_delta_sq_tol,
+    return (s, mt, mk, cfg.huber_k, cfg.det_rel_eps, cfg.inner_delta_sq_tol,
             cfg.inner_max_iter, cfg.point_scale)
+
+
+def _irls_batched_check(name, args, device, degenerate: int = 0):
+    """Kernel 7 at one call's inputs against its plain version: rot and t
+    within IRLS_TOL and equal iterations for every pair; the last
+    ``degenerate`` pairs at the identity after 1 iteration.  Returns (max
+    |diff|, the kernel's iterations per pair)."""
+    s = args[0]
     rot, t, its = align2d_cuda.irls_loop_batched(*args)
     rot_p, t_p, its_p = align2d_cuda.irls_loop_batched_plain(*args)
     err = max(float(torch.max(torch.abs(rot - rot_p))),
               float(torch.max(torch.abs(t - t_p))))
     its_k = its.to(torch.int64).cpu()
     its_pl = its_p.to(torch.int64).cpu()
-    print(f"# irls_loop_batched: {s.shape[0]} pairs of {s.shape[1]} points; "
-          f"iterations per pair kernel min {int(its_k.min())} median "
+    differ = int((its_k != its_pl).sum())
+    print(f"# irls_loop_batched {name}: {s.shape[0]} pairs of {s.shape[1]} "
+          f"points; iterations per pair kernel min {int(its_k.min())} median "
           f"{float(its_k.double().median()):.1f} max {int(its_k.max())}, "
           f"sum {int(its_k.sum())}; pairs whose count differs from the "
-          f"plain version's {int((its_k != its_pl).sum())}; degenerate "
-          f"pairs {its_k[-2:].tolist()}; max |diff| rot/t {err:.3e} "
-          f"(tol {IRLS_TOL})")
-    if not err <= IRLS_TOL:
-        raise RuntimeError(f"irls_loop_batched differs from its plain "
-                           f"version: {err}")
-    eye = torch.eye(2, device=rot.device)
-    if not (torch.equal(rot[-2:], torch.stack([eye, eye]))
-            and bool(torch.all(t[-2:] == 0))
-            and its_k[-2:].tolist() == [1, 1]):
-        raise RuntimeError("irls_loop_batched: a degenerate pair moved")
-    ms = time_ms(lambda: align2d_cuda.irls_loop_batched(*args), device,
-                 reps=20)
+          f"plain version's {differ}; max |diff| rot/t {err:.3e} (tol "
+          f"{IRLS_TOL})")
+    if not (err <= IRLS_TOL and differ == 0):
+        raise RuntimeError(f"irls_loop_batched {name} differs from its "
+                           f"plain version: {err}, {differ} iteration "
+                           "counts")
+    if degenerate:
+        eye = torch.eye(2, device=rot.device).expand(degenerate, 2, 2)
+        if not (torch.equal(rot[-degenerate:], eye)
+                and bool(torch.all(t[-degenerate:] == 0))
+                and its_k[-degenerate:].tolist() == [1] * degenerate):
+            raise RuntimeError(f"irls_loop_batched {name}: a degenerate "
+                               f"pair moved ({its_k[-degenerate:].tolist()})")
+    return err, its_k
+
+
+def _irls_batched_times(name, args, device):
+    """Kernel 7 by its launcher alone on the wrapper's route and on every
+    route the card can place: one block a pair (0) and clusters of 1, 2,
+    4, 8 and 16 blocks a pair, each within IRLS_TOL of the wrapper's
+    result (its iterations printed where they differ): (ms on the
+    wrapper's route, {route: ms}, the wrapper's route)."""
+    if torch.device(device).type != "cuda":
+        return None, {}, None
+    largs, out, keep = align2d_cuda._irls_loop_batched_args(*args)
+    chosen, threads = largs[-3], largs[-2]
+    ms = launcher_ms("irls_loop_batched", largs, device)
+    _sync(device)
+    ref = out.clone()
+    del keep
+    n = args[0].shape[1]
+    by_c = {}
+    routes = [c for c in align2d_cuda.BATCHED_CLUSTERS[::-1]
+              if align2d_cuda._resident(n, c) >= 1]
+    if n <= align2d_cuda._BLOCK_ROUTE_MAX_POINTS:
+        routes.insert(0, 0)
+    for c in routes:
+        largs, o, keep = align2d_cuda._irls_loop_batched_args(*args,
+                                                             cluster=c)
+        by_c[c] = launcher_ms("irls_loop_batched", largs, device)
+        _sync(device)
+        d = float(torch.max(torch.abs(o[:, :6] - ref[:, :6])))
+        moved = int((o[:, 6] != ref[:, 6]).sum())
+        del keep
+        if not d <= IRLS_TOL:
+            raise RuntimeError(f"irls_loop_batched {name}: route {c} "
+                               f"moves the result by {d}")
+        if moved:
+            print(f"# irls_loop_batched {name}: route {c} changes "
+                  f"{moved} pairs' iteration counts")
+    resident = {c: align2d_cuda._resident(n, c)
+                for c in align2d_cuda.BATCHED_CLUSTERS}
+    print(f"# irls_loop_batched {name}: launcher alone {ms} ms on route "
+          f"{chosen} (blocks a pair's cluster; 0: one block a pair) of "
+          f"{threads} threads (by route: {by_c}; clusters resident at once "
+          f"{resident})")
+    return ms, by_c, chosen
+
+
+def _irls_batched_record(path, args, its_k, err, device, **extra):
+    s, mk = args[0], args[2]
+    ms, by_c, chosen = _irls_batched_times(path, args, device)
+    wrapper_ms = time_ms(lambda: align2d_cuda.irls_loop_batched(*args),
+                         device, reps=20)
     plain_ms = time_ms(lambda: align2d_cuda.irls_loop_batched_plain(*args),
                        device, reps=2)
     ops = float((its_k.double() * mk.sum(dim=1).double().cpu()).sum()) \
         * IRLS_OPS_PER_POINT
-    b, by = bound_ms(5 * s.shape[0] * s.shape[1] * 4 + s.shape[0] * 8 * 4,
-                     ops)
-    return dict(name="irls_loop_batched", route="cuda", path="batched",
+    b, by = bound_ms(s.shape[0] * s.shape[1] * (4 * 4 + 1)
+                     + s.shape[0] * 12 * 4, ops)
+    return dict(name="irls_loop_batched", route="cuda", path=path,
                 source="icp_rust_tpu_torch/csrc/irls_loop_batched.cu",
                 replaces="icp_rust_tpu/ops/align2d_pallas.py:1127",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=None)
+                max_abs_err=err, ms=wrapper_ms if ms is None else ms,
+                plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
+                extra=dict(wrapper_ms=wrapper_ms, route=chosen,
+                           route_ms=by_c, **extra))
+
+
+def phase_irls_batched(device="cuda", n_scans: int = BATCH_SCANS,
+                       pad: int = BATCH_PAD):
+    """Kernel 7 vs its plain version on the pairs' first-iteration
+    correspondences, plus an all-masked and a one-point pair."""
+    args = _irls_batched_inputs(device, n_scans, pad)
+    err, its_k = _irls_batched_check("batched", args, device, degenerate=2)
+    return _irls_batched_record("batched", args, its_k, err, device)
+
+
+def phase_irls_batched_wide(device="cuda", wide_frames: int = 12,
+                            wide_stride: int = 1):
+    """Kernel 7 on every call of run_slam2d on the xy of ``wide_frames``
+    full frames (phase 17's wide scans), captured: each against its plain
+    version as phase 7; the first call (every consecutive pair, cold)
+    timed as phase 7, and every call by its launcher alone."""
+    calls = _slam2d_wide_irls_calls(device, wide_frames, wide_stride)
+    errs, per_call = [], []
+    for k, args in enumerate(calls):
+        err, its_k = _irls_batched_check(f"slam2d-wide call {k}", args,
+                                         device)
+        errs.append(err)
+        if torch.device(device).type == "cuda":
+            largs, _, keep = align2d_cuda._irls_loop_batched_args(*args)
+            per_call.append(launcher_ms("irls_loop_batched", largs, device,
+                                        reps=10))
+            del keep
+        if k == 0:
+            first_its = its_k
+    total = sum(per_call) if per_call else None
+    print(f"# irls_loop_batched slam2d-wide: {len(calls)} calls, launcher "
+          f"alone {per_call} ms, sum {total} ms")
+    return _irls_batched_record("slam2d-wide", calls[0], first_its,
+                                max(errs), device, calls=len(calls),
+                                calls_ms=per_call, calls_sum_ms=total,
+                                iterations=first_its.tolist())
 
 
 def phase_frame_pairs(device="cuda", n_scans: int = BATCH_SCANS,
@@ -1511,6 +1626,19 @@ def _frames_as_run(frames, device):
             torch.as_tensor(mask, device=device))
 
 
+def _sweep_packed(query, db, dmask, payload, q_tile: int, db_tile: int):
+    """Kernels 4 and 5's inputs as ``nn_sweep_cuda.search`` packs them:
+    (query_p (..., Qp, D), dbf_cm (..., D + F, m_pad), D)."""
+    n, d_dim = query.shape[-2:]
+    q_pad = -(-n // q_tile) * q_tile
+    query_p = torch.zeros((*query.shape[:-2], q_pad, d_dim),
+                          dtype=torch.float32, device=query.device)
+    query_p[..., :n, :] = query
+    m_pad = -(-db.shape[-2] // db_tile) * db_tile
+    pay = db[..., :0] if payload is None else payload
+    return query_p, nn_cuda._dbf_cm_matched(db, dmask, pay, m_pad), d_dim
+
+
 def _sweep_check(kind, name, query, db, dmask, payload, device,
                  q_tile: int, db_tile: int):
     """One kernel 4/5/6 check: the kernel vs its plain version (bitwise
@@ -1526,13 +1654,8 @@ def _sweep_check(kind, name, query, db, dmask, payload, device,
                                                         db_tile)
         fn, plain = nn_sweep_cuda.nn_pruned, nn_sweep_cuda.nn_pruned_plain
     else:
-        q_pad = -(-n // q_tile) * q_tile
-        query_p = torch.zeros((*query.shape[:-2], q_pad, d_dim),
-                              dtype=torch.float32, device=device)
-        query_p[..., :n, :] = query
-        m_pad = -(-db.shape[-2] // db_tile) * db_tile
-        pay = db[..., :0] if payload is None else payload
-        dbf_cm = nn_cuda._dbf_cm_matched(db, dmask, pay, m_pad)
+        query_p, dbf_cm, _ = _sweep_packed(query, db, dmask, payload, q_tile,
+                                           db_tile)
         if kind == "nn_sweep":
             args = (query_p, dbf_cm)
             fn, plain = nn_sweep_cuda.nn_sweep, nn_sweep_cuda.nn_sweep_plain
@@ -1564,6 +1687,8 @@ def _sweep_check(kind, name, query, db, dmask, payload, device,
         if bool(fin.any()) else 0.0
     sweeps = None
     tiles = ""
+    if kind == "nn_matched":
+        tiles = _matched_emulation(got, args, what)
     if kind == "nn_pruned":
         # The kernel's schedule emulated: its result bitwise, its sweeps
         # per work item.
@@ -1591,6 +1716,51 @@ def _sweep_check(kind, name, query, db, dmask, payload, device,
 _SWEEP_SOURCES = {"nn_sweep": 55, "nn_matched": 177, "nn_pruned": 385}
 
 
+def _matched_emulation(got, args, what: str) -> str:
+    """Kernel 4's result against its schedule's emulation at the
+    wrapper's work items, bitwise; returns the schedule for the case's
+    line."""
+    query_p, dbf_cm, d_dim = args
+    b = query_p.shape[0] if query_p.ndim == 3 else 1
+    item = nn_sweep_cuda.matched_item_chunks(b, query_p.shape[-2],
+                                             dbf_cm.shape[-1])
+    *emul, n_items = nn_sweep_cuda.matched_items(*args, item)
+    _equal_or_raise(got, emul, f"{what} (the items' emulation)")
+    return (f"; {n_items} work items of {item} chunks a query group, "
+            "bitwise equal to the items' emulation")
+
+
+def _matched_schedules(args, out, device):
+    """Kernel 4 by its launcher alone at the wrapper's work items and at
+    items of 1 to all chunks with 2 and 4 queries a thread, then at 8
+    queries a thread (the wrapper's items), each bitwise equal to the
+    wrapper's result: ({"T=..,Q=..": ms}, the wrapper's key)."""
+    res = {}
+    if torch.device(device).type != "cuda":
+        return res, None
+    query_p, dbf_cm = args[0], args[1]
+    b = query_p.shape[0] if query_p.ndim == 3 else 1
+    n_ch = dbf_cm.shape[-1] // 128
+    q0 = nn_sweep_cuda.MATCHED_Q
+    item0 = nn_sweep_cuda.matched_item_chunks(b, query_p.shape[-2],
+                                              dbf_cm.shape[-1])
+    items = sorted({1, 2, 4, 8, 16, 32, 64, -(-n_ch // 2), n_ch})
+    shapes = [(item0, q0)] + [(t, q) for q in (2, 4) for t in items
+                              if t <= n_ch and (t, q) != (item0, q0)]
+    shapes.append((item0, 8))
+    for t, q in shapes:
+        largs, got, keep = nn_sweep_cuda._nn_matched_args(
+            *args, item_chunks=t, q_per_thread=q)
+        res[f"T={t},Q={q}"] = launcher_ms("nn_matched", largs, device,
+                                          reps=20)
+        _sync(device)
+        if not all(torch.equal(a, c) for a, c in zip(got, out)):
+            raise RuntimeError(f"nn_matched: items of {t} chunks and {q} "
+                               "queries a thread change the result")
+        del keep
+    return res, f"T={item0},Q={q0}"
+
+
 def _pruned_schedules(case, device):
     """Kernel 6 by its launcher alone at work items of 1, 2 and 4 tiles (4
     queries a thread) and at 2 and 8 queries a thread (items of 2 tiles),
@@ -1615,8 +1785,10 @@ def _sweep_record(case, path: str, device, max_abs_err: float):
     """Kernel 4, 5 or 6's timing, plain timing and bound at one case's
     shapes.  Operations: every (query, valid db point) pair of the plain
     sweeps; for kernel 6 the pairs of the (group, db tile) sweeps it
-    makes on these inputs, whose instruction floor it also gives:
-    NN_INSTR_PER_PAIR instructions a pair at PEAK_F32_INSTR_PER_S."""
+    makes on these inputs.  Kernels 4 and 6 are timed by their launchers
+    alone at their schedules, beside their instruction floors:
+    NN_INSTR_PER_PAIR instructions a pair swept (kernel 4: every padded
+    query against every db point) at PEAK_F32_INSTR_PER_S."""
     kind, args = case["kind"], case["args"]
     query_p, dbf_cm = args[0], args[1]
     d_dim = query_p.shape[-1]
@@ -1642,6 +1814,19 @@ def _sweep_record(case, path: str, device, max_abs_err: float):
         print(f"# nn_pruned {path}: launcher alone {ms} ms (items of T "
               f"tiles, Q queries a thread: {schedules}), wrapper "
               f"{wrapper_ms:.4f} ms; instruction floor {floor:.4f} ms")
+    elif kind == "nn_matched":
+        pairs = float(case["n"]) * case["valid"]
+        tables = 0
+        schedules, key = _matched_schedules(args, case["out"], device)
+        ms = schedules.get(key, ms)
+        swept = float(b * qp * dbf_cm.shape[-1])
+        floor = swept * NN_INSTR_PER_PAIR[d_dim] / PEAK_F32_INSTR_PER_S * 1e3
+        extra = dict(wrapper_ms=wrapper_ms, schedules_ms=schedules,
+                     instruction_floor_ms=floor)
+        print(f"# nn_matched {path}: launcher alone {ms} ms (items of T "
+              f"chunks, Q queries a thread: {schedules}), wrapper "
+              f"{wrapper_ms:.4f} ms; instruction floor {floor:.4f} ms "
+              f"({swept:.4g} pairs swept)")
     else:
         pairs = float(case["n"]) * case["valid"]
         tables = 0
@@ -2268,6 +2453,184 @@ def profile_submap(device="cuda", n_frames: int = 96):
     print(avgs.table(sort_by="self_device_time_total", row_limit=20))
 
 
+def _capture_calls(module, name: str):
+    """Patch ``module.name`` to keep a copy of every call's positional
+    arguments (tensors cloned).  Returns (the list that receives them, a
+    function that undoes the patch)."""
+    real = getattr(module, name)
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(tuple(a.clone() if torch.is_tensor(a) else a
+                           for a in args))
+        return real(*args, **kw)
+
+    setattr(module, name, spy)
+    return calls, lambda: setattr(module, name, real)
+
+
+def matched_inputs(device, stride: int = 1, small: int = 3072,
+                   n_wide: int = 8):
+    """Kernel 4's arguments (query_p, dbf_cm, D) at every shape its paths
+    give it: {path: args}.  SLAM 3D small and SLAM 2D wide as phase 14
+    builds them; submap 2D the last call of the fused wall-world run
+    (phase 20), captured."""
+    frames, _ = io.synthesize_frames3d(max(n_wide + 1, 2), seed=0)
+    frames = [f[::stride] for f in frames]
+    pts, mask = _frames_as_run(frames, device)
+    f_src, _, _ = m_icp._spatial_sort(pts[0, :small], mask[0, :small])
+    f_dst, f_dm, _ = m_icp._spatial_sort(pts[1, :small], mask[1, :small])
+    nrm, nv = estimate_normals_voxel(f_dst, f_dm, P2L_VOXEL_M)
+    out = {"slam3d-small": _sweep_packed(
+        f_src, f_dst, f_dm, m_p2l.build_p2l_payload(f_dst, nrm, nv, f_dm),
+        256, 2048)}
+    xy = pts[:, :, :2]
+    out["slam2d-wide"] = _sweep_packed(xy[:-1], xy[1:], mask[1:], xy[1:],
+                                       256, 2048)
+    out["submap-2d"] = _submap_2d_matched_call(device)
+    return out
+
+
+def _submap_2d_matched_call(device):
+    """Kernel 4's arguments of the last call of the fused wall-world run
+    (phase 20), captured."""
+    walls, _ = walls_sequence()
+    calls, undo = _capture_calls(nn_sweep_cuda, "nn_matched")
+    try:
+        _run_submap(walls, np.ones(walls.shape[:2], bool), _config(), device,
+                    with_metrics=False, fused=True, **SUBMAP_2D_KW)
+    finally:
+        undo()
+    return calls[-1]
+
+
+def phase_matched_submap_2d(device="cuda"):
+    """Kernel 4 on the last call of the fused wall-world run (phase 20),
+    captured: bitwise equal to its plain version and to its schedule's
+    emulation; timed and bounded as in phase 14."""
+    args = _submap_2d_matched_call(device)
+    got = nn_sweep_cuda.nn_matched(*args)
+    want = nn_sweep_cuda.nn_matched_plain(*args)
+    _sync(device)
+    what = "nn_matched submap-2d"
+    _equal_or_raise(got, want, what)
+    items = _matched_emulation(got, args, what)
+    query_p, dbf_cm, d_dim = args
+    n = int(torch.any(query_p != 0, dim=-1).sum())
+    valid = float((dbf_cm[..., 0, :] < nn_cuda._SENTINEL / 2).sum())
+    print(f"# {what}: bitwise equal to its plain version; {n} of "
+          f"{query_p.shape[-2]} query rows x {dbf_cm.shape[-1]} db rows "
+          f"({int(valid)} valid){items}")
+    case = dict(kind="nn_matched", fn=nn_sweep_cuda.nn_matched,
+                plain=nn_sweep_cuda.nn_matched_plain, args=args, n=n,
+                valid=valid, out=got)
+    return _sweep_record(case, "submap-2d", device, 0.0)
+
+
+def _slam2d_wide_irls_calls(device, wide_frames: int = 12,
+                            wide_stride: int = 1):
+    """Kernel 7's arguments of every call of run_slam2d on the xy of
+    ``wide_frames`` full frames (phase 17's wide scans), captured."""
+    frames, _ = io.synthesize_frames3d(wide_frames, seed=4)
+    wide = [f[::wide_stride, :2] for f in frames]
+    calls, undo = _capture_calls(align2d_cuda, "irls_loop_batched")
+    try:
+        _run_slam(run_slam2d, wide, _config(), device, loop_radius=1.0,
+                  min_gap=8)
+    finally:
+        undo()
+    return calls
+
+
+def irls_batched_inputs(device, n_scans: int = BATCH_SCANS,
+                        pad: int = BATCH_PAD, wide_frames: int = 12,
+                        wide_stride: int = 1):
+    """Kernel 7's arguments at every shape its paths give it: {path: list
+    of calls}.  The batched path's as phase 7 builds them; SLAM 2D wide
+    every call of phase 17's wide run, captured."""
+    return {"batched": [_irls_batched_inputs(device, n_scans, pad)],
+            "slam2d-wide": _slam2d_wide_irls_calls(device, wide_frames,
+                                                   wide_stride)}
+
+
+def _synthetic_irls_pairs(device, b: int, n: int, seed: int = 11):
+    """Kernel 7's arguments for B synthetic pairs of n points: each pair
+    its own small rotation and noise (so their iteration counts differ),
+    ~20 % of the points masked."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-3, 3, (b, n, 2)).astype(np.float32)
+    th = rng.uniform(-0.2, 0.2, b)
+    rot = np.stack([np.stack([np.cos(th), -np.sin(th)], -1),
+                    np.stack([np.sin(th), np.cos(th)], -1)], -2)
+    dst = (src @ rot.transpose(0, 2, 1) + 0.1 + rng.uniform(
+        0.001, 0.05, (b, 1, 1)) * rng.normal(size=(b, n, 2))).astype(
+        np.float32)
+    cfg = _config()
+    return (torch.as_tensor(src, device=device),
+            torch.as_tensor(dst, device=device),
+            torch.as_tensor(rng.random((b, n)) > 0.2, device=device),
+            cfg.huber_k, cfg.det_rel_eps, cfg.inner_delta_sq_tol,
+            cfg.inner_max_iter, cfg.point_scale)
+
+
+def kernel_times(device="cuda", reps: int = 20):
+    """Kernels 4 and 7 by their launchers alone at every shape their paths
+    give them (``matched_inputs``, ``irls_batched_inputs``; kernel 7 on
+    every captured SLAM 2D wide call) and kernel 7 on 64 synthetic pairs
+    of 768-6,144 points, each call held against its plain version
+    (kernel 4 bitwise; kernel 7 max |diff| of rot/t and the pairs whose
+    iteration count differs).  With the schedule sweeps of phases 7 and
+    14 where the tree has them; and kernel 2's phase-2 records, for its
+    ``max_abs_err``."""
+    sweeps = hasattr(align2d_cuda, "batched_cluster")
+    times = {"nn_matched": {}, "irls_loop_batched": {},
+             "irls_loop_max_abs_err": [r["max_abs_err"]
+                                       for r in phase_irls(device)]}
+    for path, args in matched_inputs(device).items():
+        largs, out, keep = nn_sweep_cuda._nn_matched_args(*args)
+        ms = launcher_ms("nn_matched", largs, device, reps=reps)
+        _sync(device)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(out, nn_sweep_cuda.nn_matched_plain(*args)))
+        schedules = _matched_schedules(args, out, device)[0] if sweeps \
+            else {}
+        del keep
+        times["nn_matched"][path] = dict(ms=ms, bitwise=same)
+        print(f"# times nn_matched {path}: {tuple(args[0].shape)} queries, "
+              f"{tuple(args[1].shape)} db, launcher alone {ms} ms, bitwise "
+              f"equal to plain {same} (schedules {schedules})")
+    calls = irls_batched_inputs(device)
+    for n in (768, 1536, 3072, 6144):
+        calls[f"synthetic-64x{n}"] = [_synthetic_irls_pairs(device, 64, n)]
+    for path, path_calls in calls.items():
+        per_call = []
+        for k, args in enumerate(path_calls):
+            largs, out, keep = align2d_cuda._irls_loop_batched_args(*args)
+            ms = launcher_ms("irls_loop_batched", largs, device, reps=reps)
+            _sync(device)
+            rot_p, t_p, its_p = align2d_cuda.irls_loop_batched_plain(*args)
+            err = max(float(torch.max(torch.abs(out[:, :4] - rot_p.reshape(
+                -1, 4)))), float(torch.max(torch.abs(out[:, 4:6] - t_p))))
+            its = out[:, 6].to(torch.int64)
+            differ = int((its.cpu() != its_p.to(torch.int64).cpu()).sum())
+            its = its.tolist()
+            del keep
+            if sweeps and k == 0:
+                _irls_batched_times(f"{path} call 0", args, device)
+            per_call.append(dict(ms=ms, pairs=args[0].shape[0],
+                                 n=args[0].shape[1], iterations=its,
+                                 max_abs_err=err, counts_differ=differ))
+            print(f"# times irls_loop_batched {path} call {k}: "
+                  f"{args[0].shape[0]} pairs x {args[0].shape[1]} points, "
+                  f"launcher alone {ms} ms; vs plain max |diff| {err:.3e}, "
+                  f"{differ} iteration counts differ; iterations per pair "
+                  f"{its if len(its) <= 16 else (min(its), max(its))}")
+        times["irls_loop_batched"][path] = dict(
+            first_ms=per_call[0]["ms"],
+            sum_ms=sum(c["ms"] for c in per_call), calls=per_call)
+    return times
+
+
 def _kernel_instance(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled name, e.g.
     nn_pruned_kernelILi3ELi4EE (D = 3, Q = 4)."""
@@ -2312,18 +2675,28 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"# card: {smi}")
+    if "--times" in sys.argv[1:]:
+        print(json.dumps({"kernel_times": kernel_times(device),
+                          "card": smi}))
+        return 0
     print(f"# nn_list: work items of {nn_cuda.ITEM_CHUNKS} chunks; "
           f"irls_loop: a thread-block cluster of {align2d_cuda.IRLS_CLUSTER}"
           f" blocks; p2l_loop: a cluster of 16 blocks above "
           f"{align3d_cuda.P2L_CLUSTER_16_ABOVE} points, else 8; nn_pruned: "
           f"work items of {nn_sweep_cuda.ITEM_TILES} "
-          f"tiles, {nn_sweep_cuda.QUERIES_PER_THREAD} queries a thread")
+          f"tiles, {nn_sweep_cuda.QUERIES_PER_THREAD} queries a thread; "
+          f"nn_matched: {nn_sweep_cuda.MATCHED_Q} queries a thread, work "
+          f"items for >= {nn_sweep_cuda.MATCHED_BLOCKS} blocks; "
+          f"irls_loop_batched: clusters of up to 16 blocks a pair, >= "
+          f"{align2d_cuda.BATCHED_MIN_POINTS} points a block, all pairs "
+          f"resident")
     records = [phase_nn_list(device), *phase_irls(device),
                phase_frame(device)]
     main_run = phase_main(device)
     run_2d = phase_2d(device)
     records += phase_nn_pairs(device)
-    records += [phase_irls_batched(device), phase_frame_pairs(device)]
+    records += [phase_irls_batched(device), phase_irls_batched_wide(device),
+                phase_frame_pairs(device)]
     batched = phase_batched(device)
     records += [phase_nn_list_p2l(device), phase_p2l_loop(device),
                 phase_p2l_stats(device)]
@@ -2336,6 +2709,7 @@ def main() -> int:
     sub = phase_submap(device)
     records.append(sub["nn_list"])
     sub_2d = phase_submap_2d(device)
+    records.append(phase_matched_submap_2d(device))
     if profile_run:
         profile_main(device)
         profile_batched(device)
@@ -2351,6 +2725,8 @@ def main() -> int:
         ("nn_pairs_list", "batched"): batched["launches"]["nn_pairs_list"],
         ("irls_loop_batched", "batched"):
             batched["launches"]["irls_loop_batched"],
+        ("irls_loop_batched", "slam2d-wide"):
+            slam2["wide_launches"]["irls_loop_batched"],
         ("icp2d_frame_pairs", "batched"):
             batched["frame_launches"]["icp2d_frame_pairs"],
         ("nn_list", "p2l"): p2l["launches"]["nn_list"],
@@ -2361,6 +2737,7 @@ def main() -> int:
             slam3_small["launches"]["nn_matched"],
         ("nn_sweep", "slam2d-wide"): slam2["wide_launches"]["nn_sweep"],
         ("nn_matched", "slam2d-wide"): slam2["wide_launches"]["nn_matched"],
+        ("nn_matched", "submap-2d"): sub_2d["fused"]["launches"]["nn_matched"],
     }
     runs = {"main": main_run["launches"], "2d": run_2d["launches"],
             "batched": batched["launches"],

@@ -465,4 +465,45 @@ __device__ void irls_loop_cluster(const Slice& S, const IrlsParams& P,
   cluster.sync();
 }
 
+// A cluster's whole loop over one pair of n_pts points: block r stages
+// its slice (src/dst (n, 2) with element strides s0/s1 and d0/d1, the
+// bool mask with stride m0) into `stage`, the block's dynamic shared
+// memory (kStagedPointBytes a point), or, when not `staged`, reads it in
+// place with the residuals in scratch (2 n_pts floats); then runs
+// irls_loop_cluster.  Shared by irls_loop.cu (one pair) and
+// irls_loop_batched.cu (a cluster per pair, pointers offset by pair).
+__device__ __forceinline__ void irls_cluster_pair(
+    const float* __restrict__ src, long long s0, long long s1,
+    const float* __restrict__ dst, long long d0, long long d1,
+    const unsigned char* __restrict__ mask, long long m0, int n_pts,
+    int staged, float* scratch, const IrlsParams& P, float* stage,
+    ClusterShared& sh, float* out) {
+  const int n_blocks = (int)cg::this_cluster().num_blocks();
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int per = (n_pts + n_blocks - 1) / n_blocks;
+  const int lo = min(n_pts, rank * per);
+  const int n_loc = min(n_pts, lo + per) - lo;
+  Slice S;
+  if (staged) {
+    float* f = stage;
+    unsigned char* m = reinterpret_cast<unsigned char*>(stage + 6 * per);
+    for (int i = threadIdx.x; i < n_loc; i += blockDim.x) {
+      const long long k = lo + i;
+      f[i] = src[k * s0];
+      f[per + i] = src[k * s0 + s1];
+      f[2 * per + i] = dst[k * d0];
+      f[3 * per + i] = dst[k * d0 + d1];
+      m[i] = mask[k * m0];
+    }
+    __syncthreads();
+    S = Slice{f, f + per, f + 2 * per, f + 3 * per, 1, 1, m, 1,
+              f + 4 * per, f + 5 * per, n_loc};
+  } else {
+    S = Slice{src + lo * s0, src + lo * s0 + s1, dst + lo * d0,
+              dst + lo * d0 + d1, s0, d0, mask + lo * m0, m0,
+              scratch + lo, scratch + n_pts + lo, n_loc};
+  }
+  irls_loop_cluster(S, P, sh, out);
+}
+
 }  // namespace icp

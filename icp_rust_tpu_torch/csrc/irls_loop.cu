@@ -38,32 +38,8 @@ irls_cluster_kernel(const float* __restrict__ src, long long s0,
                     float* out) {
   extern __shared__ __align__(16) float stage[];
   __shared__ icp::ClusterShared sh;
-  const int n_blocks = (int)cooperative_groups::this_cluster().num_blocks();
-  const int rank = (int)cooperative_groups::this_cluster().block_rank();
-  const int per = (n_pts + n_blocks - 1) / n_blocks;
-  const int lo = min(n_pts, rank * per);
-  const int n_loc = min(n_pts, lo + per) - lo;
-  icp::Slice S;
-  if (staged) {
-    float* f = stage;
-    unsigned char* m = reinterpret_cast<unsigned char*>(stage + 6 * per);
-    for (int i = threadIdx.x; i < n_loc; i += blockDim.x) {
-      const long long k = lo + i;
-      f[i] = src[k * s0];
-      f[per + i] = src[k * s0 + s1];
-      f[2 * per + i] = dst[k * d0];
-      f[3 * per + i] = dst[k * d0 + d1];
-      m[i] = mask[k * m0];
-    }
-    __syncthreads();
-    S = icp::Slice{f, f + per, f + 2 * per, f + 3 * per, 1, 1, m, 1,
-                   f + 4 * per, f + 5 * per, n_loc};
-  } else {
-    S = icp::Slice{src + lo * s0, src + lo * s0 + s1, dst + lo * d0,
-                   dst + lo * d0 + d1, s0, d0, mask + lo * m0, m0,
-                   scratch + lo, scratch + n_pts + lo, n_loc};
-  }
-  icp::irls_loop_cluster(S, P, sh, out);
+  icp::irls_cluster_pair(src, s0, s1, dst, d0, d1, mask, m0, n_pts, staged,
+                         scratch, P, stage, sh, out);
 }
 
 }  // namespace

@@ -7,8 +7,8 @@
 // of run_slam3d on frames of at most 4096 points, and of run_slam2d's
 // batched pairs on scans of more than 4096.
 //
-// The block routine is nn_sweep.cuh's (PRUNED = false, F = 0): one thread
-// per query, the db staged 128 points at a time, a strict '<'.
+// The block routine is nn_sweep.cuh's: one thread per query, the db
+// staged 128 points at a time, a strict '<'.
 //
 // What bounds it on this card: operations.  Every (query, db point) pair
 // costs 3D - 1 float operations and a compare (8 in 2D, 11 in 3D), and the
@@ -24,12 +24,8 @@ extern "C" int nn_sweep_launch(const float* query, const float* db_cm,
                                int d_dim, int m_pad, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d_dim == 2)
-    return icp_sweep::launch<2, 0, false>(query, db_cm, nullptr, nullptr,
-                                          nullptr, dist, idx, nullptr, b, qp,
-                                          m_pad, 0, 0, s);
+    return icp_sweep::launch<2>(query, db_cm, dist, idx, b, qp, m_pad, s);
   if (d_dim == 3)
-    return icp_sweep::launch<3, 0, false>(query, db_cm, nullptr, nullptr,
-                                          nullptr, dist, idx, nullptr, b, qp,
-                                          m_pad, 0, 0, s);
+    return icp_sweep::launch<3>(query, db_cm, dist, idx, b, qp, m_pad, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,8 @@ versions:
   launch on a thread-block cluster of ``IRLS_CLUSTER`` blocks
   (align2d_pallas ``_inner_loop_kernel``; ``csrc/irls_cluster.cuh``);
 - ``csrc/irls_loop_batched.cu``: the same loop for B pairs in one launch,
-  one block per pair (``_inner_loop_batched_kernel``);
+  a cluster per pair, or one block a pair for small pairs
+  (``batched_cluster``; ``_inner_loop_batched_kernel``);
 - ``csrc/icp2d_frame.cu``: a whole 2D ICP call in one launch
   (``_icp2d_frame_kernel``);
 - ``csrc/icp2d_frame_pairs.cu``: B whole 2D ICP calls in one launch, one
@@ -18,8 +19,9 @@ versions:
 
 All six run the device routines of ``csrc/irls.cuh`` (the two stats
 kernels its ``gn_stats_block``, one iteration's statistics of the loop;
-irls_loop its helpers, spread over a cluster), and the two frame kernels
-the block body of ``csrc/frame.cuh``, so they share one op sequence.
+irls_loop and irls_loop_batched its helpers, spread over a cluster by
+``csrc/irls_cluster.cuh``), and the two frame kernels the block body of
+``csrc/frame.cuh``, so they share one op sequence.
 
 Plain versions: the inner loops' is ``align2d.irls_loop_torch`` (the
 ``align_backend="torch"`` loop, batched over pairs); the frames' is the
@@ -52,6 +54,18 @@ FRAME_MAX_POINTS = 1536
 # on an H100, PERF.md).  Which points each block sums follows from it, so
 # it is a constant, not a knob.
 IRLS_CLUSTER = 16
+# irls_loop_batched: pairs of at most BATCHED_BLOCK_MAX_POINTS points take
+# one block each on irls.cuh's loop; larger pairs a cluster each, whose
+# blocks take at least BATCHED_MIN_POINTS points, of the cluster sizes
+# tried largest first; measured on an H100 (PERF.md).  Like IRLS_CLUSTER
+# they set which points each block sums, not the result.
+BATCHED_BLOCK_MAX_POINTS = 4096
+BATCHED_MIN_POINTS = 1024
+BATCHED_CLUSTERS = (16, 8, 4, 2, 1)
+# The one-block route stages 7 floats a point in at most 200 KB.
+_BLOCK_ROUTE_MAX_POINTS = 200 * 1024 // 28
+# (n, cluster, threads) -> clusters the card holds at once.
+_RESIDENT: dict = {}
 
 
 def _solver_params(huber_k: float, det_rel_eps: float, tol_d2: float,
@@ -152,33 +166,104 @@ def irls_loop_batched(src: Tensor, dst: Tensor, mask: Tensor,
                       max_iter: int, point_scale: float):
     """The fixed-correspondence IRLS loop from identity for B pairs at
     once, each pair stopping on its own.  src/dst (B, N, 2) in solver
-    units, mask (B, N).  Returns (rot (B, 2, 2), t (B, 2), iterations per
-    pair (B,)): int32 from the plain version, float from the kernel."""
+    units, mask (B, N) bool.  Returns (rot (B, 2, 2), t (B, 2),
+    iterations per pair (B,)): int32 from the plain version, float from
+    the kernel."""
     if src.device.type == "cpu":
         return irls_loop_batched_plain(src, dst, mask, huber_k, det_rel_eps,
                                        tol_d2, max_iter, point_scale)
     if src.device.type != "cuda":
         raise ValueError(f"irls_loop_batched: unsupported device {src.device}")
+    args, out, _scratch = _irls_loop_batched_args(
+        src, dst, mask, huber_k, det_rel_eps, tol_d2, max_iter, point_scale)
+    status = cuda_build.launcher("irls_loop_batched")(*args)
+    cuda_build.LAUNCHES["irls_loop_batched"] += 1
+    if status == -1:
+        raise RuntimeError(
+            f"irls_loop_batched: no thread-block cluster of {args[-3]} "
+            "blocks can be placed on this card")
+    cuda_build.check(status, "irls_loop_batched")
+    b = src.shape[0]
+    return out[:, :4].reshape(b, 2, 2), out[:, 4:6], out[:, 6]
+
+
+def batched_threads(per: int, most: int = 512) -> int:
+    """irls_loop_batched's block for ``per`` points: about three points a
+    thread, a multiple of 32 in [64, most] (512 in a cluster, 1024 on the
+    one-block route)."""
+    warps = -(-per // 96)
+    return min(most, max(64, 32 * warps))
+
+
+def batched_cluster(b: int, n: int, resident) -> int:
+    """irls_loop_batched's route for B pairs of N points: 0, one block a
+    pair on irls.cuh's loop, up to BATCHED_BLOCK_MAX_POINTS points; else
+    blocks a pair's cluster, the largest of BATCHED_CLUSTERS that leaves a
+    block at least BATCHED_MIN_POINTS points and of which the card holds
+    all B clusters at once (``resident(cluster)``: clusters it holds), 1
+    when none does."""
+    if n <= BATCHED_BLOCK_MAX_POINTS:
+        return 0
+    for c in BATCHED_CLUSTERS[:-1]:
+        if n >= c * BATCHED_MIN_POINTS and resident(c) >= b:
+            return c
+    return 1
+
+
+def _threads_of(n: int, cluster: int) -> int:
+    if cluster == 0:
+        return batched_threads(n, 1024)
+    return batched_threads(-(-n // cluster))
+
+
+def _resident(n: int, cluster: int) -> int:
+    """Clusters of irls_loop_batched the card holds at once, for pairs of
+    n points (cached per shape)."""
+    threads = _threads_of(n, cluster)
+    key = (n, cluster, threads)
+    got = _RESIDENT.get(key)
+    if got is None:
+        got = _RESIDENT[key] = cuda_build.query(
+            "irls_loop_batched_resident")(n, cluster, threads)
+    return got
+
+
+def _irls_loop_batched_args(src: Tensor, dst: Tensor, mask: Tensor,
+                            huber_k: float, det_rel_eps: float,
+                            tol_d2: float, max_iter: int,
+                            point_scale: float, cluster=None):
+    """Check the CUDA inputs of the irls_loop_batched kernel and allocate
+    its output and scratch.  The kernel reads src/dst (B, N, 2) float32
+    and the bool mask (B, N) in place, with their strides.  ``cluster``:
+    blocks per pair, 0 for the one-block route, by default
+    ``batched_cluster``.  Returns (the launcher's arguments, out (B, 12),
+    the scratch): a row holds r00 r01 r10 r11 tx ty iterations 0, then
+    (cluster route) the first iteration's median x, median y, sigma x,
+    sigma y."""
     _check_cuda_f32("irls_loop_batched", src, dst)
     b, n = src.shape[:2]
     if (src.shape != (b, n, 2) or dst.shape != (b, n, 2)
-            or mask.shape != (b, n) or n == 0):
+            or mask.shape != (b, n) or n == 0 or b == 0):
         raise ValueError(
             "irls_loop_batched: src/dst must be (B, N, 2), mask (B, N)")
-    cols = [src[..., 0].contiguous(), src[..., 1].contiguous(),
-            dst[..., 0].contiguous(), dst[..., 1].contiguous(),
-            mask.to(device=src.device, dtype=torch.float32).contiguous()]
-    scratch = torch.empty(2 * b * n, dtype=torch.float32, device=src.device)
-    out = torch.empty((b, 8), dtype=torch.float32, device=src.device)
+    if mask.dtype != torch.bool or mask.device != src.device:
+        raise TypeError(f"irls_loop_batched: mask must be bool on "
+                        f"{src.device}")
+    if cluster is None:
+        cluster = batched_cluster(b, n, lambda c: _resident(n, c))
+    if cluster == 0 and n > _BLOCK_ROUTE_MAX_POINTS:
+        raise ValueError(f"irls_loop_batched: the one-block route takes at "
+                         f"most {_BLOCK_ROUTE_MAX_POINTS} points a pair")
+    buf = torch.empty(b * 12 + 2 * b * n, dtype=torch.float32,
+                      device=src.device)
     stream = torch.cuda.current_stream(src.device).cuda_stream
-    status = cuda_build.launcher("irls_loop_batched")(
-        *[c.data_ptr() for c in cols], b, n, scratch.data_ptr(),
-        out.data_ptr(),
-        *_solver_params(huber_k, det_rel_eps, tol_d2, max_iter, point_scale),
-        stream)
-    cuda_build.LAUNCHES["irls_loop_batched"] += 1
-    cuda_build.check(status, "irls_loop_batched")
-    return out[:, :4].reshape(b, 2, 2), out[:, 4:6], out[:, 6]
+    args = (src.data_ptr(), *src.stride(), dst.data_ptr(), *dst.stride(),
+            mask.data_ptr(), *mask.stride(), b, n, buf[b * 12:].data_ptr(),
+            buf.data_ptr(),
+            *_solver_params(huber_k, det_rel_eps, tol_d2, max_iter,
+                            point_scale), cluster,
+            _threads_of(n, cluster), stream)
+    return args, buf[:b * 12].view(b, 12), buf
 
 
 def icp2d_frame_plain(src: Tensor, dst: Tensor, src_mask: Tensor,

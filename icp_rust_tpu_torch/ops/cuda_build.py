@@ -69,10 +69,12 @@ _SIGNATURES = {
     # query, dbf_cm, lists, cnt, dist, idx, pay; b, qp, q_sub, d_dim,
     # f_dim, m_pad, cap; stream
     "nn_pairs_list": ("nn_pairs_list_launch", [_P] * 7 + [_I] * 7 + [_P]),
-    # sx, sy, dx, dy, mask; b, n; scratch, out; solver params; stream
+    # src, its three strides, dst likewise, mask, its two strides; b, n;
+    # scratch, out; solver params; cluster, threads; stream
     "irls_loop_batched": ("irls_loop_batched_launch",
-                          [_P] * 5 + [_I] * 2 + [_P] * 2 + [_F] * 5 + [_I]
-                          + [_F] * 2 + [_P]),
+                          [_P, _L, _L, _L] * 2 + [_P, _L, _L] + [_I] * 2
+                          + [_P] * 2 + [_F] * 5 + [_I] + [_F] * 2
+                          + [_I, _I, _P]),
     # src, smask, dst; b, n, m; t0, out; solver params; outer_iters, stream
     "icp2d_frame_pairs": ("icp2d_frame_pairs_launch",
                           [_P] * 3 + [_I] * 3 + [_P] * 2 + [_F] * 5 + [_I]
@@ -89,8 +91,9 @@ _SIGNATURES = {
                   [_P] * 10 + [_I] + [_P] * 3 + [_F] * 3 + [_P]),
     # query, db_cm, dist, idx; b, qp, d_dim, m_pad; stream
     "nn_sweep": ("nn_sweep_launch", [_P] * 4 + [_I] * 4 + [_P]),
-    # query, dbf_cm, dist, idx, pay; b, qp, d_dim, f_dim, m_pad; stream
-    "nn_matched": ("nn_matched_launch", [_P] * 5 + [_I] * 5 + [_P]),
+    # query, dbf_cm, dist, idx, pay, part, ticket; b, qp, d_dim, f_dim,
+    # m_pad, item, q_per_thread; stream
+    "nn_matched": ("nn_matched_launch", [_P] * 7 + [_I] * 7 + [_P]),
     # query, dbf_cm, qbox, bbox, qb_tile, dist, idx, pay, part, ticket;
     # qp, q_tile, db_tile, d_dim, f_dim, m_pad, item, threads,
     # q_per_thread; stream
@@ -102,6 +105,12 @@ _SIGNATURES = {
     # stream
     "gn_stats_batched": ("gn_stats_batched_launch",
                          [_P] * 5 + [_I] * 2 + [_P] * 3 + [_F] * 3 + [_P]),
+}
+
+# Other C entry points: entry -> (library, argument types).
+_QUERIES = {
+    # n, cluster, threads -> clusters resident at once
+    "irls_loop_batched_resident": ("irls_loop_batched", [_I] * 3),
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}
@@ -170,16 +179,26 @@ def build(names=None) -> dict:
 def launcher(name: str):
     """The C entry point of one kernel's library, built and loaded at
     first use, with its argument and return types declared."""
-    fn = _launchers.get(name)
+    return _bind(name, *_SIGNATURES[name])
+
+
+def query(entry: str):
+    """Another C entry point of a kernel's library (``_QUERIES``), bound
+    as ``launcher`` binds the launch entry."""
+    name, argtypes = _QUERIES[entry]
+    return _bind(name, entry, argtypes)
+
+
+def _bind(name: str, entry: str, argtypes):
+    fn = _launchers.get(entry)
     if fn is None:
         path = _lib_path(name)
         if not path.exists():
             build([name])
-        entry, argtypes = _SIGNATURES[name]
         fn = getattr(ctypes.CDLL(str(path)), entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _launchers[name] = fn
+        _launchers[entry] = fn
     return fn
 
 

@@ -12,13 +12,20 @@ tiles or more, and ``nn_pallas_matched`` unseeded or with a wide payload).
 ``search`` is the routing of those two functions minus the seeded
 survivor-list branch, which ``ops/nn.py`` takes first.
 
-Kernels 4 and 5 take queries ``SUB`` at a time, one block per group and
-one thread per query, and stage the coordinate-major db
-(``_dbf_cm_matched``: D sentinel-filled coordinate rows, then F payload
-rows) through shared memory 128 points at a time; they sweep every point
-in ascending order with a strict '<' on a scalar (distance, index,
-payload) carry: the lowest index wins ties.  A leading batch axis is one
-more grid axis.
+Both sweeps read the coordinate-major db of ``_dbf_cm_matched`` (D
+sentinel-filled coordinate rows, then F payload rows).  Kernel 5 takes
+queries ``SUB`` at a time, one block per group and one thread per query,
+and stages the db through shared memory 128 points at a time; it sweeps
+every point in ascending order with a strict '<' on a scalar (distance,
+index) carry: the lowest index wins ties.  Kernel 4 splits the sweep over
+blocks: a block holds ``MATCHED_Q`` queries a thread (groups of
+``MATCHED_THREADS`` x Q queries) and sweeps one work item, a contiguous
+ascending range of 128-point db chunks, with a strict '<'; the items,
+``matched_item_chunks`` chunks each (sized from the shapes alone), are
+merged lexicographically on (distance, index) by the group's last block
+(a ticket per (pair, group) in ``_TICKETS``), which reads the winner's
+payload from the packed db.  ``matched_items`` emulates that schedule on
+tensors.  A leading batch axis is one more grid axis of both.
 
 Kernel 6 visits the db tiles of its query tile ``i`` diagonal first:
 tiles s..n-1 ascending, then s-1..0 descending, s = i q_tile // db_tile.
@@ -42,9 +49,9 @@ With no valid db point a query gets (+inf, 0, 0): sentinel distances
 overflow to +inf in float32 and never win a strict compare.  ``search``
 trims distances at or above sentinel²/4 to +inf, which makes float64 (a
 CPU-only type here) follow the same contract.  Distances are summed
-((0 + dx²) + dy²) + dz² with every rounding explicit (kernels built with
---fmad=false), the plain versions' order, so kernel and plain version
-agree bitwise.
+(dx² + dy²) + dz² with every rounding explicit (kernels built with
+--fmad=false; kernel 5's leading 0 + dx² is dx² for every square), the
+plain versions' order, so kernel and plain version agree bitwise.
 """
 
 from __future__ import annotations
@@ -64,7 +71,15 @@ _STAGE = 128
 ITEM_TILES = 2
 QUERIES_PER_THREAD = 4
 _PRUNED_Q = (2, 4, 8)
-# Per-device tickets of kernel 6's query groups, zero between launches.
+# Kernel 4: threads a block, queries a thread, and the blocks a launch
+# aims for (at least, where the db has the chunks), which sizes its work
+# items; measured on an H100 (PERF.md).  Like kernel 6's they set which
+# block sweeps what, never the result.
+MATCHED_THREADS = 128
+MATCHED_Q = 2
+MATCHED_BLOCKS = 8192
+# Per-device tickets of kernels 4 and 6's query groups, zero between
+# launches (the kernels run in stream order, each resets its own).
 _TICKETS: dict = {}
 # (D, payload width) of the kernel instances, what the callers pass: the
 # unmatched sweeps; the matched xy of icp2d (2D) and icp3d_planar (3D), the
@@ -140,6 +155,47 @@ def nn_sweep_plain(query_p: Tensor, db_cm: Tensor, tile: int = 1024):
     ``nn_matched_plain`` with no payload rows."""
     dist, idx, _ = nn_matched_plain(query_p, db_cm, db_cm.shape[-2], tile)
     return dist, idx
+
+
+def matched_item_chunks(b: int, qp: int, m_pad: int,
+                        q_per_thread: int = MATCHED_Q) -> int:
+    """Kernel 4's work item in 128-point db chunks for B pairs of qp
+    queries against m_pad db points: the fewest work items that give at
+    least MATCHED_BLOCKS blocks (one, the whole db, where the query groups
+    alone do), and at least one chunk an item."""
+    n_groups = -(-qp // (MATCHED_THREADS * q_per_thread))
+    n_ch = m_pad // _STAGE
+    n_items = min(n_ch, max(1, -(-MATCHED_BLOCKS // (b * n_groups))))
+    return -(-n_ch // n_items)
+
+
+def matched_items(query_p: Tensor, dbf_cm: Tensor, d_dim: int,
+                  item_chunks: int):
+    """Kernel 4's schedule on tensors: the db cut into work items of
+    ``item_chunks`` 128-point chunks, each swept ascending (the first
+    minimum of the item), the items merged lexicographically on
+    (distance, index), the payload read at the winner.  query_p (...,
+    Qp, D), dbf_cm (..., D + F, m_pad).  Returns (dist, idx int32, pay,
+    number of items)."""
+    *batch, qp, _ = query_p.shape
+    dev, dt = query_p.device, query_p.dtype
+    m_pad = dbf_cm.shape[-1]
+    step = item_chunks * _STAGE
+    best = torch.full((*batch, qp), float("inf"), dtype=dt, device=dev)
+    bi = torch.zeros((*batch, qp), dtype=torch.int64, device=dev)
+    for s in range(0, m_pad, step):
+        ld, li = torch.min(_tile_dist(query_p, dbf_cm[..., s:s + step],
+                                      d_dim), dim=-1)
+        # An item with no valid point keeps the kernel's (+inf, 0).
+        li = torch.where(torch.isinf(ld), -s, li) + s
+        better = (ld < best) | ((ld == best) & (li < bi))
+        best = torch.where(better, ld, best)
+        bi = torch.where(better, li, bi)
+    pay = torch.take_along_dim(dbf_cm[..., d_dim:, :], bi[..., None, :],
+                               dim=-1).transpose(-1, -2)
+    pay = torch.where(torch.isinf(best)[..., None], torch.zeros_like(pay),
+                      pay)
+    return best, bi.to(torch.int32), pay, -(-m_pad // step)
 
 
 def _box_lb(qbox_rows: Tensor, bbox: Tensor, d_dim: int) -> Tensor:
@@ -306,10 +362,7 @@ def _nn_pruned_args(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor,
     n_grp = qp // (threads * q)
     n_items = -(-(m_pad // db_tile) // item_tiles)
     dev = query_p.device
-    tickets = _TICKETS.get(dev)
-    if tickets is None or tickets.shape[0] < n_grp:
-        tickets = _TICKETS[dev] = torch.zeros(max(n_grp, 1024),
-                                              dtype=torch.int32, device=dev)
+    tickets = _tickets(dev, n_grp)
     part = torch.empty(qp * n_items * 2, dtype=torch.float32, device=dev)
     dist = torch.empty((qp,), dtype=torch.float32, device=dev)
     idx = torch.empty((qp,), dtype=torch.int32, device=dev)
@@ -321,6 +374,15 @@ def _nn_pruned_args(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor,
             part.data_ptr(), tickets.data_ptr(), qp, q_tile, db_tile, d_dim,
             f_dim, m_pad, item_tiles, threads, q, stream)
     return args, (dist, idx, pay), part
+
+
+def _tickets(dev, n: int) -> Tensor:
+    """At least n zeroed ticket ints on ``dev``, kept between launches."""
+    tickets = _TICKETS.get(dev)
+    if tickets is None or tickets.shape[0] < n:
+        tickets = _TICKETS[dev] = torch.zeros(max(n, 1024),
+                                              dtype=torch.int32, device=dev)
+    return tickets
 
 
 def _check(name: str, query_p: Tensor, tables, d_dim: int, f_dim: int,
@@ -381,24 +443,51 @@ def nn_matched(query_p: Tensor, dbf_cm: Tensor, d_dim: int):
     pay (..., Qp, F)) before sentinel trimming."""
     if query_p.device.type == "cpu":
         return nn_matched_plain(query_p, dbf_cm, d_dim)
+    args, out, _keep = _nn_matched_args(query_p, dbf_cm, d_dim)
+    status = cuda_build.launcher("nn_matched")(*args)
+    cuda_build.LAUNCHES["nn_matched"] += 1
+    cuda_build.check(status, "nn_matched")
+    return out
+
+
+def _nn_matched_args(query_p: Tensor, dbf_cm: Tensor, d_dim: int,
+                     item_chunks=None, q_per_thread: int = MATCHED_Q):
+    """Check the CUDA inputs of kernel 4 and allocate its outputs and
+    scratch.  ``item_chunks``: chunks a work item, by default
+    ``matched_item_chunks``.  Returns (the launcher's arguments, (dist,
+    idx, pay) with the batch dims of query_p, the flattened inputs and the
+    scratch, which the caller holds until the launch is enqueued)."""
     f_dim = dbf_cm.shape[-2] - d_dim
     _check("nn_matched", query_p, (("query", query_p, torch.float32),
                                    ("dbf_cm", dbf_cm, torch.float32)),
            d_dim, f_dim, MATCHED_INSTANCES)
+    if q_per_thread not in _PRUNED_Q:
+        raise ValueError(f"nn_matched: queries per thread must be one of "
+                         f"{_PRUNED_Q}, got {q_per_thread}")
     batch, q3, db3 = _batched(query_p, dbf_cm, d_dim)
     b, qp, _ = q3.shape
+    m_pad = db3.shape[2]
+    if item_chunks is None:
+        item_chunks = matched_item_chunks(b, qp, m_pad, q_per_thread)
+    if db3.data_ptr() % 16 or item_chunks < 1:
+        raise ValueError("nn_matched: dbf_cm must be 16-byte aligned and "
+                         "work items hold at least one chunk")
+    g = MATCHED_THREADS * q_per_thread
+    n_groups = -(-qp // g)
+    n_items = -(-(m_pad // _STAGE) // item_chunks)
     dev = q3.device
+    tickets = _tickets(dev, b * n_groups)
+    part = torch.empty(b * n_groups * n_items * 2 * g if n_items > 1 else 1,
+                       dtype=torch.float32, device=dev)
     dist = torch.empty((b, qp), dtype=torch.float32, device=dev)
     idx = torch.empty((b, qp), dtype=torch.int32, device=dev)
     pay = torch.empty((b, qp, f_dim), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    status = cuda_build.launcher("nn_matched")(
-        q3.data_ptr(), db3.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-        pay.data_ptr(), b, qp, d_dim, f_dim, db3.shape[2], stream)
-    cuda_build.LAUNCHES["nn_matched"] += 1
-    cuda_build.check(status, "nn_matched")
-    return (dist.reshape(*batch, qp), idx.reshape(*batch, qp),
-            pay.reshape(*batch, qp, f_dim))
+    args = (q3.data_ptr(), db3.data_ptr(), dist.data_ptr(), idx.data_ptr(),
+            pay.data_ptr(), part.data_ptr(), tickets.data_ptr(), b, qp,
+            d_dim, f_dim, m_pad, item_chunks, q_per_thread, stream)
+    return args, (dist.reshape(*batch, qp), idx.reshape(*batch, qp),
+                  pay.reshape(*batch, qp, f_dim)), (q3, db3, part)
 
 
 def nn_pruned(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor, bbox: Tensor,

@@ -415,6 +415,21 @@ def test_interpret_maps_to_the_jax_path_for_a_batch():
                                atol=FRAME_TOL, rtol=0)
 
 
+def test_batched_cluster_rule():
+    """irls_loop_batched's route: one block a pair (0) up to
+    BATCHED_BLOCK_MAX_POINTS points, else blocks a pair's cluster, the
+    largest of 16, 8, 4, 2 that leaves a block at least BATCHED_MIN_POINTS
+    points and keeps all B clusters resident at once (here on a card that
+    holds 132 blocks, one an SM), 1 when none does."""
+    resident = lambda c: 132 // c  # noqa: E731
+    assert [align2d_cuda.batched_cluster(b, n, resident) for b, n in (
+        (1, 28160), (11, 28160), (211, 768), (40, 28160), (3, 5000),
+        (200, 28160), (1, 4096), (1, 4097))] == [16, 8, 0, 2, 4, 1, 0, 4]
+    assert [align2d_cuda.batched_threads(p) for p in (768, 97, 1760)] == \
+        [256, 64, 512]
+    assert align2d_cuda.batched_threads(2047, 1024) == 704
+
+
 @pytest.fixture
 def chip_smoke():
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -8,7 +8,8 @@ and ``--noconftest`` keeps the JAX test setup out):
 
 Tolerances: nn_list, nn_pairs, nn_pairs_list, nn_sweep, nn_matched and
 nn_pruned are bitwise equal to their plain versions (indices, distances
-and payload) and to a brute-force sweep.  irls_loop's medians and sigmas
+and payload) and to a brute-force sweep, nn_matched and nn_pruned at
+every work-item split.  irls_loop's medians and sigmas
 are bitwise those of the exact median and of gn_stats.  irls_loop,
 irls_loop_batched, icp2d_frame, icp2d_frame_pairs and p2l_loop take
 their sums in another order than the plain versions: rot and t within
@@ -338,6 +339,84 @@ def test_irls_loop_batched_kernel_matches_plain(dev):
     assert torch.equal(rot[3], torch.eye(2, device=dev))
 
 
+def _irls_pairs(dev, b, n, seed=11):
+    """B pairs of n points with their own rotations and noise (so that
+    they stop after different iteration counts), ~20 % masked; the last
+    two pairs all-masked and one-point."""
+    rng = np.random.default_rng(seed)
+    src = torch.as_tensor(rng.uniform(-3, 3, (b, n, 2)), dtype=torch.float32,
+                          device=dev)
+    th = torch.as_tensor(rng.uniform(-0.2, 0.2, b), dtype=torch.float32,
+                         device=dev)
+    rot = torch.stack([torch.stack([torch.cos(th), -torch.sin(th)], -1),
+                       torch.stack([torch.sin(th), torch.cos(th)], -1)], -2)
+    noise = torch.as_tensor(rng.uniform(0.001, 0.05, (b, 1, 1)),
+                            dtype=torch.float32, device=dev)
+    dst = src @ rot.transpose(-1, -2) + 0.1 + noise * torch.as_tensor(
+        rng.normal(size=(b, n, 2)), dtype=torch.float32, device=dev)
+    mask = torch.as_tensor(rng.random((b, n)) > 0.2, device=dev)
+    mask[-2] = False
+    mask[-1] = False
+    mask[-1, n // 2] = True
+    return src, dst, mask
+
+
+@pytest.mark.parametrize("b,n,route", [
+    (70, 768, "one block a pair"), (5, 5000, "small clusters"),
+    (11, 28160, "clusters of 8"), (1, 28160, "clusters of 16"),
+    (3, 140000, "slices in place")])
+def test_irls_loop_batched_routes_match_plain(dev, b, n, route):
+    """Kernel 7 on each route the wrapper picks (batched_cluster), and on
+    one block a pair and every cluster size the card can place: rot and t
+    within 1e-5 of the
+    plain loop with equal iterations per pair, pairs of unequal counts,
+    the all-masked and one-point pairs at the identity after 1
+    iteration.  src and dst are strided views, the mask is bool."""
+    src, dst, mask = _irls_pairs(dev, b + 2, n)
+    both = torch.cat([src, dst], dim=-1)  # read in place, strided
+    args = (both[..., :2], both[..., 2:], mask, 1.345, 1e-9, 1e-6, 200, 1.0)
+    before = cuda_build.LAUNCHES["irls_loop_batched"]
+    rot, t, its = align2d_cuda.irls_loop_batched(*args)
+    assert cuda_build.LAUNCHES["irls_loop_batched"] == before + 1
+    rot_p, t_p, its_p = align2d_cuda.irls_loop_batched_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(its.to(torch.int32), its_p.to(torch.int32))
+    torch.testing.assert_close(rot, rot_p, atol=SOLVER_TOL, rtol=0)
+    torch.testing.assert_close(t, t_p, atol=SOLVER_TOL, rtol=0)
+    assert its[-2] == 1 and its[-1] == 1
+    assert torch.equal(rot[-2:], torch.eye(2, device=dev).expand(2, 2, 2))
+    assert not bool(t[-2:].any())
+    if b > 1:
+        assert len(set(its[:-2].tolist())) > 1
+    routes = [c for c in align2d_cuda.BATCHED_CLUSTERS
+              if align2d_cuda._resident(n, c) >= 1]
+    if n <= align2d_cuda._BLOCK_ROUTE_MAX_POINTS:
+        routes.append(0)
+    for c in routes:
+        largs, out, _scratch = align2d_cuda._irls_loop_batched_args(
+            *args, cluster=c)
+        assert cuda_build.launcher("irls_loop_batched")(*largs) == 0
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out[:, :4].reshape(-1, 2, 2), rot_p,
+                                   atol=SOLVER_TOL, rtol=0)
+        torch.testing.assert_close(out[:, 4:6], t_p, atol=SOLVER_TOL,
+                                   rtol=0)
+
+
+def test_irls_loop_batched_picks_resident_clusters(dev):
+    """The wrapper's cluster size keeps every pair's cluster resident at
+    once, and at least BATCHED_MIN_POINTS points a block; small pairs take
+    one block each."""
+    for b, n in ((211, 768), (11, 28160), (1, 28160), (40, 28160)):
+        c = align2d_cuda.batched_cluster(
+            b, n, lambda k: align2d_cuda._resident(n, k))
+        assert (c == 0) == (n <= align2d_cuda.BATCHED_BLOCK_MAX_POINTS)
+        assert c <= 1 or (align2d_cuda._resident(n, c) >= b
+                          and n >= c * align2d_cuda.BATCHED_MIN_POINTS)
+    assert align2d_cuda.batched_cluster(
+        11, 28160, lambda k: align2d_cuda._resident(28160, k)) >= 4
+
+
 def _pair_batch(dev, b=6, n=600, pad=768):
     pairs = [_pair(dev, n=n, pad=pad, seed=10 + i) for i in range(b)]
     return [torch.stack([p[k] for p in pairs]) for k in range(4)]
@@ -580,6 +659,61 @@ def test_nn_sweep_and_matched_kernels_bitwise_equal_to_plain(dev, d, f_dim,
     _brute_equal(got[1][..., :700], nn_cuda._trim_sentinel(got[0][..., :700]),
                  None if not f_dim else got[2][..., :700, :], query, db, mask,
                  pay)
+
+
+@pytest.mark.parametrize("d,f_dim", [(2, 2), (3, 2), (3, 3), (3, 4)])
+@pytest.mark.parametrize("batched", [False, True])
+def test_nn_matched_kernel_at_item_boundaries(dev, d, f_dim, batched):
+    """Kernel 4's work items: the wrapper's, one item (the whole db), one
+    chunk an item and 3 chunks (the last ragged), at 1, 4 and 8 queries a
+    thread with a ragged last query group.  Bitwise equal to the plain
+    version, to the schedule's emulation and to brute force, two launches
+    bitwise equal; ties every 640 points (on item boundaries), and with a
+    batch axis one pair's db fully masked."""
+    from icp_rust_tpu_torch.ops import nn_sweep_cuda
+
+    rng = np.random.default_rng(20 + d + f_dim)
+    b = 3 if batched else 1
+    base = torch.as_tensor(rng.uniform(-3, 3, (b, 640, d)),
+                           dtype=torch.float32, device=dev)
+    db = torch.cat([base, base, base], dim=1)  # 1920 points, 15 chunks
+    mask = torch.ones(db.shape[:2], dtype=torch.bool, device=dev)
+    if batched:
+        mask[1] = False
+    query = base[:, torch.as_tensor(rng.permutation(640), device=dev)] \
+        + torch.as_tensor(rng.normal(0, 0.01, (b, 640, d)),
+                          dtype=torch.float32, device=dev) \
+        * (torch.arange(640, device=dev)[None, :, None] % 2)
+    pay = torch.as_tensor(rng.normal(size=(b, 1920, f_dim)),
+                          dtype=torch.float32, device=dev)
+    if not batched:
+        query, db, mask, pay = query[0], db[0], mask[0], pay[0]
+    query_p = torch.zeros((*query.shape[:-2], 768, d), device=dev)
+    query_p[..., :640, :] = query
+    dbf = nn_cuda._dbf_cm_matched(db, mask, pay, 2048)
+    before = cuda_build.LAUNCHES["nn_matched"]
+    got = nn_sweep_cuda.nn_matched(query_p, dbf, d)
+    again = nn_sweep_cuda.nn_matched(query_p, dbf, d)
+    assert cuda_build.LAUNCHES["nn_matched"] == before + 2
+    want = nn_sweep_cuda.nn_matched_plain(query_p, dbf, d)
+    torch.cuda.synchronize()
+    for a, w, c in zip(got, want, again):
+        assert torch.equal(a, w) and torch.equal(a, c)
+    for item in (1, 3, 16):
+        emul = nn_sweep_cuda.matched_items(query_p, dbf, d, item)[:3]
+        for q in (2, 4, 8):
+            largs, out, _keep = nn_sweep_cuda._nn_matched_args(
+                query_p, dbf, d, item_chunks=item, q_per_thread=q)
+            assert cuda_build.launcher("nn_matched")(*largs) == 0
+            torch.cuda.synchronize()
+            for a, w, e in zip(out, want, emul):
+                assert torch.equal(a, w) and torch.equal(a, e)
+    _brute_equal(got[1][..., :640], nn_cuda._trim_sentinel(got[0][..., :640]),
+                 got[2][..., :640, :], query, db, mask, pay)
+    assert bool((got[1][..., :640] < 640).all())
+    if batched:
+        assert bool(torch.isinf(got[0][1]).all()) and not bool(got[1][1].any())
+        assert not bool(got[2][1].any())
 
 
 @pytest.mark.parametrize("f_dim", [0, 4])

@@ -177,6 +177,58 @@ def test_pruned_items_merge_bitwise(case, d, f_dim, q_tile, item):
         assert sum(sweeps) < n_groups * n_db  # the items do prune
 
 
+@pytest.mark.parametrize("d,f_dim", [(2, 2), (2, 4), (3, 2), (3, 4)])
+def test_matched_items_merge_bitwise(d, f_dim):
+    """Kernel 4's schedule (``matched_items``): the db cut into work items
+    of 1, 2, 3 and 5 chunks of 128, each swept ascending, the items merged
+    lexicographically, the payload read at the winner.  Bitwise equal to
+    the plain version (one ascending sweep) and to brute force, and to
+    _nn_matched_2d in interpret mode (distances within D - 1 ulp), on a
+    batch of two pairs: one whose db holds every point twice, 320 apart,
+    so that ties straddle item boundaries, and one fully masked."""
+    rng = np.random.default_rng(90 + 4 * d + f_dim)
+    base = rng.uniform(-3, 3, (320, d)).astype(np.float32)
+    db = np.stack([np.concatenate([base, base]),
+                   rng.uniform(-3, 3, (640, d)).astype(np.float32)])
+    dm = np.stack([np.ones(640, bool), np.zeros(640, bool)])
+    query = np.stack([base[rng.permutation(320)[:300]],
+                      rng.uniform(-3, 3, (300, d)).astype(np.float32)])
+    query[0, 150:] += rng.normal(0, 0.05, (150, d)).astype(np.float32)
+    pay = rng.normal(size=(2, 640, f_dim)).astype(np.float32)
+    packed = [_packed(query[k], db[k], dm[k], pay[k], 256, 640)
+              for k in range(2)]
+    qp = _t(np.stack([p[0] for p in packed]))
+    dbf = _t(np.stack([p[1] for p in packed]))
+    plain = sw.nn_matched_plain(qp, dbf, d)
+    for item in (1, 2, 3, 5):
+        *got, n_items = sw.matched_items(qp, dbf, d, item)
+        assert n_items == -(-5 // item)
+        for a, b in zip(got, plain):
+            assert torch.equal(a, b)
+    for k in range(2):
+        want = j_pallas._nn_matched_2d(
+            jnp.asarray(packed[k][0]), jnp.asarray(packed[k][1]), d_dim=d,
+            q_tile=256, db_tile=640, interpret=True)
+        np.testing.assert_array_equal(got[1][k].numpy(), np.array(want[1]))
+        np.testing.assert_array_equal(got[2][k].numpy(), np.array(want[2]))
+        _close(got[0][k].numpy(), want[0], d)
+    brute = nn.nn_torch(_t(query[0]), _t(db[0]))
+    assert torch.equal(got[1][0, :300], brute.index)
+    assert torch.equal(got[0][0, :300], brute.dist_sq)
+    assert bool((got[1][0] < 320).all())
+    assert bool(torch.isinf(got[0][1]).all()) and not bool(got[1][1].any())
+    assert not bool(got[2][1].any())
+    # Kernel 4's work items: the fewest that give MATCHED_BLOCKS blocks,
+    # or one chunk each.
+    for b, qp, m_pad in ((8, 28160, 28672), (1, 3072, 4096), (1, 512, 4096),
+                         (64, 4096, 4096)):
+        t = sw.matched_item_chunks(b, qp, m_pad)
+        blocks = b * -(-qp // (sw.MATCHED_THREADS * sw.MATCHED_Q))
+        n_items = -(-(m_pad // 128) // t)
+        assert t == 1 or blocks * n_items >= sw.MATCHED_BLOCKS
+        assert blocks * (n_items - 1) < sw.MATCHED_BLOCKS
+
+
 @pytest.mark.parametrize("d", [2, 3])
 @pytest.mark.parametrize("m", [900, 1500])
 def test_nearest_neighbor_matches_nn_pallas_and_nn_xla(d, m):
