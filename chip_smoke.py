@@ -27,7 +27,10 @@ non-zero:
    Timed by its launcher alone at clusters of 8 and 16 blocks and by its
    wrapper.
 3. icp2d_frame vs its plain version on a 640-point synthetic 2D pair
-   padded to 768: rot and t within FRAME_TOL.
+   padded to 768 and on 1,536 points: rot and t within FRAME_TOL, equal
+   outer iterations.  Timed by its launcher alone on its cluster and on
+   clusters of 1, 2, 4, 8 and 16 blocks (each bitwise equal), and by its
+   wrapper.
 4. The main path: ``run_odometry_fused`` over 96 synthetic 28,800-point
    frames, run twice (the second run is the timed one); ATE against
    ground truth < 0.05 m, and the plain path on the card over the first 8
@@ -46,6 +49,7 @@ frames, each subsampled to a seeded count in 411-670 points, padded to
    +inf bounds, the warm bounds of one real outer step, a masked db, exact
    ties, and 4 pairs at the 4096-point db limit.  Indices, distances and
    payload must be bitwise equal, and equal to a brute-force sweep.
+   nn_pairs_list timed by its launcher alone and by its wrapper.
 7. irls_loop_batched vs its plain version on the 209 pairs' first-iteration
    correspondences, plus an all-masked pair and a one-point pair, and on
    every call of phase 17's ``run_slam2d`` over 12 full xy frames
@@ -55,7 +59,8 @@ frames, each subsampled to a seeded count in 411-670 points, padded to
    on one block a pair and at clusters of 1, 2, 4, 8 and 16 blocks a pair,
    and by its wrapper; prints the clusters the card holds at once.
 8. icp2d_frame_pairs vs its plain version on the 209 unsorted pairs: rot
-   and t within FRAME_TOL per pair, equal outer iteration counts.
+   and t within FRAME_TOL per pair, equal outer iteration counts; timed
+   by its launcher alone and by its wrapper.
 9. The batched path: ``parallel.sharded.batched_icp2d`` with
    ``frame_backend="auto"`` run twice (the second run is timed): pairs/s,
    per-pair error against the ground-truth relative transforms (gate: max
@@ -109,9 +114,9 @@ The full-sequence SLAM paths:
     work items of 1, 2 and 4 tiles and 2, 4 and 8 queries a thread (each
     bitwise equal), beside its instruction floor (the time its counted
     instructions take at the card's float32 instruction rate); nn_matched
-    bitwise equal to its schedule's emulation too, and timed likewise at
-    work items of 1 chunk to the whole db and 2, 4 and 8 queries a
-    thread.
+    and nn_sweep bitwise equal to their schedule's emulation too, and
+    timed likewise at work items of 1 chunk to the whole db and 2, 4 and
+    8 queries a thread.
 15. ``run_slam3d`` over the 96 frames with its defaults (loop radius 1 m,
     gap 8, at most 16 candidates, voxel normals at 0.3 m), twice (the
     second run timed): frames/s, candidates, closures (gate >= 1), graph
@@ -161,8 +166,8 @@ The last two kernels and the scan-to-submap path:
 The launch counts of each path are zeroed just before it and read just
 after.  Prints one ``{"kernels": [...]}`` line, one entry per kernel (the
 fourteen): the contract's keys for its first timed shape and path
-(``ms`` by the launcher alone for kernels 1, 2, 4, 6, 7, 11, 12 and 13,
-beside ``wrapper_ms``), its launches on every path driven
+(``ms`` by the launcher alone for kernels 1-7, 9-13, beside
+``wrapper_ms``), its launches on every path driven
 (``launches_by_path``) and the other shapes it was timed at
 (``other_shapes``); then the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Bounds:
@@ -171,9 +176,11 @@ operations / 67 TFLOP/s (H100 SXM float32 without tensor cores).
 
     python3 chip_smoke.py --times
 
-builds the kernels and only times kernels 4 and 7 by their launchers
-alone at every shape their paths give them (``kernel_times``): one JSON
-line, to compare two trees in one run on one card.
+builds the kernels and only times kernels 3, 4, 5 and 7 by their
+launchers alone at every shape their paths give them, with kernel 3's
+split of an outer iteration into its sweep, IRLS loop and tail
+(``kernel_times``, ``frame_split``): one JSON line, to compare two trees
+in one run on one card.
 
     python3 chip_smoke.py --profile
 
@@ -191,6 +198,7 @@ tiny size with the kernels' plain versions.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 import re
@@ -316,14 +324,15 @@ def time_ms(fn, device, reps: int, warmup: int = 1) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def launcher_ms(name: str, args, device, reps: int = 50):
+def launcher_ms(name: str, args, device, reps: int = 50, fn=None):
     """Mean time of a kernel's launcher alone on prepared arguments: CUDA
     events over ``reps`` launches with no wrapper work between them (events
     over back-to-back wrapper calls time the slower of host and device).
-    None on the CPU, where there is no kernel."""
+    ``fn``: another C entry point of the kernel's library.  None on the
+    CPU, where there is no kernel."""
     if torch.device(device).type != "cuda":
         return None
-    fn = cuda_build.launcher(name)
+    fn = fn or cuda_build.launcher(name)
 
     def call():
         status = fn(*args)
@@ -640,42 +649,60 @@ def pair2d(device, n: int = 640, pad: int = 768, seed: int = 1):
     return out
 
 
-def phase_frame(device="cuda", n: int = 640, pad: int = 768):
-    """Kernel 3 vs its plain version on a synthetic 2D pair."""
+def phase_frame(device="cuda", n: int = 640, pad: int = 768,
+                n_max: int = align2d_cuda.FRAME_MAX_POINTS):
+    """Kernel 3 vs its plain version on ``frame_inputs``' pairs (``n``
+    points padded to ``pad``, and ``n_max`` points), equal outer
+    iterations; timed by its launcher alone on its cluster and on every
+    cluster size, and by its wrapper: one record per pair."""
     cfg = _config()
-    sp, sm, dp, dm = pair2d(device, n, pad)
     t0 = RigidTransform2.identity(dtype=torch.float32, device=device)
-    rot, t, it = align2d_cuda.icp2d_frame(sp, dp, sm, dm, t0, cfg)
-    rot_p, t_p, it_p = align2d_cuda.icp2d_frame_plain(sp, dp, sm, dm, t0,
-                                                      cfg)
-    err = max(float(torch.max(torch.abs(rot - rot_p))),
-              float(torch.max(torch.abs(t - t_p))))
-    print(f"# icp2d_frame: outer iterations kernel {int(it)} plain "
-          f"{int(it_p)}; max |diff| rot/t {err:.3e} (tol {FRAME_TOL})")
-    if not err <= FRAME_TOL:
-        raise RuntimeError(f"icp2d_frame differs from its plain version: "
-                           f"{err}")
-    if torch.device(device).type == "cuda":
-        raw = align2d_cuda.icp2d_frame_raw(sp, dp, sm, dm, t0, cfg)
-        outer, inner = int(raw[6]), int(raw[7])
-        ms = time_ms(lambda: align2d_cuda.icp2d_frame(sp, dp, sm, dm, t0,
-                                                      cfg), device, reps=20)
-    else:
-        outer, inner = int(it), 0
-        ms = time_ms(lambda: align2d_cuda.icp2d_frame(sp, dp, sm, dm, t0,
-                                                      cfg), device, reps=1)
-    plain_ms = time_ms(lambda: align2d_cuda.icp2d_frame_plain(
-        sp, dp, sm, dm, t0, cfg), device, reps=2)
-    n_src, n_dst = float(sm.sum()), float(dm.sum())
-    ops = (outer * n_src * (n_dst * NN_OPS_PER_PAIR_2D + 6)
-           + inner * n_src * IRLS_OPS_PER_POINT)
-    # src (N, 2) and mask, dst (M, 2), warm start 6 floats, output 8.
-    b, by = bound_ms(pad * 4 * 3 + pad * 4 * 2 + 14 * 4, ops)
-    return dict(name="icp2d_frame", route="cuda", path="2d",
-                source="icp_rust_tpu_torch/csrc/icp2d_frame.cu",
-                replaces="icp_rust_tpu/ops/align2d_pallas.py:888",
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=None)
+    on_card = torch.device(device).type == "cuda"
+    records = []
+    for shape, (sp, sm, dp, dm) in frame_inputs(device, n, pad,
+                                                 n_max).items():
+        rot, t, it = align2d_cuda.icp2d_frame(sp, dp, sm, dm, t0, cfg)
+        rot_p, t_p, it_p = align2d_cuda.icp2d_frame_plain(sp, dp, sm, dm, t0,
+                                                          cfg)
+        err = max(float(torch.max(torch.abs(rot - rot_p))),
+                  float(torch.max(torch.abs(t - t_p))))
+        print(f"# icp2d_frame {shape}: outer iterations kernel {int(it)} "
+              f"plain {int(it_p)}; max |diff| rot/t {err:.3e} (tol "
+              f"{FRAME_TOL})")
+        if not err <= FRAME_TOL:
+            raise RuntimeError(f"icp2d_frame differs from its plain "
+                               f"version: {err}")
+        if int(it) != int(it_p):
+            raise RuntimeError("icp2d_frame: outer iterations differ from "
+                               "the plain version's")
+        wrapper_ms = time_ms(lambda: align2d_cuda.icp2d_frame(
+            sp, dp, sm, dm, t0, cfg), device, reps=20 if on_card else 1)
+        extra = dict(shape=shape, wrapper_ms=wrapper_ms)
+        if on_card:
+            times = _frame_times((sp, sm, dp, dm), device)
+            outer, inner, ms = times["outer"], times["inner"], times["ms"]
+            cluster = cuda_build.query("icp2d_frame_cluster")(sp.shape[0])
+            extra.update(cluster=cluster, cluster_ms=times["cluster_ms"])
+            print(f"# icp2d_frame {shape}: launcher alone {ms} ms on a "
+                  f"cluster of {cluster} (by cluster size "
+                  f"{times['cluster_ms']}), wrapper {wrapper_ms:.4f} ms")
+        else:
+            outer, inner, ms = int(it), 0, wrapper_ms
+        plain_ms = time_ms(lambda: align2d_cuda.icp2d_frame_plain(
+            sp, dp, sm, dm, t0, cfg), device, reps=2)
+        n_src, n_dst = float(sm.sum()), float(dm.sum())
+        ops = (outer * n_src * (n_dst * NN_OPS_PER_PAIR_2D + 6)
+               + inner * n_src * IRLS_OPS_PER_POINT)
+        n, m = sp.shape[0], dp.shape[0]
+        # src (N, 2) and mask, dst (M, 2), warm start 6 floats, output 8.
+        b, by = bound_ms(n * 4 * 3 + m * 4 * 2 + 14 * 4, ops)
+        records.append(dict(
+            name="icp2d_frame", route="cuda", path="2d",
+            source="icp_rust_tpu_torch/csrc/icp2d_frame.cu",
+            replaces="icp_rust_tpu/ops/align2d_pallas.py:888",
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+            bound_by=by, library_ms=None, extra=extra))
+    return records
 
 
 def _run_path(pts, mask, cfg, device, with_metrics: bool):
@@ -931,6 +958,15 @@ def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
         c = timed[(kind, name)]
         args = c["args"]
         ms = time_ms(lambda: c["fn"](*args), device, reps=50)
+        extra = {}
+        if kind == "list" and torch.device(device).type == "cuda":
+            # Kernel 9 by its launcher alone: its wrapper's time is the
+            # host's.
+            largs, _out = nn_pairs_cuda._nn_pairs_list_args(*args)
+            extra = dict(wrapper_ms=ms)
+            ms = launcher_ms("nn_pairs_list", largs, device)
+            print(f"# nn_pairs_list warm: launcher alone {ms} ms, wrapper "
+                  f"{extra['wrapper_ms']:.4f} ms")
         plain_ms = time_ms(lambda: c["plain"](*args), device, reps=3)
         query_p, dbf = args[0], args[1]
         tables = sum(x.numel() * 4 for x in args[2:-2])
@@ -944,7 +980,7 @@ def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
             source=f"icp_rust_tpu_torch/csrc/{src_file}",
             replaces=f"icp_rust_tpu/ops/nn_pallas.py:{line}",
             max_abs_err=errs[kind], ms=ms, plain_ms=plain_ms, bound_ms=b,
-            bound_by=by, library_ms=None))
+            bound_by=by, library_ms=None, extra=extra))
     return records
 
 
@@ -1057,7 +1093,7 @@ def _irls_batched_record(path, args, its_k, err, device, **extra):
                 replaces="icp_rust_tpu/ops/align2d_pallas.py:1127",
                 max_abs_err=err, ms=wrapper_ms if ms is None else ms,
                 plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=None,
-                extra=dict(wrapper_ms=wrapper_ms, route=chosen,
+                extra=dict(wrapper_ms=wrapper_ms, pair_route=chosen,
                            route_ms=by_c, **extra))
 
 
@@ -1122,10 +1158,17 @@ def phase_frame_pairs(device="cuda", n_scans: int = BATCH_SCANS,
     if not torch.equal(its_k, its_pl):
         raise RuntimeError("icp2d_frame_pairs: outer iteration counts "
                            "differ from the plain version's")
+    extra = {}
     if torch.device(device).type == "cuda":
         inner = align2d_cuda.icp2d_frame_raw(*args)[:, 7].double().cpu()
-        ms = time_ms(lambda: align2d_cuda.icp2d_frame_pairs(*args), device,
-                     reps=10)
+        wrapper_ms = time_ms(lambda: align2d_cuda.icp2d_frame_pairs(*args),
+                             device, reps=10)
+        _, largs, _out, keep = align2d_cuda._icp2d_frame_args(*args)
+        ms = launcher_ms("icp2d_frame_pairs", largs, device, reps=10)
+        del keep
+        extra = dict(wrapper_ms=wrapper_ms)
+        print(f"# icp2d_frame_pairs: launcher alone {ms} ms, wrapper "
+              f"{wrapper_ms:.4f} ms")
     else:
         inner = torch.zeros(b, dtype=torch.float64)
         ms = time_ms(lambda: align2d_cuda.icp2d_frame_pairs(*args), device,
@@ -1141,7 +1184,7 @@ def phase_frame_pairs(device="cuda", n_scans: int = BATCH_SCANS,
                 source="icp_rust_tpu_torch/csrc/icp2d_frame_pairs.cu",
                 replaces="icp_rust_tpu/ops/align2d_pallas.py:979",
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=None, extra=extra)
 
 
 def _run_batched(batch, cfg, device):
@@ -1687,8 +1730,8 @@ def _sweep_check(kind, name, query, db, dmask, payload, device,
         if bool(fin.any()) else 0.0
     sweeps = None
     tiles = ""
-    if kind == "nn_matched":
-        tiles = _matched_emulation(got, args, what)
+    if kind in ("nn_matched", "nn_sweep"):
+        tiles = _matched_emulation(got, args[0], args[1], d_dim, what)
     if kind == "nn_pruned":
         # The kernel's schedule emulated: its result bitwise, its sweeps
         # per work item.
@@ -1716,28 +1759,31 @@ def _sweep_check(kind, name, query, db, dmask, payload, device,
 _SWEEP_SOURCES = {"nn_sweep": 55, "nn_matched": 177, "nn_pruned": 385}
 
 
-def _matched_emulation(got, args, what: str) -> str:
-    """Kernel 4's result against its schedule's emulation at the
+def _matched_emulation(got, query_p, dbf_cm, d_dim: int, what: str) -> str:
+    """Kernel 4 or 5's result against its schedule's emulation at the
     wrapper's work items, bitwise; returns the schedule for the case's
     line."""
-    query_p, dbf_cm, d_dim = args
     b = query_p.shape[0] if query_p.ndim == 3 else 1
     item = nn_sweep_cuda.matched_item_chunks(b, query_p.shape[-2],
                                              dbf_cm.shape[-1])
-    *emul, n_items = nn_sweep_cuda.matched_items(*args, item)
-    _equal_or_raise(got, emul, f"{what} (the items' emulation)")
+    *emul, n_items = nn_sweep_cuda.matched_items(query_p, dbf_cm, d_dim,
+                                                 item)
+    _equal_or_raise(got, emul[:len(got)], f"{what} (the items' emulation)")
     return (f"; {n_items} work items of {item} chunks a query group, "
             "bitwise equal to the items' emulation")
 
 
-def _matched_schedules(args, out, device):
-    """Kernel 4 by its launcher alone at the wrapper's work items and at
-    items of 1 to all chunks with 2 and 4 queries a thread, then at 8
-    queries a thread (the wrapper's items), each bitwise equal to the
-    wrapper's result: ({"T=..,Q=..": ms}, the wrapper's key)."""
+def _item_schedules(kind: str, args, out, device):
+    """Kernel 4 (``kind`` "nn_matched") or 5 ("nn_sweep") by its launcher
+    alone at the wrapper's work items and at items of 1 to all chunks with
+    2 and 4 queries a thread, then at 8 queries a thread (the wrapper's
+    items), each bitwise equal to the wrapper's result: ({"T=..,Q=..":
+    ms}, the wrapper's key)."""
     res = {}
     if torch.device(device).type != "cuda":
         return res, None
+    make = (nn_sweep_cuda._nn_matched_args if kind == "nn_matched"
+            else nn_sweep_cuda._nn_sweep_args)
     query_p, dbf_cm = args[0], args[1]
     b = query_p.shape[0] if query_p.ndim == 3 else 1
     n_ch = dbf_cm.shape[-1] // 128
@@ -1749,13 +1795,11 @@ def _matched_schedules(args, out, device):
                               if t <= n_ch and (t, q) != (item0, q0)]
     shapes.append((item0, 8))
     for t, q in shapes:
-        largs, got, keep = nn_sweep_cuda._nn_matched_args(
-            *args, item_chunks=t, q_per_thread=q)
-        res[f"T={t},Q={q}"] = launcher_ms("nn_matched", largs, device,
-                                          reps=20)
+        largs, got, keep = make(*args, item_chunks=t, q_per_thread=q)
+        res[f"T={t},Q={q}"] = launcher_ms(kind, largs, device, reps=20)
         _sync(device)
         if not all(torch.equal(a, c) for a, c in zip(got, out)):
-            raise RuntimeError(f"nn_matched: items of {t} chunks and {q} "
+            raise RuntimeError(f"{kind}: items of {t} chunks and {q} "
                                "queries a thread change the result")
         del keep
     return res, f"T={item0},Q={q0}"
@@ -1785,10 +1829,10 @@ def _sweep_record(case, path: str, device, max_abs_err: float):
     """Kernel 4, 5 or 6's timing, plain timing and bound at one case's
     shapes.  Operations: every (query, valid db point) pair of the plain
     sweeps; for kernel 6 the pairs of the (group, db tile) sweeps it
-    makes on these inputs.  Kernels 4 and 6 are timed by their launchers
-    alone at their schedules, beside their instruction floors:
-    NN_INSTR_PER_PAIR instructions a pair swept (kernel 4: every padded
-    query against every db point) at PEAK_F32_INSTR_PER_S."""
+    makes on these inputs.  Timed by their launchers alone at their
+    schedules, beside their instruction floors: NN_INSTR_PER_PAIR
+    instructions a pair swept (kernels 4 and 5: every padded query against
+    every db point) at PEAK_F32_INSTR_PER_S."""
     kind, args = case["kind"], case["args"]
     query_p, dbf_cm = args[0], args[1]
     d_dim = query_p.shape[-1]
@@ -1814,22 +1858,19 @@ def _sweep_record(case, path: str, device, max_abs_err: float):
         print(f"# nn_pruned {path}: launcher alone {ms} ms (items of T "
               f"tiles, Q queries a thread: {schedules}), wrapper "
               f"{wrapper_ms:.4f} ms; instruction floor {floor:.4f} ms")
-    elif kind == "nn_matched":
+    else:
         pairs = float(case["n"]) * case["valid"]
         tables = 0
-        schedules, key = _matched_schedules(args, case["out"], device)
+        schedules, key = _item_schedules(kind, args, case["out"], device)
         ms = schedules.get(key, ms)
         swept = float(b * qp * dbf_cm.shape[-1])
         floor = swept * NN_INSTR_PER_PAIR[d_dim] / PEAK_F32_INSTR_PER_S * 1e3
         extra = dict(wrapper_ms=wrapper_ms, schedules_ms=schedules,
                      instruction_floor_ms=floor)
-        print(f"# nn_matched {path}: launcher alone {ms} ms (items of T "
+        print(f"# {kind} {path}: launcher alone {ms} ms (items of T "
               f"chunks, Q queries a thread: {schedules}), wrapper "
               f"{wrapper_ms:.4f} ms; instruction floor {floor:.4f} ms "
               f"({swept:.4g} pairs swept)")
-    else:
-        pairs = float(case["n"]) * case["valid"]
-        tables = 0
     n_bytes = (query_p.numel() * 4 + dbf_cm.numel() * 4 + tables
                + b * qp * (4 + 4 + 4 * f_dim))
     bound, by = bound_ms(n_bytes, pairs * per_pair)
@@ -2469,15 +2510,19 @@ def _capture_calls(module, name: str):
     return calls, lambda: setattr(module, name, real)
 
 
+def _slam_nn_frames(device, stride: int, n_wide: int):
+    """Phase 14's frames as run_slam3d pads them: (pts, mask)."""
+    frames, _ = io.synthesize_frames3d(max(n_wide + 1, 2), seed=0)
+    return _frames_as_run([f[::stride] for f in frames], device)
+
+
 def matched_inputs(device, stride: int = 1, small: int = 3072,
                    n_wide: int = 8):
     """Kernel 4's arguments (query_p, dbf_cm, D) at every shape its paths
     give it: {path: args}.  SLAM 3D small and SLAM 2D wide as phase 14
     builds them; submap 2D the last call of the fused wall-world run
     (phase 20), captured."""
-    frames, _ = io.synthesize_frames3d(max(n_wide + 1, 2), seed=0)
-    frames = [f[::stride] for f in frames]
-    pts, mask = _frames_as_run(frames, device)
+    pts, mask = _slam_nn_frames(device, stride, n_wide)
     f_src, _, _ = m_icp._spatial_sort(pts[0, :small], mask[0, :small])
     f_dst, f_dm, _ = m_icp._spatial_sort(pts[1, :small], mask[1, :small])
     nrm, nv = estimate_normals_voxel(f_dst, f_dm, P2L_VOXEL_M)
@@ -2489,6 +2534,160 @@ def matched_inputs(device, stride: int = 1, small: int = 3072,
                                        256, 2048)
     out["submap-2d"] = _submap_2d_matched_call(device)
     return out
+
+
+def sweep_inputs(device, stride: int = 1, small: int = 3072,
+                 n_wide: int = 8):
+    """Kernel 5's arguments (query_p, db_cm) at the shapes its paths give
+    it, as phase 14 builds them: {path: args}."""
+    pts, mask = _slam_nn_frames(device, stride, n_wide)
+    xy = pts[:, :, :2]
+    return {"slam3d-small": _sweep_packed(pts[0, :small], pts[1, :small],
+                                          mask[1, :small], None, 512,
+                                          2048)[:2],
+            "slam2d-wide": _sweep_packed(xy[:-1], xy[1:], mask[1:], None,
+                                         512, 2048)[:2]}
+
+
+def frame_inputs(device, n: int = 640, pad: int = 768,
+                 n_max: int = align2d_cuda.FRAME_MAX_POINTS):
+    """Kernel 3's pairs: the 2D path's ``n`` points padded to ``pad``, and
+    ``n_max`` points (FRAME_MAX_POINTS) unpadded: {shape: (src, src mask,
+    dst, dst mask)}."""
+    return {f"{n}x{pad}": pair2d(device, n, pad),
+            f"{n_max}x{n_max}": pair2d(device, n_max, n_max)}
+
+
+def _frame_times(pair, device, reps: int = 20):
+    """Kernel 3 on one pair by its launcher alone, on the wrapper's
+    cluster and, where the tree has them, on every cluster size (each
+    bitwise equal to the wrapper's result), against its plain version
+    (max |diff| of rot/t, outer iterations)."""
+    sp, sm, dp, dm = pair
+    cfg = _config()
+    t0 = RigidTransform2.identity(dtype=torch.float32, device=device)
+    _, largs, out, keep = align2d_cuda._icp2d_frame_args(sp, dp, sm, dm, t0,
+                                                         cfg)
+    ms = launcher_ms("icp2d_frame", largs, device, reps=reps)
+    _sync(device)
+    ref = out.clone()
+    rot_p, t_p, it_p = align2d_cuda.icp2d_frame_plain(sp, dp, sm, dm, t0,
+                                                      cfg)
+    err = max(float(torch.max(torch.abs(ref[:4] - rot_p.reshape(4)))),
+              float(torch.max(torch.abs(ref[4:6] - t_p))))
+    clusters = {}
+    for c in getattr(align2d_cuda, "FRAME_CLUSTERS", ()):
+        clusters[c] = launcher_ms(
+            "icp2d_frame", largs[:-1] + (c, largs[-1]), device, reps=reps,
+            fn=cuda_build.query("icp2d_frame_launch_cluster"))
+        _sync(device)
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"icp2d_frame: a cluster of {c} blocks "
+                               "changes the result")
+    del keep
+    return dict(ms=ms, max_abs_err=err, outer=int(ref[6]),
+                outer_plain=int(it_p), inner=int(ref[7]),
+                cluster_ms=clusters)
+
+
+# Kernel 3's split of its outer iterations (``frame_split``): a copy of
+# its sources, built into _build/split, with clock64() stamps that thread
+# 0 of block 0 adds up over the outer iterations into out[8:16] (int64):
+# the NN sweep up to the barrier after the matches, the IRLS loop, the
+# scalar tail up to its barrier, and the whole call.  Per design of the
+# kernel: (the file, (anchor, code inserted after it), ...); every anchor
+# occurs once.
+_SPLIT_ADD = ("    if (threadIdx.x == 0 && blockIdx.x == 0) {\n"
+              "      long long* acc = (long long*)(out + 8);\n"
+              "      acc[0] += t_nn - t_top;\n"
+              "      acc[1] += t_irls - t_nn;\n"
+              "      acc[2] += clock64() - t_irls;\n"
+              "    }\n")
+_SPLIT_STAMPS = {
+    "one-block": ("frame.cuh", (
+        ("  const int tid = threadIdx.x;\n",
+         "  const long long t_start = clock64();\n"),
+        ("  while (fs.it < outer_iters && fs.done == 0) {\n",
+         "    const long long t_top = clock64();\n"),
+        ("      mdy[i] = ddy[bi];\n    }\n    __syncthreads();\n",
+         "    const long long t_nn = clock64();\n"),
+        ("    irls_loop(stx, sty, mdx, mdy, mk, n, rx, ry, P, fs.sh, d);\n",
+         "    const long long t_irls = clock64();\n"),
+        ("      fs.done = isid ? 1 : 0;\n    }\n    __syncthreads();\n",
+         _SPLIT_ADD),
+        ("    out[7] = (float)fs.inner;\n",
+         "    ((long long*)(out + 8))[3] = clock64() - t_start;\n"))),
+    "cluster": ("icp2d_frame.cu", (
+        ("  const int tid = threadIdx.x;\n",
+         "  const long long t_start = clock64();\n"),
+        ("  while (fs.it < outer_iters && fs.done == 0) {\n",
+         "    const long long t_top = clock64();\n"
+         "    long long t_irls = 0;\n"),
+        ("    cluster.sync();  // the matches are in the leader\n",
+         "    const long long t_nn = clock64();\n"),
+        ("      irls_loop(stx, sty, mdx, mdy, mk, n, rx, ry, P, fs.sh, d);\n",
+         "      t_irls = clock64();\n"),
+        ("    cluster.sync();  // T and the exit are in every block\n",
+         _SPLIT_ADD),
+        ("    out[7] = (float)fs.inner;\n",
+         "    ((long long*)(out + 8))[3] = clock64() - t_start;\n"))),
+}
+
+
+def frame_split(device, reps: int = 20):
+    """Kernel 3's split of an outer iteration on the tree's design, at
+    ``frame_inputs``' shapes: cycles per outer iteration of the NN sweep,
+    the IRLS loop and the scalar tail (``_SPLIT_STAMPS``), and the same
+    in us as their share of the stamped kernel's launcher-alone time.
+    Empty on the CPU."""
+    if torch.device(device).type != "cuda":
+        return {}
+    src = (cuda_build.CSRC / "icp2d_frame.cu").read_text()
+    design = "one-block" if "icp2d_frame_block(" in src else "cluster"
+    fname, stamps = _SPLIT_STAMPS[design]
+    out_dir = cuda_build.BUILD_DIR / "split"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    text = (cuda_build.CSRC / fname).read_text()
+    for anchor, code in stamps:
+        if text.count(anchor) != 1:
+            raise RuntimeError(f"frame_split: {anchor!r} is not in {fname} "
+                               "once")
+        text = text.replace(anchor, anchor + code)
+    (out_dir / "icp2d_frame.cu").write_text(src)
+    (out_dir / fname).write_text(text)
+    lib = out_dir / "libicp2d_frame_split.so"
+    subprocess.run([cuda_build._nvcc(), *cuda_build.FLAGS, "-I",
+                    str(out_dir), "-I", str(cuda_build.CSRC), "-o", str(lib),
+                    str(out_dir / "icp2d_frame.cu")], check=True,
+                   capture_output=True, timeout=600)
+    entry, argtypes = cuda_build._SIGNATURES["icp2d_frame"]
+    fn = getattr(ctypes.CDLL(str(lib)), entry)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    cfg = _config()
+    t0 = RigidTransform2.identity(dtype=torch.float32, device=device)
+    res = {"design": design}
+    for shape, (sp, sm, dp, dm) in frame_inputs(device).items():
+        _, largs, _, keep = align2d_cuda._icp2d_frame_args(sp, dp, sm, dm,
+                                                           t0, cfg)
+        buf = torch.zeros(16, dtype=torch.float32, device=device)
+        largs = largs[:6] + (buf.data_ptr(),) + largs[7:]
+        ms = launcher_ms("icp2d_frame", largs, device, reps=reps, fn=fn)
+        buf.zero_()
+        cuda_build.check(fn(*largs), "icp2d_frame (stamped)")
+        _sync(device)
+        acc = buf[8:16].view(torch.int64).tolist()
+        outer = int(buf[6])
+        parts = dict(zip(("nn", "irls", "tail"), acc[:3]))
+        cycles = {k: v / outer for k, v in parts.items()}
+        us = {k: v / acc[3] * ms * 1e3 / outer for k, v in parts.items()}
+        res[shape] = dict(outer=outer, call_cycles=acc[3], stamped_ms=ms,
+                          cycles_per_iteration=cycles,
+                          us_per_iteration=us)
+        del keep
+        print(f"# frame split {design} {shape}: {outer} outer iterations, "
+              f"stamped call {ms} ms ({acc[3]} cycles); per outer "
+              f"iteration: cycles {cycles}, us {us}")
+    return res
 
 
 def _submap_2d_matched_call(device):
@@ -2514,7 +2713,7 @@ def phase_matched_submap_2d(device="cuda"):
     _sync(device)
     what = "nn_matched submap-2d"
     _equal_or_raise(got, want, what)
-    items = _matched_emulation(got, args, what)
+    items = _matched_emulation(got, *args, what)
     query_p, dbf_cm, d_dim = args
     n = int(torch.any(query_p != 0, dim=-1).sum())
     valid = float((dbf_cm[..., 0, :] < nn_cuda._SENTINEL / 2).sum())
@@ -2574,26 +2773,56 @@ def _synthetic_irls_pairs(device, b: int, n: int, seed: int = 11):
 
 
 def kernel_times(device="cuda", reps: int = 20):
-    """Kernels 4 and 7 by their launchers alone at every shape their paths
-    give them (``matched_inputs``, ``irls_batched_inputs``; kernel 7 on
-    every captured SLAM 2D wide call) and kernel 7 on 64 synthetic pairs
-    of 768-6,144 points, each call held against its plain version
-    (kernel 4 bitwise; kernel 7 max |diff| of rot/t and the pairs whose
-    iteration count differs).  With the schedule sweeps of phases 7 and
-    14 where the tree has them; and kernel 2's phase-2 records, for its
-    ``max_abs_err``."""
+    """Kernels 3, 4, 5 and 7 by their launchers alone at every shape their
+    paths give them (``frame_inputs``, ``matched_inputs``,
+    ``sweep_inputs``, ``irls_batched_inputs``; kernel 7 on every captured
+    SLAM 2D wide call) and kernel 7 on 64 synthetic pairs of 768-6,144
+    points, each call held against its plain version (kernels 4 and 5
+    bitwise; kernels 3 and 7 max |diff| of rot/t and the iteration
+    counts).  With the schedule sweeps of phases 3, 7 and 14 where the
+    tree has them, kernel 3's split (``frame_split``), and kernel 2's
+    phase-2 records, for its ``max_abs_err``."""
     sweeps = hasattr(align2d_cuda, "batched_cluster")
-    times = {"nn_matched": {}, "irls_loop_batched": {},
+    items = "nn_items.cuh" in cuda_build.HEADERS
+    times = {"nn_matched": {}, "nn_sweep": {}, "icp2d_frame": {},
+             "irls_loop_batched": {},
              "irls_loop_max_abs_err": [r["max_abs_err"]
                                        for r in phase_irls(device)]}
+    for shape, pair in frame_inputs(device).items():
+        rec = times["icp2d_frame"][shape] = _frame_times(pair, device, reps)
+        print(f"# times icp2d_frame {shape}: launcher alone {rec['ms']} ms "
+              f"(clusters {rec['cluster_ms']}); vs plain max |diff| "
+              f"{rec['max_abs_err']:.3e}, outer iterations {rec['outer']} "
+              f"(plain {rec['outer_plain']}), inner {rec['inner']}")
+    # Smaller pairs, for the cluster rule.
+    for n in (128, 256, 384, 512, 1024):
+        rec = _frame_times(pair2d(device, n, n), device, reps)
+        times["icp2d_frame"][f"{n}x{n}"] = rec
+        print(f"# times icp2d_frame {n}x{n}: launcher alone {rec['ms']} ms "
+              f"(clusters {rec['cluster_ms']})")
+    times["frame_split"] = frame_split(device, reps)
+    for path, args in sweep_inputs(device).items():
+        largs, out, keep = nn_sweep_cuda._nn_sweep_args(*args)
+        ms = launcher_ms("nn_sweep", largs, device, reps=reps)
+        _sync(device)
+        same = all(torch.equal(a, b) for a, b in
+                   zip(out, nn_sweep_cuda.nn_sweep_plain(*args)))
+        schedules = _item_schedules("nn_sweep", args, out, device)[0] \
+            if items else {}
+        del keep
+        times["nn_sweep"][path] = dict(ms=ms, bitwise=same,
+                                       schedules_ms=schedules)
+        print(f"# times nn_sweep {path}: {tuple(args[0].shape)} queries, "
+              f"{tuple(args[1].shape)} db, launcher alone {ms} ms, bitwise "
+              f"equal to plain {same} (schedules {schedules})")
     for path, args in matched_inputs(device).items():
         largs, out, keep = nn_sweep_cuda._nn_matched_args(*args)
         ms = launcher_ms("nn_matched", largs, device, reps=reps)
         _sync(device)
         same = all(torch.equal(a, b) for a, b in
                    zip(out, nn_sweep_cuda.nn_matched_plain(*args)))
-        schedules = _matched_schedules(args, out, device)[0] if sweeps \
-            else {}
+        schedules = _item_schedules("nn_matched", args, out, device)[0] \
+            if sweeps else {}
         del keep
         times["nn_matched"][path] = dict(ms=ms, bitwise=same)
         print(f"# times nn_matched {path}: {tuple(args[0].shape)} queries, "
@@ -2685,13 +2914,17 @@ def main() -> int:
           f"{align3d_cuda.P2L_CLUSTER_16_ABOVE} points, else 8; nn_pruned: "
           f"work items of {nn_sweep_cuda.ITEM_TILES} "
           f"tiles, {nn_sweep_cuda.QUERIES_PER_THREAD} queries a thread; "
-          f"nn_matched: {nn_sweep_cuda.MATCHED_Q} queries a thread, work "
-          f"items for >= {nn_sweep_cuda.MATCHED_BLOCKS} blocks; "
+          f"nn_matched and nn_sweep: {nn_sweep_cuda.MATCHED_Q} queries a "
+          f"thread, work items for >= {nn_sweep_cuda.MATCHED_BLOCKS} "
+          f"blocks; icp2d_frame: a cluster of "
+          f"{cuda_build.query('icp2d_frame_cluster')(640)} blocks at 640 "
+          f"points, {cuda_build.query('icp2d_frame_cluster')(128)} at "
+          f"128; "
           f"irls_loop_batched: clusters of up to 16 blocks a pair, >= "
           f"{align2d_cuda.BATCHED_MIN_POINTS} points a block, all pairs "
           f"resident")
     records = [phase_nn_list(device), *phase_irls(device),
-               phase_frame(device)]
+               *phase_frame(device)]
     main_run = phase_main(device)
     run_2d = phase_2d(device)
     records += phase_nn_pairs(device)

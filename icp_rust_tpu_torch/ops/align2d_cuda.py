@@ -7,8 +7,9 @@ versions:
 - ``csrc/irls_loop_batched.cu``: the same loop for B pairs in one launch,
   a cluster per pair, or one block a pair for small pairs
   (``batched_cluster``; ``_inner_loop_batched_kernel``);
-- ``csrc/icp2d_frame.cu``: a whole 2D ICP call in one launch
-  (``_icp2d_frame_kernel``);
+- ``csrc/icp2d_frame.cu``: a whole 2D ICP call in one launch on a
+  thread-block cluster, the 1-NN sweep split over its blocks and the IRLS
+  loop on its leader (``_icp2d_frame_kernel``);
 - ``csrc/icp2d_frame_pairs.cu``: B whole 2D ICP calls in one launch, one
   block per pair, each to its own fixed point
   (``_icp2d_frame_pairs_kernel``);
@@ -20,8 +21,10 @@ versions:
 All six run the device routines of ``csrc/irls.cuh`` (the two stats
 kernels its ``gn_stats_block``, one iteration's statistics of the loop;
 irls_loop and irls_loop_batched its helpers, spread over a cluster by
-``csrc/irls_cluster.cuh``), and the two frame kernels the block body of
-``csrc/frame.cuh``, so they share one op sequence.
+``csrc/irls_cluster.cuh``; the two frame kernels its whole loop, on the
+leader block of icp2d_frame's cluster and on each pair's block of
+``csrc/frame.cuh``), so they share one op sequence.  icp2d_frame's
+cluster sweep finds bitwise the matches of frame.cuh's one-block sweep.
 
 Plain versions: the inner loops' is ``align2d.irls_loop_torch`` (the
 ``align_backend="torch"`` loop, batched over pairs); the frames' is the
@@ -50,6 +53,14 @@ from icp_rust_tpu_torch.ops.nn_cuda import _SENTINEL
 
 _SMALL_ANGLE_F32 = float(torch.finfo(torch.float32).eps) ** 0.25
 FRAME_MAX_POINTS = 1536
+# icp2d_frame: threads a block and queries a thread of its sweep
+# (csrc/icp2d_frame.cu kThreads, kQ), and the cluster sizes it runs on,
+# which its launcher picks from N (C entry icp2d_frame_cluster, measured
+# on an H100, PERF.md).  Which block sweeps which queries follows from
+# them, never the result.
+FRAME_THREADS = 1024
+FRAME_Q = 2
+FRAME_CLUSTERS = (1, 2, 4, 8, 16)
 # Blocks in irls_loop's thread-block cluster (16 measured faster than 8
 # on an H100, PERF.md).  Which points each block sums follows from it, so
 # it is a constant, not a knob.
@@ -310,6 +321,22 @@ def icp2d_frame_raw(src: Tensor, dst: Tensor, src_mask: Tensor,
     """Launch icp2d_frame (src (N, 2)) or icp2d_frame_pairs (src
     (B, N, 2)) on CUDA tensors; returns the (8,) or (B, 8) output: r00 r01
     r10 r11 tx ty, outer and summed inner iterations of each pair."""
+    name, args, out, _keep = _icp2d_frame_args(src, dst, src_mask, dst_mask,
+                                               t0, config)
+    status = cuda_build.launcher(name)(*args)
+    cuda_build.LAUNCHES[name] += 1
+    cuda_build.check(status, name)
+    return out
+
+
+def _icp2d_frame_args(src: Tensor, dst: Tensor, src_mask: Tensor,
+                      dst_mask: Tensor, t0: RigidTransform2,
+                      config: ICPConfig):
+    """Check the CUDA inputs of icp2d_frame (src (N, 2)) or
+    icp2d_frame_pairs (src (B, N, 2)) and allocate the output.  Returns
+    (the kernel's name, the launcher's arguments, the (8,) or (B, 8)
+    output, the staged inputs, which the caller holds until the launch is
+    enqueued)."""
     name = "icp2d_frame" if src.ndim == 2 else "icp2d_frame_pairs"
     if src.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {src.device}")
@@ -334,15 +361,63 @@ def icp2d_frame_raw(src: Tensor, dst: Tensor, src_mask: Tensor,
     s = config.point_scale
     stream = torch.cuda.current_stream(src.device).cuda_stream
     # The pair-frame launcher takes the pair count before (n, m).
-    status = cuda_build.launcher(name)(
-        srcc.data_ptr(), smask.data_ptr(), dstm.data_ptr(), *batch, n, m,
-        tp.data_ptr(), out.data_ptr(),
-        *_solver_params(config.huber_k / s, config.det_rel_eps,
-                        config.inner_delta_sq_tol, config.inner_max_iter, s),
-        config.outer_iters, stream)
-    cuda_build.LAUNCHES[name] += 1
-    cuda_build.check(status, name)
-    return out
+    args = (srcc.data_ptr(), smask.data_ptr(), dstm.data_ptr(), *batch, n, m,
+            tp.data_ptr(), out.data_ptr(),
+            *_solver_params(config.huber_k / s, config.det_rel_eps,
+                            config.inner_delta_sq_tol, config.inner_max_iter,
+                            s),
+            config.outer_iters, stream)
+    return name, args, out, (srcc, smask, dstm, tp)
+
+
+def frame_sweep_plan(n: int, m: int, cluster: int):
+    """icp2d_frame's sweep schedule for n queries against m dst rows (m4
+    once padded to a multiple of 4) on a cluster of ``cluster`` blocks, as
+    the kernel computes it: per block (first query row, rows, dst
+    segments, segment length, a multiple of 4)."""
+    m4 = -(-m // 4) * 4
+    per = -(-n // cluster)
+    plan = []
+    for r in range(cluster):
+        row0 = min(n, r * per)
+        s_n = min(n, row0 + per) - row0
+        ng = -(-s_n // FRAME_Q)
+        nseg = max(1, FRAME_THREADS // ng) if ng else 1
+        seg_len = -(-m4 // nseg)
+        plan.append((row0, s_n, nseg, -(-seg_len // 4) * 4))
+    return plan
+
+
+def frame_sweep(query: Tensor, dst: Tensor, cluster: int):
+    """icp2d_frame's 1-NN sweep on tensors, on a cluster of ``cluster``
+    blocks (``frame_sweep_plan``): each block's slice of the queries (N,
+    2) against dst (M, 2), sentinel-masked and padded with the sentinel,
+    cut into the block's ascending segments; the first minimum of each
+    segment (ex*ex + ey*ey; index 0 where no point is finite), merged
+    lexicographically on (distance, index).  Returns (dist, idx int64)."""
+    n, m = query.shape[0], dst.shape[0]
+    plan = frame_sweep_plan(n, m, cluster)
+    dist = torch.empty(n, dtype=dst.dtype, device=dst.device)
+    idx = torch.empty(n, dtype=torch.int64, device=dst.device)
+    for row0, s_n, nseg, seg_len in plan:
+        if not s_n:
+            continue
+        pad = torch.full((nseg * seg_len - m, 2), _SENTINEL, dtype=dst.dtype,
+                         device=dst.device)
+        d_all = torch.cat([dst, pad])
+        q = query[row0:row0 + s_n]
+        ex = q[:, None, 0] - d_all[None, :, 0]
+        ey = q[:, None, 1] - d_all[None, :, 1]
+        ld, li = torch.min((ex * ex + ey * ey).reshape(s_n, nseg, seg_len),
+                           dim=2)
+        li = torch.where(torch.isinf(ld), 0,
+                         li + seg_len * torch.arange(nseg, device=dst.device))
+        # The lexicographic minimum over the segments.
+        best = torch.amin(ld, dim=1)
+        dist[row0:row0 + s_n] = best
+        idx[row0:row0 + s_n] = torch.amin(
+            torch.where(ld == best[:, None], li, nseg * seg_len), dim=1)
+    return dist, idx
 
 
 def gn_stats_plain(src: Tensor, dst: Tensor, mask: Tensor, rot: Tensor,

@@ -43,7 +43,7 @@ SOURCES = ("nn_list", "irls_loop", "icp2d_frame", "nn_pairs",
 # Every header is hashed into every library's name, so an edited header
 # rebuilds whatever includes it.
 HEADERS = ("irls.cuh", "irls_cluster.cuh", "frame.cuh", "nn_pairs.cuh",
-           "p2l.cuh", "p2l_cluster.cuh", "nn_sweep.cuh")
+           "p2l.cuh", "p2l_cluster.cuh", "nn_items.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--fmad=false")
 
@@ -89,8 +89,9 @@ _SIGNATURES = {
     # two_k; stream
     "p2l_stats": ("p2l_stats_launch",
                   [_P] * 10 + [_I] + [_P] * 3 + [_F] * 3 + [_P]),
-    # query, db_cm, dist, idx; b, qp, d_dim, m_pad; stream
-    "nn_sweep": ("nn_sweep_launch", [_P] * 4 + [_I] * 4 + [_P]),
+    # query, db_cm, dist, idx, part, ticket; b, qp, d_dim, m_pad, item,
+    # q_per_thread; stream
+    "nn_sweep": ("nn_sweep_launch", [_P] * 6 + [_I] * 6 + [_P]),
     # query, dbf_cm, dist, idx, pay, part, ticket; b, qp, d_dim, f_dim,
     # m_pad, item, q_per_thread; stream
     "nn_matched": ("nn_matched_launch", [_P] * 7 + [_I] * 7 + [_P]),
@@ -111,6 +112,13 @@ _SIGNATURES = {
 _QUERIES = {
     # n, cluster, threads -> clusters resident at once
     "irls_loop_batched_resident": ("irls_loop_batched", [_I] * 3),
+    # n -> the cluster size icp2d_frame_launch takes
+    "icp2d_frame_cluster": ("icp2d_frame", [_I]),
+    # icp2d_frame_launch's arguments with the cluster size before the
+    # stream
+    "icp2d_frame_launch_cluster": ("icp2d_frame",
+                                   [_P] * 3 + [_I] * 2 + [_P] * 2 + [_F] * 5
+                                   + [_I] + [_F] * 2 + [_I, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}

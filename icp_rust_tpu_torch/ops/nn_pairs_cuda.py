@@ -261,6 +261,18 @@ def nn_pairs_list(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
     ``nn_pairs``."""
     if query_p.device.type == "cpu":
         return nn_pairs_list_plain(query_p, dbf_cm, lists, cnt, d_dim, q_sub)
+    args, out = _nn_pairs_list_args(query_p, dbf_cm, lists, cnt, d_dim,
+                                    q_sub)
+    status = cuda_build.launcher("nn_pairs_list")(*args)
+    cuda_build.LAUNCHES["nn_pairs_list"] += 1
+    cuda_build.check(status, "nn_pairs_list")
+    return out
+
+
+def _nn_pairs_list_args(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
+                        cnt: Tensor, d_dim: int, q_sub: int = Q_SUB):
+    """Check the CUDA inputs of nn_pairs_list and allocate its outputs.
+    Returns (the launcher's arguments, (dist, idx, pay))."""
     _check_launch("nn_pairs_list", query_p, dbf_cm, d_dim, q_sub,
                   (("lists", lists, torch.int32), ("cnt", cnt, torch.int32)))
     b, qp, _ = query_p.shape
@@ -269,14 +281,11 @@ def nn_pairs_list(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
         raise ValueError("nn_pairs_list: bad list shapes")
     dist, idx, pay = _outputs(query_p, dbf_cm, d_dim)
     stream = torch.cuda.current_stream(query_p.device).cuda_stream
-    status = cuda_build.launcher("nn_pairs_list")(
-        query_p.data_ptr(), dbf_cm.data_ptr(), lists.data_ptr(),
-        cnt.data_ptr(), dist.data_ptr(), idx.data_ptr(), pay.data_ptr(), b,
-        qp, q_sub, d_dim, dbf_cm.shape[1] - d_dim, dbf_cm.shape[2],
-        lists.shape[2], stream)
-    cuda_build.LAUNCHES["nn_pairs_list"] += 1
-    cuda_build.check(status, "nn_pairs_list")
-    return dist, idx, pay
+    args = (query_p.data_ptr(), dbf_cm.data_ptr(), lists.data_ptr(),
+            cnt.data_ptr(), dist.data_ptr(), idx.data_ptr(), pay.data_ptr(),
+            b, qp, q_sub, d_dim, dbf_cm.shape[1] - d_dim, dbf_cm.shape[2],
+            lists.shape[2], stream)
+    return args, (dist, idx, pay)
 
 
 def prepare(query: Tensor, db: Tensor, db_mask=None, payload=None,

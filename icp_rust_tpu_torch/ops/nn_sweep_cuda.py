@@ -13,19 +13,18 @@ tiles or more, and ``nn_pallas_matched`` unseeded or with a wide payload).
 survivor-list branch, which ``ops/nn.py`` takes first.
 
 Both sweeps read the coordinate-major db of ``_dbf_cm_matched`` (D
-sentinel-filled coordinate rows, then F payload rows).  Kernel 5 takes
-queries ``SUB`` at a time, one block per group and one thread per query,
-and stages the db through shared memory 128 points at a time; it sweeps
-every point in ascending order with a strict '<' on a scalar (distance,
-index) carry: the lowest index wins ties.  Kernel 4 splits the sweep over
-blocks: a block holds ``MATCHED_Q`` queries a thread (groups of
-``MATCHED_THREADS`` x Q queries) and sweeps one work item, a contiguous
-ascending range of 128-point db chunks, with a strict '<'; the items,
-``matched_item_chunks`` chunks each (sized from the shapes alone), are
-merged lexicographically on (distance, index) by the group's last block
-(a ticket per (pair, group) in ``_TICKETS``), which reads the winner's
-payload from the packed db.  ``matched_items`` emulates that schedule on
-tensors.  A leading batch axis is one more grid axis of both.
+sentinel-filled coordinate rows, then F payload rows) and run one block
+body (``csrc/nn_items.cuh``): the sweep is split over blocks, a block
+holds ``MATCHED_Q`` queries a thread (groups of ``MATCHED_THREADS`` x Q
+queries) and sweeps one work item, a contiguous ascending range of
+128-point db chunks, with a strict '<' on a (distance, index) carry; the
+items, ``matched_item_chunks`` chunks each (sized from the shapes
+alone), are merged lexicographically on (distance, index) by the group's
+last block (a ticket per (pair, group) in ``_TICKETS``), so the lowest
+index wins ties.  Kernel 4's merging block reads the winner's payload
+from the packed db; kernel 5 has none.  ``matched_items`` emulates that
+schedule on tensors (kernel 5's with F = 0).  A leading batch axis is one
+more grid axis of both.
 
 Kernel 6 visits the db tiles of its query tile ``i`` diagonal first:
 tiles s..n-1 ascending, then s-1..0 descending, s = i q_tile // db_tile.
@@ -71,15 +70,15 @@ _STAGE = 128
 ITEM_TILES = 2
 QUERIES_PER_THREAD = 4
 _PRUNED_Q = (2, 4, 8)
-# Kernel 4: threads a block, queries a thread, and the blocks a launch
-# aims for (at least, where the db has the chunks), which sizes its work
-# items; measured on an H100 (PERF.md).  Like kernel 6's they set which
-# block sweeps what, never the result.
+# Kernels 4 and 5: threads a block, queries a thread, and the blocks a
+# launch aims for (at least, where the db has the chunks), which sizes its
+# work items; measured on an H100 (PERF.md).  Like kernel 6's they set
+# which block sweeps what, never the result.
 MATCHED_THREADS = 128
 MATCHED_Q = 2
 MATCHED_BLOCKS = 8192
-# Per-device tickets of kernels 4 and 6's query groups, zero between
-# launches (the kernels run in stream order, each resets its own).
+# Tickets of kernels 4, 5 and 6's query groups, one buffer per (device,
+# kernel), zero between launches (each launch resets its own).
 _TICKETS: dict = {}
 # (D, payload width) of the kernel instances, what the callers pass: the
 # unmatched sweeps; the matched xy of icp2d (2D) and icp3d_planar (3D), the
@@ -159,7 +158,7 @@ def nn_sweep_plain(query_p: Tensor, db_cm: Tensor, tile: int = 1024):
 
 def matched_item_chunks(b: int, qp: int, m_pad: int,
                         q_per_thread: int = MATCHED_Q) -> int:
-    """Kernel 4's work item in 128-point db chunks for B pairs of qp
+    """Kernels 4 and 5's work item in 128-point db chunks for B pairs of qp
     queries against m_pad db points: the fewest work items that give at
     least MATCHED_BLOCKS blocks (one, the whole db, where the query groups
     alone do), and at least one chunk an item."""
@@ -171,7 +170,7 @@ def matched_item_chunks(b: int, qp: int, m_pad: int,
 
 def matched_items(query_p: Tensor, dbf_cm: Tensor, d_dim: int,
                   item_chunks: int):
-    """Kernel 4's schedule on tensors: the db cut into work items of
+    """Kernels 4 and 5's schedule on tensors: the db cut into work items of
     ``item_chunks`` 128-point chunks, each swept ascending (the first
     minimum of the item), the items merged lexicographically on
     (distance, index), the payload read at the winner.  query_p (...,
@@ -362,7 +361,7 @@ def _nn_pruned_args(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor,
     n_grp = qp // (threads * q)
     n_items = -(-(m_pad // db_tile) // item_tiles)
     dev = query_p.device
-    tickets = _tickets(dev, n_grp)
+    tickets = _tickets(dev, n_grp, "nn_pruned")
     part = torch.empty(qp * n_items * 2, dtype=torch.float32, device=dev)
     dist = torch.empty((qp,), dtype=torch.float32, device=dev)
     idx = torch.empty((qp,), dtype=torch.int32, device=dev)
@@ -376,12 +375,14 @@ def _nn_pruned_args(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor,
     return args, (dist, idx, pay), part
 
 
-def _tickets(dev, n: int) -> Tensor:
-    """At least n zeroed ticket ints on ``dev``, kept between launches."""
-    tickets = _TICKETS.get(dev)
+def _tickets(dev, n: int, name: str) -> Tensor:
+    """At least n zeroed ticket ints of kernel ``name`` on ``dev``, kept
+    between launches: each kernel its own, so that no two kernels' groups
+    share a ticket."""
+    tickets = _TICKETS.get((dev, name))
     if tickets is None or tickets.shape[0] < n:
-        tickets = _TICKETS[dev] = torch.zeros(max(n, 1024),
-                                              dtype=torch.int32, device=dev)
+        tickets = _TICKETS[(dev, name)] = torch.zeros(
+            max(n, 1024), dtype=torch.int32, device=dev)
     return tickets
 
 
@@ -420,21 +421,11 @@ def nn_sweep(query_p: Tensor, db_cm: Tensor):
     Returns (dist, idx) before sentinel trimming."""
     if query_p.device.type == "cpu":
         return nn_sweep_plain(query_p, db_cm)
-    d_dim = db_cm.shape[-2]
-    _check("nn_sweep", query_p, (("query", query_p, torch.float32),
-                                 ("db_cm", db_cm, torch.float32)),
-           d_dim, 0, SWEEP_INSTANCES)
-    batch, q3, db3 = _batched(query_p, db_cm, d_dim)
-    b, qp, _ = q3.shape
-    dist = torch.empty((b, qp), dtype=torch.float32, device=q3.device)
-    idx = torch.empty((b, qp), dtype=torch.int32, device=q3.device)
-    stream = torch.cuda.current_stream(q3.device).cuda_stream
-    status = cuda_build.launcher("nn_sweep")(
-        q3.data_ptr(), db3.data_ptr(), dist.data_ptr(), idx.data_ptr(), b,
-        qp, d_dim, db3.shape[2], stream)
+    args, out, _keep = _nn_sweep_args(query_p, db_cm)
+    status = cuda_build.launcher("nn_sweep")(*args)
     cuda_build.LAUNCHES["nn_sweep"] += 1
     cuda_build.check(status, "nn_sweep")
-    return dist.reshape(*batch, qp), idx.reshape(*batch, qp)
+    return out
 
 
 def nn_matched(query_p: Tensor, dbf_cm: Tensor, d_dim: int):
@@ -450,19 +441,38 @@ def nn_matched(query_p: Tensor, dbf_cm: Tensor, d_dim: int):
     return out
 
 
+def _nn_sweep_args(query_p: Tensor, db_cm: Tensor, item_chunks=None,
+                   q_per_thread: int = MATCHED_Q):
+    """Kernel 5's launch, as ``_nn_matched_args`` with no payload rows:
+    (the launcher's arguments, (dist, idx), what the caller holds)."""
+    return _items_args("nn_sweep", query_p, db_cm, db_cm.shape[-2],
+                       item_chunks, q_per_thread)
+
+
 def _nn_matched_args(query_p: Tensor, dbf_cm: Tensor, d_dim: int,
                      item_chunks=None, q_per_thread: int = MATCHED_Q):
-    """Check the CUDA inputs of kernel 4 and allocate its outputs and
-    scratch.  ``item_chunks``: chunks a work item, by default
-    ``matched_item_chunks``.  Returns (the launcher's arguments, (dist,
-    idx, pay) with the batch dims of query_p, the flattened inputs and the
-    scratch, which the caller holds until the launch is enqueued)."""
+    """Kernel 4's launch: (the launcher's arguments, (dist, idx, pay),
+    what the caller holds); see ``_items_args``."""
+    return _items_args("nn_matched", query_p, dbf_cm, d_dim, item_chunks,
+                       q_per_thread)
+
+
+def _items_args(name: str, query_p: Tensor, dbf_cm: Tensor, d_dim: int,
+                item_chunks, q_per_thread: int):
+    """Check the CUDA inputs of kernel 4 (``name`` "nn_matched") or 5
+    ("nn_sweep", no payload) and allocate their outputs and scratch.
+    ``item_chunks``: chunks a work item, by default
+    ``matched_item_chunks``.  Returns (the launcher's arguments, the
+    outputs with the batch dims of query_p: (dist, idx, pay) for kernel 4,
+    (dist, idx) for kernel 5; the flattened inputs and the scratch, which
+    the caller holds until the launch is enqueued)."""
     f_dim = dbf_cm.shape[-2] - d_dim
-    _check("nn_matched", query_p, (("query", query_p, torch.float32),
-                                   ("dbf_cm", dbf_cm, torch.float32)),
-           d_dim, f_dim, MATCHED_INSTANCES)
+    _check(name, query_p, (("query", query_p, torch.float32),
+                           ("dbf_cm", dbf_cm, torch.float32)),
+           d_dim, f_dim,
+           MATCHED_INSTANCES if name == "nn_matched" else SWEEP_INSTANCES)
     if q_per_thread not in _PRUNED_Q:
-        raise ValueError(f"nn_matched: queries per thread must be one of "
+        raise ValueError(f"{name}: queries per thread must be one of "
                          f"{_PRUNED_Q}, got {q_per_thread}")
     batch, q3, db3 = _batched(query_p, dbf_cm, d_dim)
     b, qp, _ = q3.shape
@@ -470,24 +480,29 @@ def _nn_matched_args(query_p: Tensor, dbf_cm: Tensor, d_dim: int,
     if item_chunks is None:
         item_chunks = matched_item_chunks(b, qp, m_pad, q_per_thread)
     if db3.data_ptr() % 16 or item_chunks < 1:
-        raise ValueError("nn_matched: dbf_cm must be 16-byte aligned and "
+        raise ValueError(f"{name}: dbf_cm must be 16-byte aligned and "
                          "work items hold at least one chunk")
     g = MATCHED_THREADS * q_per_thread
     n_groups = -(-qp // g)
     n_items = -(-(m_pad // _STAGE) // item_chunks)
     dev = q3.device
-    tickets = _tickets(dev, b * n_groups)
+    tickets = _tickets(dev, b * n_groups, name)
     part = torch.empty(b * n_groups * n_items * 2 * g if n_items > 1 else 1,
                        dtype=torch.float32, device=dev)
     dist = torch.empty((b, qp), dtype=torch.float32, device=dev)
     idx = torch.empty((b, qp), dtype=torch.int32, device=dev)
-    pay = torch.empty((b, qp, f_dim), dtype=torch.float32, device=dev)
+    out = (dist.reshape(*batch, qp), idx.reshape(*batch, qp))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (q3.data_ptr(), db3.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-            pay.data_ptr(), part.data_ptr(), tickets.data_ptr(), b, qp,
-            d_dim, f_dim, m_pad, item_chunks, q_per_thread, stream)
-    return args, (dist.reshape(*batch, qp), idx.reshape(*batch, qp),
-                  pay.reshape(*batch, qp, f_dim)), (q3, db3, part)
+    args = (q3.data_ptr(), db3.data_ptr(), dist.data_ptr(), idx.data_ptr())
+    if name == "nn_matched":
+        pay = torch.empty((b, qp, f_dim), dtype=torch.float32, device=dev)
+        out += (pay.reshape(*batch, qp, f_dim),)
+        args += (pay.data_ptr(),)
+    args += (part.data_ptr(), tickets.data_ptr(), b, qp, d_dim)
+    if name == "nn_matched":
+        args += (f_dim,)
+    args += (m_pad, item_chunks, q_per_thread, stream)
+    return args, out, (q3, db3, part)
 
 
 def nn_pruned(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor, bbox: Tensor,

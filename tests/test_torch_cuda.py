@@ -8,8 +8,9 @@ and ``--noconftest`` keeps the JAX test setup out):
 
 Tolerances: nn_list, nn_pairs, nn_pairs_list, nn_sweep, nn_matched and
 nn_pruned are bitwise equal to their plain versions (indices, distances
-and payload) and to a brute-force sweep, nn_matched and nn_pruned at
-every work-item split.  irls_loop's medians and sigmas
+and payload) and to a brute-force sweep, nn_sweep, nn_matched and
+nn_pruned at every work-item split; icp2d_frame's result is bitwise the
+same at every cluster size.  irls_loop's medians and sigmas
 are bitwise those of the exact median and of gn_stats.  irls_loop,
 irls_loop_batched, icp2d_frame, icp2d_frame_pairs and p2l_loop take
 their sums in another order than the plain versions: rot and t within
@@ -245,17 +246,53 @@ def test_irls_loop_cluster_medians_bitwise_and_counts(dev, n):
     assert torch.equal(out[10:12], stats[12:14])
 
 
-@pytest.mark.parametrize("n,pad", [(600, 768), (1400, 1536)])
-def test_icp2d_frame_kernel_matches_plain(dev, n, pad):
+@pytest.mark.parametrize("n,pad,case", [
+    pytest.param(600, 768, "plain", id="600-768"),
+    pytest.param(1400, 1536, "plain", id="1400-1536"),
+    pytest.param(1536, 1536, "plain", id="1536-1536"),
+    pytest.param(1536, 1536, "ties", id="ties"),
+    pytest.param(1200, 1536, "masked", id="masked"),
+    pytest.param(600, 768, "fixed-point", id="fixed-point")])
+def test_icp2d_frame_kernel_matches_plain(dev, n, pad, case):
+    """Kernel 3 against its plain version within SOLVER_TOL with equal
+    outer iteration counts, on its launcher's cluster and on every
+    cluster size (each bitwise equal to the launcher's: the matches are
+    the same and the leader runs the one IRLS loop): dst with every point
+    twice ("ties"), masked src and dst rows, and a pair warm-started at
+    the plain version's result, its fixed point."""
     sp, sm, dp, dm = _pair(dev, n=n, pad=pad, seed=1)
+    if case == "ties":
+        dp = torch.cat([dp[:pad // 2], dp[:pad // 2]])
+        dm = torch.cat([dm[:pad // 2], dm[:pad // 2]])
+    if case == "masked":
+        gen = torch.Generator().manual_seed(3)
+        sm = sm & (torch.rand(pad, generator=gen) > 0.2).to(dev)
+        dm = dm & (torch.rand(pad, generator=gen) > 0.2).to(dev)
     cfg = ICPConfig(det_rel_eps=1e-9)
     t0 = RigidTransform2.identity(device=dev)
+    if case == "fixed-point":
+        rot_0, t_0, _ = align2d_cuda.icp2d_frame_plain(sp, dp, sm, dm, t0,
+                                                       cfg)
+        t0 = RigidTransform2(rot_0, t_0)
+    before = cuda_build.LAUNCHES["icp2d_frame"]
     rot, t, it = align2d_cuda.icp2d_frame(sp, dp, sm, dm, t0, cfg)
+    assert cuda_build.LAUNCHES["icp2d_frame"] == before + 1
     rot_p, t_p, it_p = align2d_cuda.icp2d_frame_plain(sp, dp, sm, dm, t0,
                                                       cfg)
     assert int(it) == it_p
+    if case == "fixed-point":
+        assert int(it) <= 2
     torch.testing.assert_close(rot, rot_p, atol=SOLVER_TOL, rtol=0)
     torch.testing.assert_close(t, t_p, atol=SOLVER_TOL, rtol=0)
+    ref = align2d_cuda.icp2d_frame_raw(sp, dp, sm, dm, t0, cfg)
+    _, largs, out, _keep = align2d_cuda._icp2d_frame_args(sp, dp, sm, dm,
+                                                          t0, cfg)
+    fn = cuda_build.query("icp2d_frame_launch_cluster")
+    assert cuda_build.query("icp2d_frame_cluster")(n) == 16
+    for c in align2d_cuda.FRAME_CLUSTERS:
+        assert fn(*largs[:-1], c, largs[-1]) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, ref), c
 
 
 def test_odometry_on_the_card_tracks_the_plain_path(dev):
@@ -661,15 +698,17 @@ def test_nn_sweep_and_matched_kernels_bitwise_equal_to_plain(dev, d, f_dim,
                  pay)
 
 
-@pytest.mark.parametrize("d,f_dim", [(2, 2), (3, 2), (3, 3), (3, 4)])
+@pytest.mark.parametrize("d,f_dim", [(2, 2), (3, 2), (3, 3), (3, 4),
+                                     (2, 0), (3, 0)])
 @pytest.mark.parametrize("batched", [False, True])
 def test_nn_matched_kernel_at_item_boundaries(dev, d, f_dim, batched):
-    """Kernel 4's work items: the wrapper's, one item (the whole db), one
-    chunk an item and 3 chunks (the last ragged), at 1, 4 and 8 queries a
-    thread with a ragged last query group.  Bitwise equal to the plain
-    version, to the schedule's emulation and to brute force, two launches
-    bitwise equal; ties every 640 points (on item boundaries), and with a
-    batch axis one pair's db fully masked."""
+    """Kernel 4's work items (kernel 5's, nn_sweep, for F = 0): the
+    wrapper's, one item (the whole db), one chunk an item and 3 chunks
+    (the last ragged), at 2, 4 and 8 queries a thread with a ragged last
+    query group.  Bitwise equal to the plain version, to the schedule's
+    emulation and to brute force, two launches bitwise equal; ties every
+    640 points (on item boundaries), and with a batch axis one pair's db
+    fully masked."""
     from icp_rust_tpu_torch.ops import nn_sweep_cuda
 
     rng = np.random.default_rng(20 + d + f_dim)
@@ -691,29 +730,38 @@ def test_nn_matched_kernel_at_item_boundaries(dev, d, f_dim, batched):
     query_p = torch.zeros((*query.shape[:-2], 768, d), device=dev)
     query_p[..., :640, :] = query
     dbf = nn_cuda._dbf_cm_matched(db, mask, pay, 2048)
-    before = cuda_build.LAUNCHES["nn_matched"]
-    got = nn_sweep_cuda.nn_matched(query_p, dbf, d)
-    again = nn_sweep_cuda.nn_matched(query_p, dbf, d)
-    assert cuda_build.LAUNCHES["nn_matched"] == before + 2
-    want = nn_sweep_cuda.nn_matched_plain(query_p, dbf, d)
+    if f_dim:
+        name, args, make = "nn_matched", (query_p, dbf, d), \
+            nn_sweep_cuda._nn_matched_args
+        kernel, plain = nn_sweep_cuda.nn_matched, \
+            nn_sweep_cuda.nn_matched_plain
+    else:
+        name, args, make = "nn_sweep", (query_p, dbf), \
+            nn_sweep_cuda._nn_sweep_args
+        kernel, plain = nn_sweep_cuda.nn_sweep, nn_sweep_cuda.nn_sweep_plain
+    before = cuda_build.LAUNCHES[name]
+    got = kernel(*args)
+    again = kernel(*args)
+    assert cuda_build.LAUNCHES[name] == before + 2
+    want = plain(*args)
     torch.cuda.synchronize()
     for a, w, c in zip(got, want, again):
         assert torch.equal(a, w) and torch.equal(a, c)
     for item in (1, 3, 16):
         emul = nn_sweep_cuda.matched_items(query_p, dbf, d, item)[:3]
         for q in (2, 4, 8):
-            largs, out, _keep = nn_sweep_cuda._nn_matched_args(
-                query_p, dbf, d, item_chunks=item, q_per_thread=q)
-            assert cuda_build.launcher("nn_matched")(*largs) == 0
+            largs, out, _keep = make(*args, item_chunks=item, q_per_thread=q)
+            assert cuda_build.launcher(name)(*largs) == 0
             torch.cuda.synchronize()
             for a, w, e in zip(out, want, emul):
                 assert torch.equal(a, w) and torch.equal(a, e)
     _brute_equal(got[1][..., :640], nn_cuda._trim_sentinel(got[0][..., :640]),
-                 got[2][..., :640, :], query, db, mask, pay)
+                 got[2][..., :640, :] if f_dim else None, query, db, mask,
+                 pay)
     assert bool((got[1][..., :640] < 640).all())
     if batched:
         assert bool(torch.isinf(got[0][1]).all()) and not bool(got[1][1].any())
-        assert not bool(got[2][1].any())
+        assert not f_dim or not bool(got[2][1].any())
 
 
 @pytest.mark.parametrize("f_dim", [0, 4])

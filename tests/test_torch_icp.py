@@ -265,3 +265,34 @@ def test_icp2d_over_two_batch_axes_matches_jax():
                                rtol=0)
     np.testing.assert_allclose(st.inlier_fraction.numpy(),
                                np.array(jst.inlier_fraction), atol=1e-6)
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("n,m", [(700, 768), (1536, 1536)])
+def test_frame_cluster_sweep_is_the_first_minimum(n, m, cluster):
+    """icp2d_frame's sweep on a cluster (``align2d_cuda.frame_sweep``):
+    query slices over blocks, dst segments over a block's threads, merged
+    lexicographically.  Bitwise equal to a brute-force first-minimum
+    sweep, the one-block kernel's, with every dst point twice (the copies
+    in other segments, ties straddling segment boundaries), queries on dst
+    points and masked dst rows; a fully masked dst gives (+inf, 0)."""
+    from icp_rust_tpu_torch.ops import align2d_cuda as ac
+    from icp_rust_tpu_torch.ops.nn_cuda import _SENTINEL
+
+    rng = np.random.default_rng(n + cluster)
+    base = rng.uniform(-3, 3, (m // 2, 2)).astype(np.float32)
+    dst = torch.as_tensor(np.concatenate([base, base]))
+    query = torch.as_tensor(rng.uniform(-3, 3, (n, 2)).astype(np.float32))
+    query[::3] = dst[torch.as_tensor(rng.integers(0, m, len(query[::3])))]
+    dst[torch.as_tensor(rng.random(m) < 0.1)] = _SENTINEL
+    ex = query[:, None, 0] - dst[None, :, 0]
+    ey = query[:, None, 1] - dst[None, :, 1]
+    want_d, want_i = torch.min(ex * ex + ey * ey, dim=1)
+    got_d, got_i = ac.frame_sweep(query, dst, cluster)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+    segs = {seg for _, s_n, seg, _ in ac.frame_sweep_plan(n, m, cluster)
+            if s_n}
+    assert max(segs) > 1 or cluster < 8
+    none = torch.full_like(dst, _SENTINEL)
+    got_d, got_i = ac.frame_sweep(query, none, cluster)
+    assert bool(torch.isinf(got_d).all()) and not bool(got_i.any())

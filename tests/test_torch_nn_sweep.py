@@ -177,15 +177,18 @@ def test_pruned_items_merge_bitwise(case, d, f_dim, q_tile, item):
         assert sum(sweeps) < n_groups * n_db  # the items do prune
 
 
-@pytest.mark.parametrize("d,f_dim", [(2, 2), (2, 4), (3, 2), (3, 4)])
+@pytest.mark.parametrize("d,f_dim", [(2, 2), (2, 4), (3, 2), (3, 4),
+                                     (2, 0), (3, 0)])
 def test_matched_items_merge_bitwise(d, f_dim):
-    """Kernel 4's schedule (``matched_items``): the db cut into work items
-    of 1, 2, 3 and 5 chunks of 128, each swept ascending, the items merged
-    lexicographically, the payload read at the winner.  Bitwise equal to
-    the plain version (one ascending sweep) and to brute force, and to
-    _nn_matched_2d in interpret mode (distances within D - 1 ulp), on a
-    batch of two pairs: one whose db holds every point twice, 320 apart,
-    so that ties straddle item boundaries, and one fully masked."""
+    """Kernels 4 and 5's schedule (``matched_items``; kernel 5 with F =
+    0): the db cut into work items of 1, 2, 3 and 5 chunks of 128, each
+    swept ascending, the items merged lexicographically, the payload read
+    at the winner.  Bitwise equal to the plain version (one ascending
+    sweep; ``nn_sweep_plain`` for F = 0) and to brute force, and to
+    _nn_matched_2d (F = 0: _nn_pallas_2d) in interpret mode (distances
+    within D - 1 ulp), on a batch of two pairs: one whose db holds every
+    point twice, 320 apart, so that ties straddle item boundaries, and one
+    fully masked."""
     rng = np.random.default_rng(90 + 4 * d + f_dim)
     base = rng.uniform(-3, 3, (320, d)).astype(np.float32)
     db = np.stack([np.concatenate([base, base]),
@@ -200,17 +203,26 @@ def test_matched_items_merge_bitwise(d, f_dim):
     qp = _t(np.stack([p[0] for p in packed]))
     dbf = _t(np.stack([p[1] for p in packed]))
     plain = sw.nn_matched_plain(qp, dbf, d)
+    if not f_dim:
+        assert all(torch.equal(a, b) for a, b in
+                   zip(sw.nn_sweep_plain(qp, dbf), plain))
     for item in (1, 2, 3, 5):
         *got, n_items = sw.matched_items(qp, dbf, d, item)
         assert n_items == -(-5 // item)
         for a, b in zip(got, plain):
             assert torch.equal(a, b)
     for k in range(2):
-        want = j_pallas._nn_matched_2d(
-            jnp.asarray(packed[k][0]), jnp.asarray(packed[k][1]), d_dim=d,
-            q_tile=256, db_tile=640, interpret=True)
+        q_k, db_k = jnp.asarray(packed[k][0]), jnp.asarray(packed[k][1])
+        if f_dim:
+            want = j_pallas._nn_matched_2d(q_k, db_k, d_dim=d, q_tile=256,
+                                           db_tile=640, interpret=True)
+            np.testing.assert_array_equal(got[2][k].numpy(),
+                                          np.array(want[2]))
+        else:
+            want = j_pallas._nn_pallas_2d(q_k, db_k, q_tile=256,
+                                          db_tile=640, interpret=True)
+            assert got[2].shape[-1] == 0
         np.testing.assert_array_equal(got[1][k].numpy(), np.array(want[1]))
-        np.testing.assert_array_equal(got[2][k].numpy(), np.array(want[2]))
         _close(got[0][k].numpy(), want[0], d)
     brute = nn.nn_torch(_t(query[0]), _t(db[0]))
     assert torch.equal(got[1][0, :300], brute.index)

@@ -156,7 +156,7 @@ def test_chip_smoke_phases_rehearse_on_cpu(chip_smoke, capsys):
     recs = [
         chip_smoke.phase_nn_list("cpu", stride=24, tile=256, q_tile=64),
         *chip_smoke.phase_irls("cpu", stride=24),
-        chip_smoke.phase_frame("cpu", n=120, pad=128),
+        *chip_smoke.phase_frame("cpu", n=120, pad=128, n_max=256),
     ]
     for rec in recs:
         assert rec["max_abs_err"] == 0.0  # the same code on the CPU
