@@ -46,10 +46,13 @@ frames, each subsampled to a seeded count in 411-670 points, padded to
 
 6. nn_pairs and nn_pairs_list (pair-grid exact 1-NN) vs their plain
    versions at the batched path's shapes (xy payload, Morton-sorted): cold
-   +inf bounds, the warm bounds of one real outer step, a masked db, exact
-   ties, and 4 pairs at the 4096-point db limit.  Indices, distances and
-   payload must be bitwise equal, and equal to a brute-force sweep.
-   nn_pairs_list timed by its launcher alone and by its wrapper.
+   +inf bounds (every chunk listed), the warm bounds of one real outer
+   step, a masked db, exact ties, and 4 pairs at the 4096-point db limit.
+   Indices, distances and payload must be bitwise equal, and equal to a
+   brute-force sweep; nn_pairs_list also to its schedule's emulation, and
+   at work items of 1 to all list entries with 1, 2 and 4 queries a
+   thread (each printed with its launcher-alone time).  nn_pairs_list
+   timed by its launcher alone and by its wrapper.
 7. irls_loop_batched vs its plain version on the 209 pairs' first-iteration
    correspondences, plus an all-masked pair and a one-point pair, and on
    every call of phase 17's ``run_slam2d`` over 12 full xy frames
@@ -59,8 +62,11 @@ frames, each subsampled to a seeded count in 411-670 points, padded to
    on one block a pair and at clusters of 1, 2, 4, 8 and 16 blocks a pair,
    and by its wrapper; prints the clusters the card holds at once.
 8. icp2d_frame_pairs vs its plain version on the 209 unsorted pairs: rot
-   and t within FRAME_TOL per pair, equal outer iteration counts; timed
-   by its launcher alone and by its wrapper.
+   and t within FRAME_TOL per pair, equal outer iteration counts (their
+   spread printed); timed by its launcher alone on its setting and on
+   every (blocks a pair, threads a block) of which the card holds all 209
+   clusters at once (each within FRAME_TOL, bitwise equal at one thread
+   count), and by its wrapper.
 9. The batched path: ``parallel.sharded.batched_icp2d`` with
    ``frame_backend="auto"`` run twice (the second run is timed): pairs/s,
    per-pair error against the ground-truth relative transforms (gate: max
@@ -176,11 +182,13 @@ operations / 67 TFLOP/s (H100 SXM float32 without tensor cores).
 
     python3 chip_smoke.py --times
 
-builds the kernels and only times kernels 3, 4, 5 and 7 by their
-launchers alone at every shape their paths give them, with kernel 3's
-split of an outer iteration into its sweep, IRLS loop and tail
-(``kernel_times``, ``frame_split``): one JSON line, to compare two trees
-in one run on one card.
+builds the kernels and only times kernels 3, 9 and 10 by their launchers
+alone at every shape their paths give them (kernel 9 on every call of the
+batched path and of SLAM 2D, kernel 10 at 209 x 768, 64 x 1,536 and B =
+1), at every schedule or setting the tree has, with the two frame
+kernels' splits of an outer iteration into its sweep, IRLS loop and tail
+per pair (``kernel_times``, ``frame_split``): one JSON line, to compare
+two trees in one run on one card.
 
     python3 chip_smoke.py --profile
 
@@ -832,10 +840,12 @@ def scans2d(n_scans: int = BATCH_SCANS, pad: int = BATCH_PAD, seed: int = 6):
     return pts, mask, th[:-1] - th[1:], gt_t
 
 
-def _batch(device, n_scans: int, pad: int, sort: bool = False):
+def _batch(device, n_scans: int = BATCH_SCANS, pad: int = BATCH_PAD,
+           sort: bool = False, scans=None):
     """Pairs (scan k, scan k + 1) on ``device``: src, src_mask, dst,
-    dst_mask, each Morton-sorted per pair when ``sort``."""
-    pts, mask, _, _ = scans2d(n_scans, pad)
+    dst_mask, each Morton-sorted per pair when ``sort``; of ``scans``
+    (``scans2d``'s output) when given."""
+    pts, mask, _, _ = scans if scans is not None else scans2d(n_scans, pad)
     p = torch.as_tensor(pts, dtype=torch.float32, device=device)
     k = torch.as_tensor(mask, device=device)
     src, smask, dst, dmask = p[:-1], k[:-1], p[1:], k[1:]
@@ -852,10 +862,51 @@ def _equal_or_raise(got, want, what):
                                "version")
 
 
+def _list_schedules(args, out, device, reps: int = 20):
+    """Kernel 9 by its launcher alone at the wrapper's schedule and at
+    work items of 1, 2, 3, 4, half and all of the list's entries with 1,
+    2 and 4 queries a thread (at least a warp a block), each bitwise equal
+    to the wrapper's result ``out``: ({"I=..,Q=..": ms}, the wrapper's
+    key).  Empty on the CPU."""
+    res = {}
+    if torch.device(device).type != "cuda":
+        return res, None
+    q_sub, cap = args[5], args[2].shape[-1]
+    item0, q0 = nn_pairs_cuda.list_schedule(q_sub, cap)
+    items = sorted({1, 2, 3, 4, -(-cap // 2), cap} & set(range(1, cap + 1)))
+    shapes = [(item0, q0)] + [(i, q) for q in (1, 2, 4) for i in items
+                              if q_sub // q >= 32 and (i, q) != (item0, q0)]
+    for item, q in shapes:
+        largs, got, keep = nn_pairs_cuda._nn_pairs_list_args(
+            *args, item=item, q_per_thread=q)
+        res[f"I={item},Q={q}"] = launcher_ms("nn_pairs_list", largs, device,
+                                             reps=reps)
+        _sync(device)
+        if not all(torch.equal(a, b) for a, b in zip(got, out)):
+            raise RuntimeError(f"nn_pairs_list: items of {item} entries and "
+                               f"{q} queries a thread change the result")
+        del keep
+    return res, f"I={item0},Q={q0}"
+
+
+def _list_walk(cnt, item: int) -> str:
+    """What one kernel 9 call walks at items of ``item`` entries (a host
+    read, for reports): chunk-walks, work items, the longest block's
+    chunks."""
+    c = cnt.to(torch.int64).cpu()
+    n_items = -(-c // item)
+    longest = int(torch.clamp(c, max=item).max()) if c.numel() else 0
+    return (f"{int(c.sum())} chunk-walks in {int(n_items.sum())} work items "
+            f"of {item} entries (longest block {longest} chunks, longest "
+            f"list {int(c.max())})")
+
+
 def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
                    pad: int = BATCH_PAD, big_pairs: int = 4,
                    big_db: int = 4096, q_sub: int = nn_pairs_cuda.Q_SUB):
-    """Kernels 8 and 9 vs their plain versions and a brute-force sweep."""
+    """Kernels 8 and 9 vs their plain versions and a brute-force sweep;
+    kernel 9 also vs its schedule's emulation, and at every schedule of
+    ``_list_schedules``."""
     src, smask, dst, dmask = _batch(device, n_scans, pad, sort=True)
     eps = torch.finfo(torch.float32).eps
     grp = min(nn_pairs_cuda.LIST_GRP, q_sub)
@@ -871,6 +922,7 @@ def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
         for kind, qb in bounds.items():
             query_p, dbf, cbox, qb_p = nn_pairs_cuda.prepare(
                 query, db, dm, db, qb, q_sub)
+            walk = ""
             if kind == "static":
                 qbox = nn_pairs_cuda._query_boxes(query_p, q_sub)
                 gb = nn_pairs_cuda._group_bounds(qb_p, q_sub)
@@ -882,10 +934,15 @@ def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
             else:
                 lists, cnt = nn_pairs_cuda._survivor_lists(
                     query_p, cbox, qb_p, 2, q_sub, grp)
-                args = (query_p, dbf, lists, cnt, 2, q_sub)
+                args = (query_p, dbf, lists, cnt, 2, q_sub, qb_p, cbox)
                 fn = nn_pairs_cuda.nn_pairs_list
                 plain = nn_pairs_cuda.nn_pairs_list_plain
                 walked = int(cnt.sum())
+                item = nn_pairs_cuda.list_schedule(q_sub, lists.shape[-1])[0]
+                pairs = nn_pairs_cuda.group_walks(*args)
+                walk = (f"; {_list_walk(cnt, item)}; after the per-group "
+                        f"test {pairs} (query, point) pairs of "
+                        f"{walked * q_sub * 128}")
             got = fn(*args)
             want = plain(*args)
             _sync(device)
@@ -900,19 +957,30 @@ def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
                     and torch.equal(dist, brute.dist_sq)
                     and torch.equal(got[2][:, :n_q][hit], want_pay[hit])):
                 raise RuntimeError(f"{what}: differs from brute force")
+            schedules = {}
+            if kind == "list":
+                emul = nn_pairs_cuda.pairs_list_items(*args, item=item)
+                _equal_or_raise(got, emul[:3],
+                                f"{what} (the items' emulation)")
+                walk += ", bitwise equal to the items' emulation"
+                schedules = _list_schedules(args, got, device)[0]
+                if schedules:
+                    walk += f"; by schedule {schedules} ms"
             n_slots = query_p.shape[0] * (query_p.shape[1] // q_sub) \
                 * (dbf.shape[2] // 128)
             case_ms = time_ms(lambda: fn(*args), device, reps=10)
             print(f"# {what}: bitwise equal to plain and brute force; "
                   f"{query.shape[0]} pairs x {n_q} queries x {db.shape[1]} "
                   f"db points; chunks walked {walked} of {n_slots}; "
-                  f"{case_ms:.4f} ms")
-            timed[(kind, name)] = dict(fn=fn, plain=plain, args=args,
-                                       walked=walked, ms=case_ms)
+                  f"{case_ms:.4f} ms{walk}")
+            timed[(kind, name)] = dict(
+                fn=fn, plain=plain, args=args, ms=case_ms,
+                schedules=schedules,
+                pairs=pairs if kind == "list" else walked * q_sub * 128)
         return brute, want_pay
 
-    inf_b = {"static": None}
-    brute, matched = run_case("cold", src, dst, dmask, inf_b)
+    brute, matched = run_case("cold", src, dst, dmask,
+                              {"static": None, "list": None})
     # One real outer step: the batched solve on the cold correspondences,
     # then the warm bounds of the next iteration.
     cfg = _config()
@@ -939,15 +1007,7 @@ def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
     dup_m = torch.cat([dmask[:, :half], dmask[:, :half]], dim=1)
     run_case("ties", dup, dup, dup_m,
              {"static": None, "list": tight(dup, dup, dup_m)})
-    # The db-size limit of the pair-grid route: 4096-point dbs.
-    frames, _ = io.synthesize_frames3d(big_pairs + 1, seed=8)
-    rng = np.random.default_rng(8)
-    xy_b = [f[rng.choice(len(f), big_db, replace=False), :2] for f in frames]
-    pts_b = torch.as_tensor(np.stack(xy_b), dtype=torch.float32,
-                            device=device)
-    ones = torch.ones(pts_b.shape[:2], dtype=torch.bool, device=device)
-    q_b, qm_b, _ = m_icp._spatial_sort(pts_b[:-1, :pad], ones[:-1, :pad])
-    db_b, dm_b, _ = m_icp._spatial_sort(pts_b[1:], ones[1:])
+    q_b, db_b, dm_b = _big_db_case(device, big_pairs, big_db, pad)
     run_case(f"db-{big_db}", q_b, db_b, dm_b,
              {"static": None, "list": tight(q_b, db_b, dm_b)})
 
@@ -962,19 +1022,23 @@ def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
         if kind == "list" and torch.device(device).type == "cuda":
             # Kernel 9 by its launcher alone: its wrapper's time is the
             # host's.
-            largs, _out = nn_pairs_cuda._nn_pairs_list_args(*args)
-            extra = dict(wrapper_ms=ms)
+            largs, _out, keep = nn_pairs_cuda._nn_pairs_list_args(*args)
+            extra = dict(wrapper_ms=ms, schedules_ms=c["schedules"])
             ms = launcher_ms("nn_pairs_list", largs, device)
+            del keep
             print(f"# nn_pairs_list warm: launcher alone {ms} ms, wrapper "
                   f"{extra['wrapper_ms']:.4f} ms")
         plain_ms = time_ms(lambda: c["plain"](*args), device, reps=3)
         query_p, dbf = args[0], args[1]
-        tables = sum(x.numel() * 4 for x in args[2:-2])
+        tables = sum(x.numel() * 4 for x in args[2:] if torch.is_tensor(x))
         n_bytes = (query_p.numel() * 4 + dbf.numel() * 4 + tables
                    + query_p.shape[0] * query_p.shape[1]
                    * (4 + 4 + 4 * (dbf.shape[1] - 2)))
-        pairs = float(c["walked"]) * 128 * q_sub
+        pairs = float(c["pairs"])
         b, by = bound_ms(n_bytes, pairs * NN_OPS_PER_PAIR_2D)
+        if kind == "list":
+            extra["issue_floor_ms"] = \
+                pairs * NN_INSTR_PER_PAIR[2] / PEAK_F32_INSTR_PER_S * 1e3
         records.append(dict(
             name=rec_name, route="cuda", path="batched",
             source=f"icp_rust_tpu_torch/csrc/{src_file}",
@@ -982,6 +1046,21 @@ def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
             max_abs_err=errs[kind], ms=ms, plain_ms=plain_ms, bound_ms=b,
             bound_by=by, library_ms=None, extra=extra))
     return records
+
+
+def _big_db_case(device, big_pairs: int = 4, big_db: int = 4096,
+                 pad: int = BATCH_PAD):
+    """The db-size limit of the pair-grid route: ``big_pairs`` pairs of
+    ``pad`` queries against ``big_db``-point dbs, Morton-sorted."""
+    frames, _ = io.synthesize_frames3d(big_pairs + 1, seed=8)
+    rng = np.random.default_rng(8)
+    xy_b = [f[rng.choice(len(f), big_db, replace=False), :2] for f in frames]
+    pts_b = torch.as_tensor(np.stack(xy_b), dtype=torch.float32,
+                            device=device)
+    ones = torch.ones(pts_b.shape[:2], dtype=torch.bool, device=device)
+    q_b, _, _ = m_icp._spatial_sort(pts_b[:-1, :pad], ones[:-1, :pad])
+    db_b, dm_b, _ = m_icp._spatial_sort(pts_b[1:], ones[1:])
+    return q_b, db_b, dm_b
 
 
 def _irls_batched_inputs(device, n_scans: int = BATCH_SCANS,
@@ -1134,41 +1213,110 @@ def phase_irls_batched_wide(device="cuda", wide_frames: int = 12,
                                 iterations=first_its.tolist())
 
 
-def phase_frame_pairs(device="cuda", n_scans: int = BATCH_SCANS,
-                      pad: int = BATCH_PAD):
-    """Kernel 10 vs its plain version on the unsorted pairs."""
-    cfg = _config()
-    src, smask, dst, dmask = _batch(device, n_scans, pad)
-    b = src.shape[0]
-    t0 = RigidTransform2.identity((b,), dtype=torch.float32, device=device)
-    args = (src, dst, smask, dmask, t0, cfg)
+def _frame_pairs_check(args, what: str, strict: bool = True):
+    """Kernel 10 through its wrapper against its plain version on one
+    batch: rot and t within FRAME_TOL per pair, equal outer iteration
+    counts (when ``strict``; else a miss is printed and returned).
+    Returns (max |diff|, outer iterations per pair, the plain version's
+    (rot, t), the pairs whose counts differ)."""
     rot, t, its = align2d_cuda.icp2d_frame_pairs(*args)
     rot_p, t_p, its_p = align2d_cuda.icp2d_frame_pairs_plain(*args)
     err = max(float(torch.max(torch.abs(rot - rot_p))),
               float(torch.max(torch.abs(t - t_p))))
     its_k = its.to(torch.int64).cpu()
     its_pl = its_p.to(torch.int64).cpu()
-    print(f"# icp2d_frame_pairs: {b} pairs; outer iterations per pair "
-          f"kernel min {int(its_k.min())} max {int(its_k.max())} sum "
-          f"{int(its_k.sum())}, plain sum {int(its_pl.sum())}; max |diff| "
-          f"rot/t {err:.3e} (tol {FRAME_TOL})")
-    if not err <= FRAME_TOL:
-        raise RuntimeError(f"icp2d_frame_pairs differs from its plain "
-                           f"version: {err}")
-    if not torch.equal(its_k, its_pl):
-        raise RuntimeError("icp2d_frame_pairs: outer iteration counts "
-                           "differ from the plain version's")
+    spread = torch.bincount(its_k).tolist()
+    print(f"# icp2d_frame_pairs {what}: {its_k.shape[0]} pairs; outer "
+          f"iterations per pair kernel min {int(its_k.min())} median "
+          f"{float(its_k.double().median()):.1f} max {int(its_k.max())} sum "
+          f"{int(its_k.sum())} (pairs by count {spread}), plain sum "
+          f"{int(its_pl.sum())}; max |diff| rot/t {err:.3e} (tol "
+          f"{FRAME_TOL})")
+    differ = int((its_k != its_pl).sum())
+    if strict and not err <= FRAME_TOL:
+        raise RuntimeError(f"icp2d_frame_pairs {what} differs from its "
+                           f"plain version: {err}")
+    if strict and differ:
+        raise RuntimeError(f"icp2d_frame_pairs {what}: outer iteration "
+                           "counts differ from the plain version's")
+    if differ or not err <= FRAME_TOL:
+        worst = torch.argmax(torch.maximum(
+            torch.amax(torch.abs(rot - rot_p), dim=(-2, -1)),
+            torch.amax(torch.abs(t - t_p), dim=-1))).item()
+        print(f"# icp2d_frame_pairs {what}: OUTSIDE FRAME_TOL: max |diff| "
+              f"{err:.3e} at pair {worst} (outer iterations {its_k[worst]}, "
+              f"plain {its_pl[worst]}), {differ} counts differ")
+    return err, its_k, (rot_p, t_p), differ
+
+
+def _frame_pairs_settings(args, plain, device, reps: int = 10,
+                          tol: float = FRAME_TOL):
+    """Kernel 10 by its launcher alone on the wrapper's (blocks a pair,
+    threads a block) and, where the tree has them, on every setting of
+    PAIRS_SHAPES of which the card holds all B clusters at once and that
+    leaves 32 query rows a block: each within ``tol`` of the plain
+    version ``plain`` (rot, t) with the wrapper's outer iteration counts,
+    and bitwise equal to the other settings of its thread count.  Returns
+    (ms on the wrapper's setting, {"C=..,T=..": ms}, the wrapper's
+    setting)."""
+    _, largs, out, keep = align2d_cuda._icp2d_frame_args(*args)
+    ms = launcher_ms("icp2d_frame_pairs", largs, device, reps=reps)
+    _sync(device)
+    ref = out.clone()
+    del keep
+    shapes = getattr(align2d_cuda, "PAIRS_SHAPES", ())
+    if not shapes:
+        return ms, {}, None
+    b, n, m = args[0].shape[0], args[0].shape[1], args[1].shape[1]
+    chosen = align2d_cuda.frame_pairs_shape(
+        b, n, lambda c, t: align2d_cuda._frame_resident(n, m, c, t))
+    by_shape, by_threads = {}, {}
+    rot_p, t_p = plain
+    for c, t in shapes:
+        if not ((c == 1 or n >= 32 * c)
+                and align2d_cuda._frame_resident(n, m, c, t) >= b):
+            continue
+        _, largs, o, keep = align2d_cuda._icp2d_frame_args(*args,
+                                                           shape=(c, t))
+        by_shape[f"C={c},T={t}"] = launcher_ms("icp2d_frame_pairs", largs,
+                                               device, reps=reps)
+        _sync(device)
+        err = max(float(torch.max(torch.abs(o[:, :4] - rot_p.reshape(-1, 4)))),
+                  float(torch.max(torch.abs(o[:, 4:6] - t_p))))
+        if not (err <= tol and torch.equal(o[:, 6], ref[:, 6])):
+            raise RuntimeError(f"icp2d_frame_pairs: clusters of {c} blocks "
+                               f"of {t} threads give {err} or other outer "
+                               "iteration counts")
+        first = by_threads.setdefault(t, o.clone())
+        if not torch.equal(o[:, :7], first[:, :7]):
+            raise RuntimeError(f"icp2d_frame_pairs: clusters of {c} blocks "
+                               f"of {t} threads change the result")
+        del keep
+    return ms, by_shape, chosen
+
+
+def phase_frame_pairs(device="cuda", n_scans: int = BATCH_SCANS,
+                      pad: int = BATCH_PAD):
+    """Kernel 10 vs its plain version on the unsorted pairs; timed by its
+    launcher alone on its setting and on every setting the card holds at
+    once, and by its wrapper."""
+    cfg = _config()
+    src, smask, dst, dmask = _batch(device, n_scans, pad)
+    b = src.shape[0]
+    t0 = RigidTransform2.identity((b,), dtype=torch.float32, device=device)
+    args = (src, dst, smask, dmask, t0, cfg)
+    err, its_k, plain, _ = _frame_pairs_check(args, f"{b}x{pad}")
     extra = {}
     if torch.device(device).type == "cuda":
         inner = align2d_cuda.icp2d_frame_raw(*args)[:, 7].double().cpu()
         wrapper_ms = time_ms(lambda: align2d_cuda.icp2d_frame_pairs(*args),
                              device, reps=10)
-        _, largs, _out, keep = align2d_cuda._icp2d_frame_args(*args)
-        ms = launcher_ms("icp2d_frame_pairs", largs, device, reps=10)
-        del keep
-        extra = dict(wrapper_ms=wrapper_ms)
-        print(f"# icp2d_frame_pairs: launcher alone {ms} ms, wrapper "
-              f"{wrapper_ms:.4f} ms")
+        ms, by_shape, chosen = _frame_pairs_settings(args, plain, device)
+        extra = dict(wrapper_ms=wrapper_ms, shape=chosen,
+                     shape_ms=by_shape)
+        print(f"# icp2d_frame_pairs: launcher alone {ms} ms on clusters of "
+              f"{chosen[0]} blocks of {chosen[1]} threads (by setting "
+              f"{by_shape}), wrapper {wrapper_ms:.4f} ms")
     else:
         inner = torch.zeros(b, dtype=torch.float64)
         ms = time_ms(lambda: align2d_cuda.icp2d_frame_pairs(*args), device,
@@ -1180,6 +1328,13 @@ def phase_frame_pairs(device="cuda", n_scans: int = BATCH_SCANS,
     ops = float((its_k.double() * n_src * (n_dst * NN_OPS_PER_PAIR_2D + 6)
                  + inner * n_src * IRLS_OPS_PER_POINT).sum())
     b_ms, by = bound_ms(b * (pad * 4 * 3 + pad * 4 * 2 + 14 * 4), ops)
+    # The sweep's instructions (NN_INSTR_PER_PAIR a valid pair) at the
+    # card's instruction rate, beside the IRLS loop's counted operations.
+    extra["issue_floor_ms"] = float(
+        (its_k.double() * n_src * n_dst).sum()) * NN_INSTR_PER_PAIR[2] \
+        / PEAK_F32_INSTR_PER_S * 1e3 \
+        + float((inner * n_src).sum()) * IRLS_OPS_PER_POINT \
+        / PEAK_F32_PER_S * 1e3
     return dict(name="icp2d_frame_pairs", route="cuda", path="batched",
                 source="icp_rust_tpu_torch/csrc/icp2d_frame_pairs.cu",
                 replaces="icp_rust_tpu/ops/align2d_pallas.py:979",
@@ -2510,45 +2665,6 @@ def _capture_calls(module, name: str):
     return calls, lambda: setattr(module, name, real)
 
 
-def _slam_nn_frames(device, stride: int, n_wide: int):
-    """Phase 14's frames as run_slam3d pads them: (pts, mask)."""
-    frames, _ = io.synthesize_frames3d(max(n_wide + 1, 2), seed=0)
-    return _frames_as_run([f[::stride] for f in frames], device)
-
-
-def matched_inputs(device, stride: int = 1, small: int = 3072,
-                   n_wide: int = 8):
-    """Kernel 4's arguments (query_p, dbf_cm, D) at every shape its paths
-    give it: {path: args}.  SLAM 3D small and SLAM 2D wide as phase 14
-    builds them; submap 2D the last call of the fused wall-world run
-    (phase 20), captured."""
-    pts, mask = _slam_nn_frames(device, stride, n_wide)
-    f_src, _, _ = m_icp._spatial_sort(pts[0, :small], mask[0, :small])
-    f_dst, f_dm, _ = m_icp._spatial_sort(pts[1, :small], mask[1, :small])
-    nrm, nv = estimate_normals_voxel(f_dst, f_dm, P2L_VOXEL_M)
-    out = {"slam3d-small": _sweep_packed(
-        f_src, f_dst, f_dm, m_p2l.build_p2l_payload(f_dst, nrm, nv, f_dm),
-        256, 2048)}
-    xy = pts[:, :, :2]
-    out["slam2d-wide"] = _sweep_packed(xy[:-1], xy[1:], mask[1:], xy[1:],
-                                       256, 2048)
-    out["submap-2d"] = _submap_2d_matched_call(device)
-    return out
-
-
-def sweep_inputs(device, stride: int = 1, small: int = 3072,
-                 n_wide: int = 8):
-    """Kernel 5's arguments (query_p, db_cm) at the shapes its paths give
-    it, as phase 14 builds them: {path: args}."""
-    pts, mask = _slam_nn_frames(device, stride, n_wide)
-    xy = pts[:, :, :2]
-    return {"slam3d-small": _sweep_packed(pts[0, :small], pts[1, :small],
-                                          mask[1, :small], None, 512,
-                                          2048)[:2],
-            "slam2d-wide": _sweep_packed(xy[:-1], xy[1:], mask[1:], None,
-                                         512, 2048)[:2]}
-
-
 def frame_inputs(device, n: int = 640, pad: int = 768,
                  n_max: int = align2d_cuda.FRAME_MAX_POINTS):
     """Kernel 3's pairs: the 2D path's ``n`` points padded to ``pad``, and
@@ -2590,21 +2706,46 @@ def _frame_times(pair, device, reps: int = 20):
                 cluster_ms=clusters)
 
 
-# Kernel 3's split of its outer iterations (``frame_split``): a copy of
-# its sources, built into _build/split, with clock64() stamps that thread
-# 0 of block 0 adds up over the outer iterations into out[8:16] (int64):
-# the NN sweep up to the barrier after the matches, the IRLS loop, the
-# scalar tail up to its barrier, and the whole call.  Per design of the
-# kernel: (the file, (anchor, code inserted after it), ...); every anchor
-# occurs once.
-_SPLIT_ADD = ("    if (threadIdx.x == 0 && blockIdx.x == 0) {\n"
-              "      long long* acc = (long long*)(out + 8);\n"
-              "      acc[0] += t_nn - t_top;\n"
-              "      acc[1] += t_irls - t_nn;\n"
-              "      acc[2] += clock64() - t_irls;\n"
-              "    }\n")
+# The frame kernels' split of their outer iterations (``frame_split``):
+# a copy of a kernel's sources, built into _build/split, with clock64()
+# stamps that thread 0 of each pair's leader block adds up over the outer
+# iterations into the device array icp_split (4 int64 a pair): the NN
+# sweep up to the barrier after the matches, the IRLS loop, the scalar
+# tail up to its barrier, and the whole call.  Per design of the kernels:
+# (the stamped file, the stamping thread, its pair, (anchor, code
+# inserted after it), ...); every anchor occurs once.
+_SPLIT_PRELUDE = """#include <cuda_runtime.h>
+__device__ long long icp_split[4 * 8192];
+extern "C" int icp_split_copy(long long* to, int n) {
+  return (int)cudaMemcpyFromSymbol(to, icp_split, n * sizeof(long long), 0,
+                                   cudaMemcpyDeviceToDevice);
+}
+extern "C" int icp_split_zero(int n) {
+  void* p = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, icp_split);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemset(p, 0, n * sizeof(long long));
+}
+"""
+_SPLIT_PAIRS_MAX = 8192
+
+
+def _split_add(who: str, pair: str) -> str:
+    return (f"    if ({who}) {{\n"
+            f"      long long* acc = icp_split + 4 * ({pair});\n"
+            "      acc[0] += t_nn - t_top;\n"
+            "      acc[1] += t_irls - t_nn;\n"
+            "      acc[2] += clock64() - t_irls;\n"
+            "    }\n")
+
+
+def _split_total(pair: str) -> str:
+    return f"    icp_split[4 * ({pair}) + 3] = clock64() - t_start;\n"
+
+
 _SPLIT_STAMPS = {
-    "one-block": ("frame.cuh", (
+    # One block a pair (frame.cuh, the earlier body of kernels 3 and 10).
+    "one-block": ("frame.cuh", "threadIdx.x == 0", "blockIdx.x", (
         ("  const int tid = threadIdx.x;\n",
          "  const long long t_start = clock64();\n"),
         ("  while (fs.it < outer_iters && fs.done == 0) {\n",
@@ -2614,10 +2755,11 @@ _SPLIT_STAMPS = {
         ("    irls_loop(stx, sty, mdx, mdy, mk, n, rx, ry, P, fs.sh, d);\n",
          "    const long long t_irls = clock64();\n"),
         ("      fs.done = isid ? 1 : 0;\n    }\n    __syncthreads();\n",
-         _SPLIT_ADD),
-        ("    out[7] = (float)fs.inner;\n",
-         "    ((long long*)(out + 8))[3] = clock64() - t_start;\n"))),
-    "cluster": ("icp2d_frame.cu", (
+         "ADD"),
+        ("    out[7] = (float)fs.inner;\n", "TOTAL"))),
+    # Kernel 3 on a cluster, its own body (icp2d_frame.cu before
+    # frame_cluster.cuh).
+    "cluster": ("icp2d_frame.cu", "threadIdx.x == 0 && rank == 0", "0", (
         ("  const int tid = threadIdx.x;\n",
          "  const long long t_start = clock64();\n"),
         ("  while (fs.it < outer_iters && fs.done == 0) {\n",
@@ -2628,65 +2770,131 @@ _SPLIT_STAMPS = {
         ("      irls_loop(stx, sty, mdx, mdy, mk, n, rx, ry, P, fs.sh, d);\n",
          "      t_irls = clock64();\n"),
         ("    cluster.sync();  // T and the exit are in every block\n",
-         _SPLIT_ADD),
-        ("    out[7] = (float)fs.inner;\n",
-         "    ((long long*)(out + 8))[3] = clock64() - t_start;\n"))),
+         "ADD"),
+        ("    out[7] = (float)fs.inner;\n", "TOTAL"))),
+    # Kernels 3 and 10 on frame_cluster.cuh's body, a cluster a pair.
+    "shared": ("frame_cluster.cuh", "threadIdx.x == 0 && rank == 0", "pair", (
+        ("  const int tid = threadIdx.x;\n",
+         "  const long long t_start = clock64();\n"),
+        ("  while (fs.it < outer_iters && fs.done == 0) {\n",
+         "    const long long t_top = clock64();\n"
+         "    long long t_irls = 0;\n"),
+        ("    cluster.sync();  // the matches are in the leader\n",
+         "    const long long t_nn = clock64();\n"),
+        ("      irls_loop(stx, sty, mdx, mdy, mk, fs.n_eff, rx, ry, P, fs.sh,"
+         " d);\n",
+         "      t_irls = clock64();\n"),
+        ("    cluster.sync();  // T and the exit are in every block\n",
+         "ADD"),
+        ("    o[7] = (float)fs.inner;\n", "TOTAL"))),
 }
 
 
-def frame_split(device, reps: int = 20):
-    """Kernel 3's split of an outer iteration on the tree's design, at
-    ``frame_inputs``' shapes: cycles per outer iteration of the NN sweep,
-    the IRLS loop and the scalar tail (``_SPLIT_STAMPS``), and the same
-    in us as their share of the stamped kernel's launcher-alone time.
-    Empty on the CPU."""
+def _split_design(kernel: str) -> str:
+    """Which body of ``_SPLIT_STAMPS`` the tree's ``kernel`` (icp2d_frame
+    or icp2d_frame_pairs) runs."""
+    src = (cuda_build.CSRC / f"{kernel}.cu").read_text()
+    if '"frame_cluster.cuh"' in src:
+        return "shared"
+    if '"frame.cuh"' in src or "icp2d_frame_block(" in src:
+        return "one-block"
+    return "cluster"
+
+
+def _split_library(kernel: str):
+    """The stamped copy of ``kernel``'s library, built once per process:
+    (its launch entry, icp_split_zero, icp_split_copy, the design)."""
+    design = _split_design(kernel)
+    fname, who, pair, stamps = _SPLIT_STAMPS[design]
+    out_dir = cuda_build.BUILD_DIR / "split" / kernel
+    lib = out_dir / f"lib{kernel}_split.so"
+    if not lib.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        main = f"{kernel}.cu"
+        files = {main: (cuda_build.CSRC / main).read_text()}
+        text = (cuda_build.CSRC / fname).read_text()
+        for anchor, code in stamps:
+            if text.count(anchor) != 1:
+                raise RuntimeError(f"frame_split: {anchor!r} is not in "
+                                   f"{fname} once")
+            code = {"ADD": _split_add(who, pair),
+                    "TOTAL": _split_total(pair)}.get(code, code)
+            text = text.replace(anchor, anchor + code)
+        files[fname] = text
+        files[main] = _SPLIT_PRELUDE + files[main]
+        for name, body in files.items():
+            (out_dir / name).write_text(body)
+        subprocess.run([cuda_build._nvcc(), *cuda_build.FLAGS, "-I",
+                        str(out_dir), "-I", str(cuda_build.CSRC), "-o",
+                        str(lib), str(out_dir / main)], check=True,
+                       capture_output=True, timeout=600)
+    dll = ctypes.CDLL(str(lib))
+    entry, argtypes = cuda_build._SIGNATURES[kernel]
+    fn = getattr(dll, entry)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    zero, copy = dll.icp_split_zero, dll.icp_split_copy
+    zero.argtypes, zero.restype = [ctypes.c_int], ctypes.c_int
+    copy.argtypes, copy.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
+    return fn, zero, copy, design
+
+
+def frame_split(device, kernel: str = "icp2d_frame", inputs=None,
+                reps: int = 20):
+    """A frame kernel's split of an outer iteration on the tree's design,
+    at ``inputs`` ({shape: the wrapper's arguments}; kernel 3 by default
+    at ``frame_inputs``' pairs): per pair the cycles of the NN sweep, the
+    IRLS loop and the scalar tail (``_SPLIT_STAMPS``) over its outer
+    iterations.  Reports the slowest pair's (the most cycles in all) per
+    outer iteration, in cycles and in us as their share of the stamped
+    kernel's launcher-alone time (the slowest pair's chain taken as the
+    launch), the mean over pairs per outer iteration in cycles, and the
+    spread of outer iterations.  Empty on the CPU."""
     if torch.device(device).type != "cuda":
         return {}
-    src = (cuda_build.CSRC / "icp2d_frame.cu").read_text()
-    design = "one-block" if "icp2d_frame_block(" in src else "cluster"
-    fname, stamps = _SPLIT_STAMPS[design]
-    out_dir = cuda_build.BUILD_DIR / "split"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    text = (cuda_build.CSRC / fname).read_text()
-    for anchor, code in stamps:
-        if text.count(anchor) != 1:
-            raise RuntimeError(f"frame_split: {anchor!r} is not in {fname} "
-                               "once")
-        text = text.replace(anchor, anchor + code)
-    (out_dir / "icp2d_frame.cu").write_text(src)
-    (out_dir / fname).write_text(text)
-    lib = out_dir / "libicp2d_frame_split.so"
-    subprocess.run([cuda_build._nvcc(), *cuda_build.FLAGS, "-I",
-                    str(out_dir), "-I", str(cuda_build.CSRC), "-o", str(lib),
-                    str(out_dir / "icp2d_frame.cu")], check=True,
-                   capture_output=True, timeout=600)
-    entry, argtypes = cuda_build._SIGNATURES["icp2d_frame"]
-    fn = getattr(ctypes.CDLL(str(lib)), entry)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    cfg = _config()
-    t0 = RigidTransform2.identity(dtype=torch.float32, device=device)
+    fn, zero, copy, design = _split_library(kernel)
+    if inputs is None:
+        cfg = _config()
+        t0 = RigidTransform2.identity(dtype=torch.float32, device=device)
+        inputs = {shape: (sp, dp, sm, dm, t0, cfg) for shape, (sp, sm, dp, dm)
+                  in frame_inputs(device).items()}
     res = {"design": design}
-    for shape, (sp, sm, dp, dm) in frame_inputs(device).items():
-        _, largs, _, keep = align2d_cuda._icp2d_frame_args(sp, dp, sm, dm,
-                                                           t0, cfg)
-        buf = torch.zeros(16, dtype=torch.float32, device=device)
-        largs = largs[:6] + (buf.data_ptr(),) + largs[7:]
-        ms = launcher_ms("icp2d_frame", largs, device, reps=reps, fn=fn)
-        buf.zero_()
-        cuda_build.check(fn(*largs), "icp2d_frame (stamped)")
+    for shape, args in inputs.items():
+        _, largs, out, keep = align2d_cuda._icp2d_frame_args(*args)
+        b = out.shape[0] if out.ndim == 2 else 1
+        if b > _SPLIT_PAIRS_MAX:
+            raise RuntimeError(f"frame_split: more than {_SPLIT_PAIRS_MAX} "
+                               "pairs")
+        ms = launcher_ms(kernel, largs, device, reps=reps, fn=fn)
+        cuda_build.check(zero(4 * b), "frame_split zero")
+        cuda_build.check(fn(*largs), f"{kernel} (stamped)")
         _sync(device)
-        acc = buf[8:16].view(torch.int64).tolist()
-        outer = int(buf[6])
-        parts = dict(zip(("nn", "irls", "tail"), acc[:3]))
-        cycles = {k: v / outer for k, v in parts.items()}
-        us = {k: v / acc[3] * ms * 1e3 / outer for k, v in parts.items()}
-        res[shape] = dict(outer=outer, call_cycles=acc[3], stamped_ms=ms,
-                          cycles_per_iteration=cycles,
-                          us_per_iteration=us)
+        acc = torch.empty((b, 4), dtype=torch.int64, device=device)
+        cuda_build.check(copy(acc.data_ptr(), 4 * b), "frame_split copy")
+        _sync(device)
+        acc = acc.cpu().double()
+        outer = out.reshape(b, 8)[:, 6].double().cpu()
+        slow = int(torch.argmax(acc[:, 3]))
+        parts = ("nn", "irls", "tail")
+        cyc = {k: float(acc[slow, i] / outer[slow])
+               for i, k in enumerate(parts)}
+        us = {k: float(acc[slow, i] / acc[slow, 3]) * ms * 1e3
+              / float(outer[slow]) for i, k in enumerate(parts)}
+        mean = {k: float((acc[:, i] / outer.clamp(min=1)).mean())
+                for i, k in enumerate(parts)}
+        spread = torch.bincount(outer.long()).tolist()
+        res[shape] = dict(pairs=b, stamped_ms=ms,
+                          slowest_outer=int(outer[slow]),
+                          slowest_call_cycles=float(acc[slow, 3]),
+                          cycles_per_iteration=cyc, us_per_iteration=us,
+                          mean_cycles_per_iteration=mean,
+                          pairs_by_outer=spread)
         del keep
-        print(f"# frame split {design} {shape}: {outer} outer iterations, "
-              f"stamped call {ms} ms ({acc[3]} cycles); per outer "
-              f"iteration: cycles {cycles}, us {us}")
+        print(f"# frame split {kernel} {design} {shape}: {b} pairs, stamped "
+              f"call {ms} ms; slowest pair {int(outer[slow])} outer "
+              f"iterations, {float(acc[slow, 3]):.0f} cycles; its per outer "
+              f"iteration: cycles {cyc}, us {us}; mean cycles per outer "
+              f"iteration over pairs {mean}; pairs by outer iterations "
+              f"{spread}")
     return res
 
 
@@ -2741,53 +2949,102 @@ def _slam2d_wide_irls_calls(device, wide_frames: int = 12,
     return calls
 
 
-def irls_batched_inputs(device, n_scans: int = BATCH_SCANS,
-                        pad: int = BATCH_PAD, wide_frames: int = 12,
-                        wide_stride: int = 1):
-    """Kernel 7's arguments at every shape its paths give it: {path: list
-    of calls}.  The batched path's as phase 7 builds them; SLAM 2D wide
-    every call of phase 17's wide run, captured."""
-    return {"batched": [_irls_batched_inputs(device, n_scans, pad)],
-            "slam2d-wide": _slam2d_wide_irls_calls(device, wide_frames,
-                                                   wide_stride)}
+def pairs_list_inputs(device, scans):
+    """Kernel 9's arguments at every shape its paths give it: {path: list
+    of calls}.  Every call of one run of the batched path (phase 9) and of
+    run_slam2d on the same scans (phase 17), captured, and phase 6's
+    db-4096 case with tight bounds."""
+    out = {}
+    pts, mask = scans[:2]
+    for path, run in (
+            ("batched", lambda: _run_batched(
+                _batch(device, scans=scans), _config(), device)),
+            ("slam2d", lambda: _run_slam(
+                run_slam2d, [p[m] for p, m in zip(pts, mask)], _config(),
+                device, loop_radius=1.5, min_gap=20))):
+        calls, undo = _capture_calls(nn_pairs_cuda, "nn_pairs_list")
+        try:
+            run()
+        finally:
+            undo()
+        out[path] = calls
+    q_b, db_b, dm_b = _big_db_case(device)
+    eps = torch.finfo(torch.float32).eps
+    qb = nn_torch(q_b, db_b, dm_b, tile=db_b.shape[1]).dist_sq \
+        * (1.0 + 32.0 * eps)
+    query_p, dbf, cbox, qb_p = nn_pairs_cuda.prepare(q_b, db_b, dm_b, db_b,
+                                                     qb)
+    lists, cnt = nn_pairs_cuda._survivor_lists(
+        query_p, cbox, qb_p, 2, nn_pairs_cuda.Q_SUB, nn_pairs_cuda.LIST_GRP)
+    args = (query_p, dbf, lists, cnt, 2, nn_pairs_cuda.Q_SUB)
+    if hasattr(nn_pairs_cuda, "group_walks"):
+        args += (qb_p, cbox)
+    out["db-4096"] = [args]
+    return out
 
 
-def _synthetic_irls_pairs(device, b: int, n: int, seed: int = 11):
-    """Kernel 7's arguments for B synthetic pairs of n points: each pair
-    its own small rotation and noise (so their iteration counts differ),
-    ~20 % of the points masked."""
-    rng = np.random.default_rng(seed)
-    src = rng.uniform(-3, 3, (b, n, 2)).astype(np.float32)
-    th = rng.uniform(-0.2, 0.2, b)
-    rot = np.stack([np.stack([np.cos(th), -np.sin(th)], -1),
-                    np.stack([np.sin(th), np.cos(th)], -1)], -2)
-    dst = (src @ rot.transpose(0, 2, 1) + 0.1 + rng.uniform(
-        0.001, 0.05, (b, 1, 1)) * rng.normal(size=(b, n, 2))).astype(
-        np.float32)
+def _pairs_list_times(calls, device, reps: int = 20):
+    """Kernel 9 on every call of one path by its launcher alone, each
+    bitwise equal to its plain version, and, where the tree has them, at
+    every schedule of ``_list_schedules`` summed over the calls."""
+    per_call, by_sched, walks, pairs = [], {}, 0, 0
+    for args in calls:
+        res = nn_pairs_cuda._nn_pairs_list_args(*args)
+        largs, out = res[0], res[1]
+        per_call.append(launcher_ms("nn_pairs_list", largs, device,
+                                    reps=reps))
+        _sync(device)
+        want = nn_pairs_cuda.nn_pairs_list_plain(*args)
+        if not all(torch.equal(a, b) for a, b in zip(out, want)):
+            raise RuntimeError("nn_pairs_list differs from its plain version")
+        if hasattr(nn_pairs_cuda, "list_schedule"):
+            for key, ms in _list_schedules(args, out, device, reps)[0].items():
+                by_sched[key] = by_sched.get(key, 0.0) + ms
+        walks += int(args[3].sum())
+        if hasattr(nn_pairs_cuda, "group_walks"):
+            pairs += nn_pairs_cuda.group_walks(*args)
+        del res
+    return dict(calls=len(calls), sum_ms=sum(per_call), ms=per_call,
+                chunk_walks=walks, pairs=pairs, schedules_sum_ms=by_sched)
+
+
+def frame_pairs_inputs(device, scans, big: int = 64,
+                       n_max: int = align2d_cuda.FRAME_MAX_POINTS):
+    """Kernel 10's arguments: {shape: (src, dst, src mask, dst mask, t0,
+    config)} at the batched path's 209 unsorted pairs of 768, at ``big``
+    consecutive pairs of synthetic frames subsampled to ``n_max`` points
+    (FRAME_MAX_POINTS), and at one pair of each (B = 1)."""
     cfg = _config()
-    return (torch.as_tensor(src, device=device),
-            torch.as_tensor(dst, device=device),
-            torch.as_tensor(rng.random((b, n)) > 0.2, device=device),
-            cfg.huber_k, cfg.det_rel_eps, cfg.inner_delta_sq_tol,
-            cfg.inner_max_iter, cfg.point_scale)
+    src, smask, dst, dmask = _batch(device, scans=scans)
+    frames, _ = io.synthesize_frames3d(big + 1, seed=7)
+    rng = np.random.default_rng(7)
+    xy = np.stack([f[rng.choice(len(f), n_max, replace=False), :2]
+                   for f in frames])
+    p = torch.as_tensor(xy, dtype=torch.float32, device=device)
+    ones = torch.ones(p.shape[:2], dtype=torch.bool, device=device)
+    out = {}
+    for shape, (sp, sm, dp, dm) in (
+            (f"{src.shape[0]}x{src.shape[1]}", (src, smask, dst, dmask)),
+            (f"{big}x{n_max}", (p[:-1], ones[:-1], p[1:], ones[1:]))):
+        for b in (sp.shape[0], 1):
+            t0 = RigidTransform2.identity((b,), dtype=torch.float32,
+                                          device=device)
+            out[f"{b}x{sp.shape[1]}"] = (sp[:b], dp[:b], sm[:b], dm[:b], t0,
+                                         cfg)
+    return out
 
 
 def kernel_times(device="cuda", reps: int = 20):
-    """Kernels 3, 4, 5 and 7 by their launchers alone at every shape their
-    paths give them (``frame_inputs``, ``matched_inputs``,
-    ``sweep_inputs``, ``irls_batched_inputs``; kernel 7 on every captured
-    SLAM 2D wide call) and kernel 7 on 64 synthetic pairs of 768-6,144
-    points, each call held against its plain version (kernels 4 and 5
-    bitwise; kernels 3 and 7 max |diff| of rot/t and the iteration
-    counts).  With the schedule sweeps of phases 3, 7 and 14 where the
-    tree has them, kernel 3's split (``frame_split``), and kernel 2's
-    phase-2 records, for its ``max_abs_err``."""
-    sweeps = hasattr(align2d_cuda, "batched_cluster")
-    items = "nn_items.cuh" in cuda_build.HEADERS
-    times = {"nn_matched": {}, "nn_sweep": {}, "icp2d_frame": {},
-             "irls_loop_batched": {},
-             "irls_loop_max_abs_err": [r["max_abs_err"]
-                                       for r in phase_irls(device)]}
+    """Kernels 3, 9 and 10 by their launchers alone at every shape their
+    paths give them, each call held against its plain version (kernel 9
+    bitwise; kernels 3 and 10 max |diff| of rot/t and the outer iteration
+    counts): kernel 3 at ``frame_inputs``' pairs and at 128-1,024 points
+    on every cluster size; kernel 9 on every call of the batched path and
+    of SLAM 2D and at the db-4096 case (``pairs_list_inputs``), at every
+    schedule where the tree has them; kernel 10 at ``frame_pairs_inputs``
+    on every setting the card holds at once where the tree has them; and
+    the two frame kernels' splits (``frame_split``)."""
+    times = {"icp2d_frame": {}, "nn_pairs_list": {}, "icp2d_frame_pairs": {}}
     for shape, pair in frame_inputs(device).items():
         rec = times["icp2d_frame"][shape] = _frame_times(pair, device, reps)
         print(f"# times icp2d_frame {shape}: launcher alone {rec['ms']} ms "
@@ -2800,63 +3057,34 @@ def kernel_times(device="cuda", reps: int = 20):
         times["icp2d_frame"][f"{n}x{n}"] = rec
         print(f"# times icp2d_frame {n}x{n}: launcher alone {rec['ms']} ms "
               f"(clusters {rec['cluster_ms']})")
-    times["frame_split"] = frame_split(device, reps)
-    for path, args in sweep_inputs(device).items():
-        largs, out, keep = nn_sweep_cuda._nn_sweep_args(*args)
-        ms = launcher_ms("nn_sweep", largs, device, reps=reps)
-        _sync(device)
-        same = all(torch.equal(a, b) for a, b in
-                   zip(out, nn_sweep_cuda.nn_sweep_plain(*args)))
-        schedules = _item_schedules("nn_sweep", args, out, device)[0] \
-            if items else {}
-        del keep
-        times["nn_sweep"][path] = dict(ms=ms, bitwise=same,
-                                       schedules_ms=schedules)
-        print(f"# times nn_sweep {path}: {tuple(args[0].shape)} queries, "
-              f"{tuple(args[1].shape)} db, launcher alone {ms} ms, bitwise "
-              f"equal to plain {same} (schedules {schedules})")
-    for path, args in matched_inputs(device).items():
-        largs, out, keep = nn_sweep_cuda._nn_matched_args(*args)
-        ms = launcher_ms("nn_matched", largs, device, reps=reps)
-        _sync(device)
-        same = all(torch.equal(a, b) for a, b in
-                   zip(out, nn_sweep_cuda.nn_matched_plain(*args)))
-        schedules = _item_schedules("nn_matched", args, out, device)[0] \
-            if sweeps else {}
-        del keep
-        times["nn_matched"][path] = dict(ms=ms, bitwise=same)
-        print(f"# times nn_matched {path}: {tuple(args[0].shape)} queries, "
-              f"{tuple(args[1].shape)} db, launcher alone {ms} ms, bitwise "
-              f"equal to plain {same} (schedules {schedules})")
-    calls = irls_batched_inputs(device)
-    for n in (768, 1536, 3072, 6144):
-        calls[f"synthetic-64x{n}"] = [_synthetic_irls_pairs(device, 64, n)]
-    for path, path_calls in calls.items():
-        per_call = []
-        for k, args in enumerate(path_calls):
-            largs, out, keep = align2d_cuda._irls_loop_batched_args(*args)
-            ms = launcher_ms("irls_loop_batched", largs, device, reps=reps)
-            _sync(device)
-            rot_p, t_p, its_p = align2d_cuda.irls_loop_batched_plain(*args)
-            err = max(float(torch.max(torch.abs(out[:, :4] - rot_p.reshape(
-                -1, 4)))), float(torch.max(torch.abs(out[:, 4:6] - t_p))))
-            its = out[:, 6].to(torch.int64)
-            differ = int((its.cpu() != its_p.to(torch.int64).cpu()).sum())
-            its = its.tolist()
-            del keep
-            if sweeps and k == 0:
-                _irls_batched_times(f"{path} call 0", args, device)
-            per_call.append(dict(ms=ms, pairs=args[0].shape[0],
-                                 n=args[0].shape[1], iterations=its,
-                                 max_abs_err=err, counts_differ=differ))
-            print(f"# times irls_loop_batched {path} call {k}: "
-                  f"{args[0].shape[0]} pairs x {args[0].shape[1]} points, "
-                  f"launcher alone {ms} ms; vs plain max |diff| {err:.3e}, "
-                  f"{differ} iteration counts differ; iterations per pair "
-                  f"{its if len(its) <= 16 else (min(its), max(its))}")
-        times["irls_loop_batched"][path] = dict(
-            first_ms=per_call[0]["ms"],
-            sum_ms=sum(c["ms"] for c in per_call), calls=per_call)
+    times["icp2d_frame_split"] = frame_split(device, reps=reps)
+    scans = scans2d()
+    for path, calls in pairs_list_inputs(device, scans).items():
+        rec = times["nn_pairs_list"][path] = _pairs_list_times(calls, device,
+                                                                reps)
+        print(f"# times nn_pairs_list {path}: {rec['calls']} calls, "
+              f"{rec['chunk_walks']} chunk-walks ({rec['pairs']} (query, "
+              f"point) pairs swept), launcher alone sum "
+              f"{rec['sum_ms']} ms, bitwise equal to plain (calls "
+              f"{rec['ms']}); by schedule, summed {rec['schedules_sum_ms']}")
+    inputs = frame_pairs_inputs(device, scans)
+    for shape, args in inputs.items():
+        err, its, plain, differ = _frame_pairs_check(args, shape,
+                                                     strict=False)
+        # Every setting within the wrapper's own distance from the plain
+        # version (or FRAME_TOL), with its outer iteration counts.
+        ms, by_shape, chosen = _frame_pairs_settings(
+            args, plain, device, tol=max(FRAME_TOL, 2 * err))
+        times["icp2d_frame_pairs"][shape] = dict(
+            ms=ms, max_abs_err=err, counts_differ=differ,
+            outer=its.tolist() if len(its) <= 16
+            else torch.bincount(its).tolist(), setting=chosen,
+            setting_ms=by_shape)
+        print(f"# times icp2d_frame_pairs {shape}: launcher alone {ms} ms "
+              f"on setting {chosen} (by setting {by_shape})")
+    times["icp2d_frame_pairs_split"] = frame_split(
+        device, "icp2d_frame_pairs", {k: v for k, v in inputs.items()
+                                      if not k.startswith("1x")}, reps=reps)
     return times
 
 
@@ -2922,7 +3150,11 @@ def main() -> int:
           f"128; "
           f"irls_loop_batched: clusters of up to 16 blocks a pair, >= "
           f"{align2d_cuda.BATCHED_MIN_POINTS} points a block, all pairs "
-          f"resident")
+          f"resident; nn_pairs_list: work items of "
+          f"{nn_pairs_cuda.LIST_ITEM} list entries, {nn_pairs_cuda.LIST_Q} "
+          f"queries a thread; icp2d_frame_pairs: the first of "
+          f"{align2d_cuda.PAIRS_SHAPES} (blocks a pair, threads a block) "
+          f"with all pairs resident")
     records = [phase_nn_list(device), *phase_irls(device),
                *phase_frame(device)]
     main_run = phase_main(device)

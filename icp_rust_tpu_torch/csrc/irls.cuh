@@ -2,11 +2,11 @@
 //
 // Shared by irls_loop.cu (one launch per estimate_transform call, arrays
 // in global memory, resident in L2), irls_loop_batched.cu (one block per
-// pair of a batch) and the frame kernels of frame.cuh (the whole 2D ICP
-// call, arrays in shared memory), so all run one op sequence, as the TPU
-// kernels shared align2d_pallas._irls_loop.  The routine takes any block
-// of 64 to 1024 threads, a multiple of 32 (two warps pick the two
-// medians' digits).
+// pair of a batch) and the frame kernels of frame_cluster.cuh (the whole
+// 2D ICP call, arrays in the leader block's shared memory), so all run one
+// op sequence, as the TPU kernels shared align2d_pallas._irls_loop.  The
+// routine takes any block of 64 to 1024 threads, a multiple of 32 (two
+// warps pick the two medians' digits).
 //
 // Steps 1-4 are gn_stats_block, one GN update's statistics at a given
 // transform, which gn_stats.cu and gn_stats_batched.cu also run (as the

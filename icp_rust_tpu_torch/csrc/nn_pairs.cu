@@ -22,11 +22,82 @@
 // once per block and staged chunk by chunk.  The design spends one barrier
 // pair per chunk and one thread per query; 627 blocks of 256 threads fill
 // the 132 SMs in one wave.
-#include "nn_pairs.cuh"
+//
+// The per-chunk step (walk_chunk): the block stages one 128-point chunk of
+// its pair's coordinate-major db (D coordinate rows, then F payload rows,
+// each m_pad long) into shared memory; each thread then sweeps the chunk's
+// points in ascending order with a strict '<' on its scalar (distance,
+// index, payload) carry, so the lowest index wins ties.  Every thread of
+// the block calls it for the same chunks (it holds two barriers): the walk
+// decision is block-uniform.  The squared distance is ((0 + dx*dx) +
+// dy*dy) + dz*dz with every rounding explicit (the file built with
+// --fmad=false), the operations of the plain version in
+// ops/nn_pairs_cuda.py, so the two agree bitwise.
+#include <cuda_runtime.h>
+#include <float.h>
+#include <math.h>
 
 namespace {
 
-using icp_nn::kChunk;
+constexpr int kChunk = 128;
+
+template <int D, int F>
+__device__ __forceinline__ void walk_chunk(const float* __restrict__ db,
+                                           int m_pad, int ch,
+                                           float (&tile)[D + F][kChunk],
+                                           const float (&qv)[D], float& best,
+                                           int& bi, float (&bp)[F]) {
+  __syncthreads();
+  for (int e = threadIdx.x; e < (D + F) * kChunk; e += blockDim.x) {
+    const int row = e / kChunk, col = e % kChunk;
+    tile[row][col] = db[(size_t)row * m_pad + (size_t)ch * kChunk + col];
+  }
+  __syncthreads();
+  for (int j = 0; j < kChunk; ++j) {
+    float d = 0.0f;
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const float df = __fsub_rn(qv[k], tile[k][j]);
+      d = __fadd_rn(d, __fmul_rn(df, df));
+    }
+    if (d < best) {
+      best = d;
+      bi = ch * kChunk + j;
+#pragma unroll
+      for (int f = 0; f < F; ++f) bp[f] = tile[D + f][j];
+    }
+  }
+}
+
+// The (pair, subtile) this block serves, its queries' row, and the
+// thread's query coordinates.
+struct PairTile {
+  int pair;
+  int sub;
+  int n_qt;
+  size_t q;
+};
+
+__device__ __forceinline__ PairTile pair_tile(int qp) {
+  PairTile t;
+  t.n_qt = qp / blockDim.x;
+  t.pair = blockIdx.x / t.n_qt;
+  t.sub = blockIdx.x % t.n_qt;
+  t.q = (size_t)t.pair * qp + (size_t)t.sub * blockDim.x + threadIdx.x;
+  return t;
+}
+
+template <int D, int F>
+__device__ __forceinline__ void store_result(size_t q, float best, int bi,
+                                             const float (&bp)[F],
+                                             float* __restrict__ dist,
+                                             int* __restrict__ idx,
+                                             float* __restrict__ pay) {
+  dist[q] = best;
+  idx[q] = bi;
+#pragma unroll
+  for (int f = 0; f < F; ++f) pay[q * F + f] = bp[f];
+}
 
 template <int D, int F>
 __global__ void __launch_bounds__(1024)
@@ -38,7 +109,7 @@ nn_pairs_kernel(const float* __restrict__ query,
                 int* __restrict__ idx, float* __restrict__ pay, int qp,
                 int m_pad) {
   __shared__ float tile[D + F][kChunk];
-  const icp_nn::PairTile pt = icp_nn::pair_tile(qp);
+  const PairTile pt = pair_tile(qp);
   const int nc = m_pad / kChunk;
   const float* db = dbf_cm + (size_t)pt.pair * (D + F) * m_pad;
   const size_t row = (size_t)pt.pair * pt.n_qt + pt.sub;
@@ -67,10 +138,10 @@ nn_pairs_kernel(const float* __restrict__ query,
     }
     lb = __fmul_rn(lb, kDeflate);
     if (lb <= bound) {
-      icp_nn::walk_chunk<D, F>(db, m_pad, c, tile, qv, best, bi, bp);
+      walk_chunk<D, F>(db, m_pad, c, tile, qv, best, bi, bp);
     }
   }
-  icp_nn::store_result<D, F>(pt.q, best, bi, bp, dist, idx, pay);
+  store_result<D, F>(pt.q, best, bi, bp, dist, idx, pay);
 }
 
 template <int D, int F>
@@ -97,6 +168,12 @@ extern "C" int nn_pairs_launch(const float* query, const float* dbf_cm,
                                int d_dim, int f_dim, int m_pad,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ICP_NN_PAIRS_DISPATCH(launch, query, dbf_cm, qbox, cbox, qbound, dist, idx,
-                        pay, b, qp, q_sub, m_pad, s)
+#define NN_PAIRS_CASE(D, F)                                                 \
+  if (d_dim == D && f_dim == F)                                             \
+    return launch<D, F>(query, dbf_cm, qbox, cbox, qbound, dist, idx, pay, b, \
+                        qp, q_sub, m_pad, s);
+  NN_PAIRS_CASE(2, 2) NN_PAIRS_CASE(2, 3) NN_PAIRS_CASE(3, 2)
+  NN_PAIRS_CASE(3, 3)
+#undef NN_PAIRS_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }

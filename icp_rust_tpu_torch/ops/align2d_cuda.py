@@ -10,9 +10,9 @@ versions:
 - ``csrc/icp2d_frame.cu``: a whole 2D ICP call in one launch on a
   thread-block cluster, the 1-NN sweep split over its blocks and the IRLS
   loop on its leader (``_icp2d_frame_kernel``);
-- ``csrc/icp2d_frame_pairs.cu``: B whole 2D ICP calls in one launch, one
-  block per pair, each to its own fixed point
-  (``_icp2d_frame_pairs_kernel``);
+- ``csrc/icp2d_frame_pairs.cu``: B whole 2D ICP calls in one launch, the
+  same body on a cluster per pair, each pair to its own fixed point
+  (``frame_pairs_shape``; ``_icp2d_frame_pairs_kernel``);
 - ``csrc/gn_stats.cu``: one GN update's packed statistics at a given
   transform (``_gn_kernel``);
 - ``csrc/gn_stats_batched.cu``: the same for B pairs, one block per pair
@@ -22,9 +22,10 @@ All six run the device routines of ``csrc/irls.cuh`` (the two stats
 kernels its ``gn_stats_block``, one iteration's statistics of the loop;
 irls_loop and irls_loop_batched its helpers, spread over a cluster by
 ``csrc/irls_cluster.cuh``; the two frame kernels its whole loop, on the
-leader block of icp2d_frame's cluster and on each pair's block of
-``csrc/frame.cuh``), so they share one op sequence.  icp2d_frame's
-cluster sweep finds bitwise the matches of frame.cuh's one-block sweep.
+leader block of each cluster of ``csrc/frame_cluster.cuh``), so they
+share one op sequence.  The frame kernels' cluster sweep finds bitwise
+the matches of one thread sweeping all of dst (``frame_sweep`` emulates
+it).
 
 Plain versions: the inner loops' is ``align2d.irls_loop_torch`` (the
 ``align_backend="torch"`` loop, batched over pairs); the frames' is the
@@ -61,6 +62,13 @@ FRAME_MAX_POINTS = 1536
 FRAME_THREADS = 1024
 FRAME_Q = 2
 FRAME_CLUSTERS = (1, 2, 4, 8, 16)
+# icp2d_frame_pairs: the threads a block and the (blocks a pair's
+# cluster, threads a block) settings it runs on; ``frame_pairs_shape``
+# picks one.  Like FRAME_CLUSTERS they set who sweeps which rows and the
+# IRLS sums' order (the leader's threads), never the matches.
+PAIRS_THREADS = (512, 256, 128)
+PAIRS_SHAPES = tuple((c, t) for t in PAIRS_THREADS
+                     for c in FRAME_CLUSTERS[::-1])
 # Blocks in irls_loop's thread-block cluster (16 measured faster than 8
 # on an H100, PERF.md).  Which points each block sums follows from it, so
 # it is a constant, not a knob.
@@ -77,6 +85,8 @@ BATCHED_CLUSTERS = (16, 8, 4, 2, 1)
 _BLOCK_ROUTE_MAX_POINTS = 200 * 1024 // 28
 # (n, cluster, threads) -> clusters the card holds at once.
 _RESIDENT: dict = {}
+# (n, m, cluster, threads) -> icp2d_frame_pairs' clusters resident at once.
+_FRAME_RESIDENT: dict = {}
 
 
 def _solver_params(huber_k: float, det_rel_eps: float, tol_d2: float,
@@ -325,18 +335,22 @@ def icp2d_frame_raw(src: Tensor, dst: Tensor, src_mask: Tensor,
                                                t0, config)
     status = cuda_build.launcher(name)(*args)
     cuda_build.LAUNCHES[name] += 1
+    if status == -1:
+        raise RuntimeError(f"{name}: no thread-block cluster of that shape "
+                           "can be placed on this card")
     cuda_build.check(status, name)
     return out
 
 
 def _icp2d_frame_args(src: Tensor, dst: Tensor, src_mask: Tensor,
                       dst_mask: Tensor, t0: RigidTransform2,
-                      config: ICPConfig):
+                      config: ICPConfig, shape=None):
     """Check the CUDA inputs of icp2d_frame (src (N, 2)) or
-    icp2d_frame_pairs (src (B, N, 2)) and allocate the output.  Returns
-    (the kernel's name, the launcher's arguments, the (8,) or (B, 8)
-    output, the staged inputs, which the caller holds until the launch is
-    enqueued)."""
+    icp2d_frame_pairs (src (B, N, 2)) and allocate the output; ``shape``:
+    icp2d_frame_pairs' (blocks a pair, threads a block), by default
+    ``frame_pairs_shape``'s.  Returns (the kernel's name, the launcher's
+    arguments, the (8,) or (B, 8) output, the staged inputs, which the
+    caller holds until the launch is enqueued)."""
     name = "icp2d_frame" if src.ndim == 2 else "icp2d_frame_pairs"
     if src.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {src.device}")
@@ -360,51 +374,128 @@ def _icp2d_frame_args(src: Tensor, dst: Tensor, src_mask: Tensor,
     out = torch.empty((*batch, 8), dtype=torch.float32, device=src.device)
     s = config.point_scale
     stream = torch.cuda.current_stream(src.device).cuda_stream
-    # The pair-frame launcher takes the pair count before (n, m).
+    # The pair-frame launcher takes the pair count before (n, m), and its
+    # cluster and block sizes before the stream.
+    if batch:
+        if shape is None:
+            shape = frame_pairs_shape(
+                batch[0], n, lambda c, t: _frame_resident(n, m, c, t))
+        tail = (config.outer_iters, *shape, stream)
+    else:
+        tail = (config.outer_iters, stream)
     args = (srcc.data_ptr(), smask.data_ptr(), dstm.data_ptr(), *batch, n, m,
             tp.data_ptr(), out.data_ptr(),
             *_solver_params(config.huber_k / s, config.det_rel_eps,
                             config.inner_delta_sq_tol, config.inner_max_iter,
-                            s),
-            config.outer_iters, stream)
+                            s), *tail)
     return name, args, out, (srcc, smask, dstm, tp)
 
 
-def frame_sweep_plan(n: int, m: int, cluster: int):
-    """icp2d_frame's sweep schedule for n queries against m dst rows (m4
-    once padded to a multiple of 4) on a cluster of ``cluster`` blocks, as
-    the kernel computes it: per block (first query row, rows, dst
-    segments, segment length, a multiple of 4)."""
-    m4 = -(-m // 4) * 4
-    per = -(-n // cluster)
+def frame_pairs_shape(b: int, n: int, resident):
+    """icp2d_frame_pairs' (blocks a pair, threads a block) for B pairs of
+    n source points: blocks of at least the threads that leave the
+    leader's IRLS loop 3 points a thread (``batched_threads``; 512 at
+    most), the most threads a pair (blocks x threads), then the most
+    blocks, of which the card holds all B clusters at once
+    (``resident(cluster, threads)``: clusters it holds) and that leave at
+    least 32 query rows a block.  Measured best at 209 x 768, 64 x 1,536
+    and one pair of 768 and of 1,536 points on an H100 (PERF.md).  One
+    block of 256 threads a pair when none fits (the pairs then run in
+    waves)."""
+    least = min(batched_threads(n), PAIRS_THREADS[0])
+    for c, t in sorted(PAIRS_SHAPES, key=lambda ct: (-ct[0] * ct[1], ct[1])):
+        if (t >= least and (c == 1 or n >= 32 * c)
+                and resident(c, t) >= b):
+            return c, t
+    return 1, 256
+
+
+def _frame_resident(n: int, m: int, cluster: int, threads: int) -> int:
+    """Clusters of icp2d_frame_pairs the card holds at once for pairs of
+    n x m points (cached per shape); raises on a CUDA error."""
+    key = (n, m, cluster, threads)
+    got = _FRAME_RESIDENT.get(key)
+    if got is None:
+        got = cuda_build.query("icp2d_frame_pairs_resident")(n, m, cluster,
+                                                             threads)
+        if got < 0:
+            raise RuntimeError(f"icp2d_frame_pairs: occupancy query failed: "
+                               f"cudaError {-got}")
+        _FRAME_RESIDENT[key] = got
+    return got
+
+
+def _trailing(valid: Tensor) -> int:
+    """Rows up to the last true entry of ``valid``."""
+    nz = torch.nonzero(valid)
+    return int(nz[-1]) + 1 if nz.numel() else 0
+
+
+def _sweep_segments(ng: int, s_n: int, m4: int, threads: int) -> int:
+    """csrc/frame_cluster.cuh's sweep_segments: the dst segments whose
+    rounds of (group, segment) tasks over the threads times segment length
+    is least, within the partials' room and segments of >= 4 points, the
+    fewest among equals."""
+    best, best_cost = 1, None
+    # The partials' room (csrc/frame_cluster.cuh partials): pairs a thread.
+    room = (2 if threads >= 1024 else 6) * threads
+    most = room // s_n if s_n else 1
+    for ns in range(1, most + 1):
+        if ns > 1 and 4 * ns > m4:
+            break
+        seg_len = -(-m4 // ns)
+        cost = -(-ng * ns // threads) * (-(-seg_len // 4) * 4)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = ns, cost
+    return best
+
+
+def frame_sweep_plan(n_eff: int, m_eff: int, cluster: int,
+                     threads: int = FRAME_THREADS):
+    """The frame kernels' sweep schedule for the n_eff swept query rows
+    (up to the last valid one) against the m_eff swept dst rows (up to the
+    last that is not the sentinel; m4 once padded to a multiple of 4) on a
+    cluster of ``cluster`` blocks of ``threads`` threads, as
+    csrc/frame_cluster.cuh computes it: per block (first query row, rows,
+    dst segments, segment length, a multiple of 4)."""
+    m4 = -(-m_eff // 4) * 4
+    per = -(-n_eff // cluster)
     plan = []
     for r in range(cluster):
-        row0 = min(n, r * per)
-        s_n = min(n, row0 + per) - row0
+        row0 = min(n_eff, r * per)
+        s_n = min(n_eff, row0 + per) - row0
         ng = -(-s_n // FRAME_Q)
-        nseg = max(1, FRAME_THREADS // ng) if ng else 1
+        nseg = _sweep_segments(ng, s_n, m4, threads)
         seg_len = -(-m4 // nseg)
         plan.append((row0, s_n, nseg, -(-seg_len // 4) * 4))
     return plan
 
 
-def frame_sweep(query: Tensor, dst: Tensor, cluster: int):
-    """icp2d_frame's 1-NN sweep on tensors, on a cluster of ``cluster``
-    blocks (``frame_sweep_plan``): each block's slice of the queries (N,
-    2) against dst (M, 2), sentinel-masked and padded with the sentinel,
-    cut into the block's ascending segments; the first minimum of each
+def frame_sweep(query: Tensor, dst: Tensor, cluster: int,
+                threads: int = FRAME_THREADS, smask: Tensor | None = None):
+    """The frame kernels' 1-NN sweep on tensors, on a cluster of
+    ``cluster`` blocks of ``threads`` threads (``frame_sweep_plan``): the
+    query rows (N, 2) up to the last valid one (``smask``, all by default)
+    cut into the blocks' slices, against dst (M, 2), sentinel-masked, up
+    to its last row that is not the sentinel and padded with the sentinel,
+    cut into each block's ascending segments; the first minimum of each
     segment (ex*ex + ey*ey; index 0 where no point is finite), merged
-    lexicographically on (distance, index).  Returns (dist, idx int64)."""
-    n, m = query.shape[0], dst.shape[0]
-    plan = frame_sweep_plan(n, m, cluster)
-    dist = torch.empty(n, dtype=dst.dtype, device=dst.device)
-    idx = torch.empty(n, dtype=torch.int64, device=dst.device)
+    lexicographically on (distance, index).  Returns (dist, idx int64);
+    rows past the last valid one get (+inf, 0), as their matches are
+    never read."""
+    n = query.shape[0]
+    n_eff = n if smask is None else _trailing(smask)
+    m_eff = _trailing(torch.any(dst != _SENTINEL, dim=1))
+    plan = frame_sweep_plan(n_eff, m_eff, cluster, threads)
+    dist = torch.full((n,), float("inf"), dtype=dst.dtype,
+                      device=dst.device)
+    idx = torch.zeros(n, dtype=torch.int64, device=dst.device)
     for row0, s_n, nseg, seg_len in plan:
-        if not s_n:
+        if not s_n * seg_len:  # no rows, or no dst row to sweep
             continue
-        pad = torch.full((nseg * seg_len - m, 2), _SENTINEL, dtype=dst.dtype,
-                         device=dst.device)
-        d_all = torch.cat([dst, pad])
+        d_all = torch.full((nseg * seg_len, 2), _SENTINEL, dtype=dst.dtype,
+                           device=dst.device)
+        d_all[:m_eff] = dst[:m_eff]
         q = query[row0:row0 + s_n]
         ex = q[:, None, 0] - d_all[None, :, 0]
         ey = q[:, None, 1] - d_all[None, :, 1]

@@ -42,8 +42,8 @@ SOURCES = ("nn_list", "irls_loop", "icp2d_frame", "nn_pairs",
            "nn_pruned", "gn_stats", "gn_stats_batched")
 # Every header is hashed into every library's name, so an edited header
 # rebuilds whatever includes it.
-HEADERS = ("irls.cuh", "irls_cluster.cuh", "frame.cuh", "nn_pairs.cuh",
-           "p2l.cuh", "p2l_cluster.cuh", "nn_items.cuh")
+HEADERS = ("irls.cuh", "irls_cluster.cuh", "frame_cluster.cuh", "p2l.cuh",
+           "p2l_cluster.cuh", "nn_items.cuh")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "--fmad=false")
 
@@ -66,19 +66,21 @@ _SIGNATURES = {
     # query, dbf_cm, qbox, cbox, qbound, dist, idx, pay; b, qp, q_sub,
     # d_dim, f_dim, m_pad; stream
     "nn_pairs": ("nn_pairs_launch", [_P] * 8 + [_I] * 6 + [_P]),
-    # query, dbf_cm, lists, cnt, dist, idx, pay; b, qp, q_sub, d_dim,
-    # f_dim, m_pad, cap; stream
-    "nn_pairs_list": ("nn_pairs_list_launch", [_P] * 7 + [_I] * 7 + [_P]),
+    # query, dbf_cm, lists, cnt, qbound, cbox, dist, idx, pay, part,
+    # ticket; b, qp, q_sub, d_dim, f_dim, m_pad, cap, item, q_per_thread;
+    # stream
+    "nn_pairs_list": ("nn_pairs_list_launch", [_P] * 11 + [_I] * 9 + [_P]),
     # src, its three strides, dst likewise, mask, its two strides; b, n;
     # scratch, out; solver params; cluster, threads; stream
     "irls_loop_batched": ("irls_loop_batched_launch",
                           [_P, _L, _L, _L] * 2 + [_P, _L, _L] + [_I] * 2
                           + [_P] * 2 + [_F] * 5 + [_I] + [_F] * 2
                           + [_I, _I, _P]),
-    # src, smask, dst; b, n, m; t0, out; solver params; outer_iters, stream
+    # src, smask, dst; b, n, m; t0, out; solver params; outer_iters,
+    # cluster, threads; stream
     "icp2d_frame_pairs": ("icp2d_frame_pairs_launch",
                           [_P] * 3 + [_I] * 3 + [_P] * 2 + [_F] * 5 + [_I]
-                          + [_F] * 2 + [_I, _P]),
+                          + [_F] * 2 + [_I] * 3 + [_P]),
     # src, dst, normals, each with its two strides; mask, its stride;
     # mask_f32, n; scratch, out; huber_k, k2, two_k, tol_d2; max_iter; s2,
     # small_angle; cluster, stream
@@ -114,6 +116,8 @@ _QUERIES = {
     "irls_loop_batched_resident": ("irls_loop_batched", [_I] * 3),
     # n -> the cluster size icp2d_frame_launch takes
     "icp2d_frame_cluster": ("icp2d_frame", [_I]),
+    # n, m, cluster, threads -> clusters resident at once
+    "icp2d_frame_pairs_resident": ("icp2d_frame_pairs", [_I] * 4),
     # icp2d_frame_launch's arguments with the cluster size before the
     # stream
     "icp2d_frame_launch_cluster": ("icp2d_frame",

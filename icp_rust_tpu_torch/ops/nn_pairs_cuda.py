@@ -6,10 +6,9 @@ torch code around them.
 Counterpart of icp_rust_tpu/ops/nn_pallas.py's pair-grid path
 (``nn_pallas_matched_pairs`` -> ``_nn_pairs_kernel`` on the cold ICP
 iteration, ``_nn_pairs_list_kernel`` on every warm one).  B queries
-(B, Nq, D) against B small dbs (B, M, D), M <= ``PAIRS_MAX_DB``, one
-block per (pair, 256-query subtile), one thread per query, walking the
-pair's 128-point chunks in ascending order with a strict '<': the lowest
-index wins ties.
+(B, Nq, D) against B small dbs (B, M, D), M <= ``PAIRS_MAX_DB``, per
+(pair, 256-query subtile), walking the pair's 128-point chunks in
+ascending order with a strict '<': the lowest index wins ties.
 
 Pruning is seed-only and exact: chunk c is skipped for a subtile when the
 (deflated) box-to-box lower bound exceeds the subtile's upper bound on
@@ -18,14 +17,19 @@ previous iteration (dist_new <= dist_prev + |dq|).  A skipped chunk holds
 no point of any query's tie set, so results are bit-identical to the
 unpruned sweep.
 
-- Static sweep (kernel 8): the prune test per (subtile, chunk) runs in
-  the kernel, from per-chunk boxes, per-subtile query boxes and
-  per-subtile bounds; on the cold iteration every bound is +inf and every
-  chunk is walked.
+- Static sweep (kernel 8): one block per (pair, subtile), one thread a
+  query; the prune test per (subtile, chunk) runs in the kernel, from
+  per-chunk boxes, per-subtile query boxes and per-subtile bounds; on the
+  cold iteration every bound is +inf and every chunk is walked.
 - Survivor lists (kernel 9): the test runs here in torch per
   ``LIST_GRP``-query group and is unioned per subtile; the list holds the
   surviving chunk ids in ascending order, with capacity n_chunks rounded
-  up to even, so no list can overflow.
+  up to even, so no list can overflow.  The kernel cuts each subtile's
+  walk into work items of a few list entries, one block each, with
+  several queries a thread, repeats the test per group of LIST_WARP
+  queries (a warp's) on each listed chunk, and merges a subtile's
+  partials lexicographically (``list_schedule`` sizes the items,
+  ``pairs_list_items`` emulates the schedule on tensors).
 
 The margins are the JAX package's (lower bounds deflated by 1 - 16 eps),
 and the query boxes span the zero-padded query rows as its boxes do: a
@@ -51,6 +55,21 @@ Q_SUB = 256
 LIST_GRP = 64
 _CHUNK = 128
 _DIMS = (2, 3)
+# nn_pairs_list's schedule: list entries a work item and queries a thread
+# (csrc/nn_pairs_list.cu), the wrapper's by ``list_schedule``: 2 and 2
+# measured best or within 1 % of the best schedule over the batched
+# path's and SLAM 2D's calls on an H100 (PERF.md).  Which block walks
+# which chunks follows from them, never the result.
+LIST_ITEM = 2
+LIST_Q = 2
+_LIST_QS = (1, 2, 4)
+# With the queries' bounds and the chunk boxes, nn_pairs_list repeats the
+# prune test per group of LIST_WARP queries (a warp's, in every schedule)
+# and such a group skips a listed chunk that fails it.
+LIST_WARP = 32
+# Per device, nn_pairs_list's per-(pair, subtile) tickets: zero between
+# launches (the merging block resets its row's), so no call clears them.
+_TICKETS: dict = {}
 
 
 def pack_pairs(db: Tensor, db_mask, payload: Tensor) -> Tensor:
@@ -147,9 +166,10 @@ def _survivor_lists(query_p: Tensor, cbox: Tensor, q_bound: Tensor,
 
 def _masked_sweep(query_p: Tensor, dbf_cm: Tensor, walk: Tensor,
                   d_dim: int, q_sub: int):
-    """Exact 1-NN of each pair's queries over the chunks its subtile walks
-    (walk (B, n_qt, n_chunks) bool), the others set to +inf; the lowest
-    index wins ties; (+inf, 0, 0) where nothing valid was walked."""
+    """Exact 1-NN of each pair's queries over the chunks its row of q_sub
+    queries walks (walk (B, Qp / q_sub, n_chunks) bool), the others set to
+    +inf; the lowest index wins ties; (+inf, 0, 0) where nothing valid was
+    walked."""
     b, qp, _ = query_p.shape
     f_dim = dbf_cm.shape[1] - d_dim
     m_pad = dbf_cm.shape[2]
@@ -180,18 +200,41 @@ def nn_pairs_plain(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor,
     return _masked_sweep(query_p, dbf_cm, walk, d_dim, q_sub)
 
 
-def nn_pairs_list_plain(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
-                        cnt: Tensor, d_dim: int, q_sub: int = Q_SUB):
-    """Plain PyTorch version of the nn_pairs_list kernel: each subtile
-    walks the first ``cnt`` chunks of its list."""
+def _list_walk(query_p: Tensor, dbf_cm: Tensor, lists: Tensor, cnt: Tensor,
+               d_dim: int, q_sub: int, q_bound, cbox, first: int = 0,
+               last=None):
+    """Which chunks each row of queries walks: list entries [first, last)
+    of each subtile's first ``cnt``; with ``q_bound`` (B, Qp) and
+    ``cbox`` also the prune test per group of LIST_WARP queries.  Returns
+    (walk (B, rows, n_chunks) bool, queries a row)."""
     nc = dbf_cm.shape[2] // _CHUNK
     pos = torch.arange(lists.shape[-1], device=lists.device)
-    ids = torch.where(pos < cnt[..., None], lists.to(torch.int64),
-                      torch.full_like(pos, nc))
+    mine = (pos < cnt[..., None]) & (pos >= first)
+    if last is not None:
+        mine = mine & (pos < last)
+    ids = torch.where(mine, lists.to(torch.int64), torch.full_like(pos, nc))
     walk = torch.zeros((*lists.shape[:2], nc + 1), dtype=torch.bool,
                        device=lists.device)
     walk.scatter_(2, ids, torch.ones_like(ids, dtype=torch.bool))
-    return _masked_sweep(query_p, dbf_cm, walk[..., :nc], d_dim, q_sub)
+    walk = walk[..., :nc]
+    if q_bound is None or cbox is None:
+        return walk, q_sub
+    lb = _box_lower_bound(_query_boxes(query_p, LIST_WARP), cbox, d_dim)
+    ok = lb <= _group_bounds(q_bound, LIST_WARP)[..., None]
+    return walk.repeat_interleave(q_sub // LIST_WARP, dim=1) & ok, LIST_WARP
+
+
+def nn_pairs_list_plain(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
+                        cnt: Tensor, d_dim: int, q_sub: int = Q_SUB,
+                        q_bound: Tensor | None = None,
+                        cbox: Tensor | None = None):
+    """Plain PyTorch version of the nn_pairs_list kernel: each subtile
+    walks the first ``cnt`` chunks of its list; with the queries' bounds
+    ``q_bound`` (B, Qp) and the chunk boxes ``cbox`` a group of LIST_WARP
+    queries skips the listed chunks that fail its own prune test."""
+    walk, rows = _list_walk(query_p, dbf_cm, lists, cnt, d_dim, q_sub,
+                            q_bound, cbox)
+    return _masked_sweep(query_p, dbf_cm, walk, d_dim, rows)
 
 
 def _check_launch(name: str, query_p: Tensor, dbf_cm: Tensor, d_dim: int,
@@ -254,38 +297,127 @@ def nn_pairs(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor, cbox: Tensor,
 
 
 def nn_pairs_list(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
-                  cnt: Tensor, d_dim: int, q_sub: int = Q_SUB):
+                  cnt: Tensor, d_dim: int, q_sub: int = Q_SUB,
+                  q_bound: Tensor | None = None, cbox: Tensor | None = None):
     """Survivor-list pair-grid 1-NN: the kernel on a CUDA tensor, the
     plain version on a CPU tensor.  lists (B, Qp / q_sub, cap) int32, cnt
-    (B, Qp / q_sub) int32 from ``_survivor_lists``; the rest as
-    ``nn_pairs``."""
+    (B, Qp / q_sub) int32 from ``_survivor_lists``; with the queries'
+    bounds ``q_bound`` (B, Qp) and the chunk boxes ``cbox`` (B, m_pad /
+    128, 8) that built them, each group of LIST_WARP queries also skips
+    the listed chunks that fail its own test (the result is the same for
+    valid bounds).  The rest as ``nn_pairs``."""
     if query_p.device.type == "cpu":
-        return nn_pairs_list_plain(query_p, dbf_cm, lists, cnt, d_dim, q_sub)
-    args, out = _nn_pairs_list_args(query_p, dbf_cm, lists, cnt, d_dim,
-                                    q_sub)
+        return nn_pairs_list_plain(query_p, dbf_cm, lists, cnt, d_dim, q_sub,
+                                   q_bound, cbox)
+    args, out, _part = _nn_pairs_list_args(query_p, dbf_cm, lists, cnt,
+                                           d_dim, q_sub, q_bound, cbox)
     status = cuda_build.launcher("nn_pairs_list")(*args)
     cuda_build.LAUNCHES["nn_pairs_list"] += 1
     cuda_build.check(status, "nn_pairs_list")
     return out
 
 
+def list_schedule(q_sub: int, cap: int):
+    """nn_pairs_list's schedule for subtiles of q_sub queries and lists of
+    cap entries: (list entries a work item, queries a thread).  LIST_Q
+    queries a thread where the block keeps at least a warp, LIST_ITEM
+    entries an item."""
+    q = LIST_Q
+    while q > 1 and q_sub // q < 32:
+        q //= 2
+    return min(LIST_ITEM, cap), q
+
+
 def _nn_pairs_list_args(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
-                        cnt: Tensor, d_dim: int, q_sub: int = Q_SUB):
-    """Check the CUDA inputs of nn_pairs_list and allocate its outputs.
-    Returns (the launcher's arguments, (dist, idx, pay))."""
-    _check_launch("nn_pairs_list", query_p, dbf_cm, d_dim, q_sub,
-                  (("lists", lists, torch.int32), ("cnt", cnt, torch.int32)))
+                        cnt: Tensor, d_dim: int, q_sub: int = Q_SUB,
+                        q_bound: Tensor | None = None,
+                        cbox: Tensor | None = None, item=None,
+                        q_per_thread=None):
+    """Check the CUDA inputs of nn_pairs_list and allocate its outputs and
+    scratch; ``item`` and ``q_per_thread`` default to ``list_schedule``'s.
+    Returns (the launcher's arguments, (dist, idx, pay), the scratch,
+    which the caller holds until the launch is enqueued)."""
+    grouped = q_bound is not None and cbox is not None
+    tables = [("lists", lists, torch.int32), ("cnt", cnt, torch.int32)]
+    if grouped:
+        tables += [("q_bound", q_bound, torch.float32),
+                   ("cbox", cbox, torch.float32)]
+    _check_launch("nn_pairs_list", query_p, dbf_cm, d_dim, q_sub, tables)
     b, qp, _ = query_p.shape
+    cap = lists.shape[-1]
     if (lists.ndim != 3 or lists.shape[:2] != (b, qp // q_sub)
-            or cnt.shape != (b, qp // q_sub)):
+            or cnt.shape != (b, qp // q_sub) or cap < 1):
         raise ValueError("nn_pairs_list: bad list shapes")
+    if grouped and (q_bound.shape != (b, qp) or cbox.data_ptr() % 16
+                    or cbox.shape != (b, dbf_cm.shape[2] // _CHUNK, 8)):
+        raise ValueError("nn_pairs_list: q_bound must be (B, Qp) and cbox "
+                         "(B, m_pad / 128, 8), 16-byte aligned")
+    d_item, d_q = list_schedule(q_sub, cap)
+    item = d_item if item is None else item
+    q = d_q if q_per_thread is None else q_per_thread
+    if (q not in _LIST_QS or q_sub // q < 32 or item < 1
+            or dbf_cm.data_ptr() % 16):
+        raise ValueError(f"nn_pairs_list: bad schedule (items of {item} "
+                         f"entries, {q} queries a thread of {_LIST_QS}, at "
+                         "least 32 threads) or dbf_cm not 16-byte aligned")
+    dev = query_p.device
+    rows = b * (qp // q_sub)
+    tickets = _TICKETS.get(dev)
+    if tickets is None or tickets.shape[0] < rows:
+        tickets = _TICKETS[dev] = torch.zeros(max(rows, 1024),
+                                              dtype=torch.int32, device=dev)
+    part = torch.empty(rows * -(-cap // item) * 2 * q_sub,
+                       dtype=torch.float32, device=dev)
     dist, idx, pay = _outputs(query_p, dbf_cm, d_dim)
-    stream = torch.cuda.current_stream(query_p.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     args = (query_p.data_ptr(), dbf_cm.data_ptr(), lists.data_ptr(),
-            cnt.data_ptr(), dist.data_ptr(), idx.data_ptr(), pay.data_ptr(),
-            b, qp, q_sub, d_dim, dbf_cm.shape[1] - d_dim, dbf_cm.shape[2],
-            lists.shape[2], stream)
-    return args, (dist, idx, pay)
+            cnt.data_ptr(), q_bound.data_ptr() if grouped else None,
+            cbox.data_ptr() if grouped else None, dist.data_ptr(),
+            idx.data_ptr(), pay.data_ptr(), part.data_ptr(),
+            tickets.data_ptr(), b, qp, q_sub, d_dim, dbf_cm.shape[1] - d_dim,
+            dbf_cm.shape[2], cap, item, q, stream)
+    return args, (dist, idx, pay), part
+
+
+def pairs_list_items(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
+                     cnt: Tensor, d_dim: int, q_sub: int = Q_SUB,
+                     q_bound: Tensor | None = None,
+                     cbox: Tensor | None = None, item: int = LIST_ITEM):
+    """nn_pairs_list's schedule on tensors: each subtile's walk (its first
+    cnt list entries) cut into items of ``item`` entries, each item swept
+    ascending (the first minimum of its points, with the per-group test
+    of ``q_bound`` and ``cbox`` when given; (+inf, 0) where none is
+    finite), the items merged lexicographically on (distance, index), the
+    payload read at the winner.  Returns (dist, idx int32, pay, the work
+    items that walk at least one chunk)."""
+    b, qp, _ = query_p.shape
+    dev, dt = query_p.device, query_p.dtype
+    best = torch.full((b, qp), float("inf"), dtype=dt, device=dev)
+    bi = torch.zeros((b, qp), dtype=torch.int64, device=dev)
+    for k in range(0, lists.shape[-1], item):
+        walk, rows = _list_walk(query_p, dbf_cm, lists, cnt, d_dim, q_sub,
+                                q_bound, cbox, k, k + item)
+        ld, li, _ = _masked_sweep(query_p, dbf_cm, walk, d_dim, rows)
+        li = li.to(torch.int64)
+        better = (ld < best) | ((ld == best) & (li < bi))
+        best = torch.where(better, ld, best)
+        bi = torch.where(better, li, bi)
+    pay = torch.take_along_dim(dbf_cm[:, d_dim:], bi[:, None, :], dim=2)
+    pay = torch.where(torch.isinf(best)[:, None, :], torch.zeros_like(pay),
+                      pay).transpose(1, 2)
+    n_items = int((-(-cnt.to(torch.int64) // item)).sum())
+    return best, bi.to(torch.int32), pay.contiguous(), n_items
+
+
+def group_walks(query_p: Tensor, dbf_cm: Tensor, lists: Tensor, cnt: Tensor,
+                d_dim: int, q_sub: int = Q_SUB,
+                q_bound: Tensor | None = None,
+                cbox: Tensor | None = None) -> int:
+    """The (query, db point) pairs one nn_pairs_list call sweeps: 128 a
+    walked (query, chunk), after the per-group test when it is on."""
+    walk, rows = _list_walk(query_p, dbf_cm, lists, cnt, d_dim, q_sub,
+                            q_bound, cbox)
+    return int(walk.sum()) * rows * _CHUNK
 
 
 def prepare(query: Tensor, db: Tensor, db_mask=None, payload=None,
@@ -340,7 +472,7 @@ def nn_pairs_matched(query: Tensor, db: Tensor, db_mask=None, payload=None,
         lists, cnt = _survivor_lists(query_p, cbox, qb, d_dim, q_sub,
                                      min(list_grp, q_sub))
         dist, idx, pay = nn_pairs_list(query_p, dbf_cm, lists, cnt, d_dim,
-                                       q_sub)
+                                       q_sub, qb, cbox)
     else:
         dist, idx, pay = nn_pairs(query_p, dbf_cm,
                                   _query_boxes(query_p, q_sub), cbox,

@@ -459,4 +459,4 @@ def test_chip_smoke_batched_phases_rehearse_on_cpu(chip_smoke, capsys):
     run = chip_smoke.phase_batched("cpu", **size)
     assert run["max_t_err"] < chip_smoke.ATE_GATE_M
     out = capsys.readouterr().out
-    assert out.count("bitwise equal to plain and brute force") == 9
+    assert out.count("bitwise equal to plain and brute force") == 10

@@ -9,8 +9,9 @@ and ``--noconftest`` keeps the JAX test setup out):
 Tolerances: nn_list, nn_pairs, nn_pairs_list, nn_sweep, nn_matched and
 nn_pruned are bitwise equal to their plain versions (indices, distances
 and payload) and to a brute-force sweep, nn_sweep, nn_matched and
-nn_pruned at every work-item split; icp2d_frame's result is bitwise the
-same at every cluster size.  irls_loop's medians and sigmas
+nn_pruned at every work-item split, nn_pairs_list at every schedule;
+icp2d_frame's result is bitwise the same at every cluster size, and
+icp2d_frame_pairs' at every cluster size of one thread count.  irls_loop's medians and sigmas
 are bitwise those of the exact median and of gn_stats.  irls_loop,
 irls_loop_batched, icp2d_frame, icp2d_frame_pairs and p2l_loop take
 their sums in another order than the plain versions: rot and t within
@@ -353,6 +354,94 @@ def test_nn_pairs_kernels_bitwise_equal_to_plain(dev, d, warm):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+@pytest.mark.parametrize("q", [1, 2, 4])
+@pytest.mark.parametrize("item", [1, 2, 3, 8])
+@pytest.mark.parametrize("case", ["warm", "ties", "empty-and-full"])
+def test_nn_pairs_list_schedules_bitwise(dev, case, item, q, grouped):
+    """Kernel 9 at work items of 1 to all list entries and 1, 2 and 4
+    queries a thread, with and without its per-group test: bitwise equal
+    to its plain version and to its schedule's emulation; with valid
+    lists also to brute force.  Cases: warm bounds over partly masked dbs
+    (one pair fully masked), exact ties, and subtiles whose lists are
+    empty (-inf bounds) beside full ones (+inf bounds)."""
+    from icp_rust_tpu_torch.ops.nn import nn_torch
+
+    query, db, mask = _pair_clouds(dev, m=1000)
+    if case == "ties":
+        db = torch.cat([db[:, :500], db[:, :500]], dim=1)
+        mask = torch.cat([mask[:, :500], mask[:, :500]], dim=1)
+        query = db[:, :700].clone()
+    brute = nn_torch(query, db, mask)
+    qb = brute.dist_sq * 1.0001
+    if case == "empty-and-full":
+        qb = torch.full_like(qb, float("inf"))
+        qb[:, :256] = float("-inf")
+    query_p, dbf, cbox, qb_p = nn_pairs_cuda.prepare(query, db, mask,
+                                                     db[..., :2], qb)
+    lists, cnt = nn_pairs_cuda._survivor_lists(query_p, cbox, qb_p, 2, 256,
+                                               64)
+    if case == "empty-and-full":
+        assert not bool(cnt[:, 0].any()) and bool((cnt[:, 1:] == 8).all())
+    args = (query_p, dbf, lists, cnt, 2, 256)
+    if grouped:
+        args += (qb_p, cbox)
+    largs, got, _part = nn_pairs_cuda._nn_pairs_list_args(
+        *args, item=item, q_per_thread=q)
+    before = cuda_build.LAUNCHES["nn_pairs_list"]
+    assert cuda_build.launcher("nn_pairs_list")(*largs) == 0
+    assert cuda_build.LAUNCHES["nn_pairs_list"] == before
+    torch.cuda.synchronize()
+    want = nn_pairs_cuda.nn_pairs_list_plain(*args)
+    emul = nn_pairs_cuda.pairs_list_items(*args, item=item)
+    for a, b, c in zip(got, want, emul):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    if case == "empty-and-full":
+        assert bool(torch.isinf(got[0][:, :256]).all())
+        query, brute = query[:, 256:], nn_torch(query[:, 256:], db, mask)
+        got = [x[:, 256:] for x in got]
+    n = query.shape[1]
+    assert torch.equal(got[1][:, :n], brute.index)
+    assert torch.equal(nn_cuda._trim_sentinel(got[0][:, :n]), brute.dist_sq)
+
+
+@pytest.mark.parametrize("b,n", [(6, 768), (1, 768), (3, 1536), (1, 1536)])
+def test_icp2d_frame_pairs_settings_match_plain(dev, b, n):
+    """Kernel 10 on the wrapper's (blocks a pair, threads a block) and on
+    every setting the card holds all B clusters of: rot and t within 1e-5
+    of the plain version with equal outer iterations per pair, bitwise
+    equal at one thread count whatever the cluster size; one pair (B = 1)
+    and the 1,536-point limit included."""
+    sp, sm, dp, dm = _pair_batch(dev, b=b, n=n - 100, pad=n)
+    cfg = ICPConfig(det_rel_eps=1e-9)
+    t0 = RigidTransform2.identity((b,), device=dev)
+    args = (sp, dp, sm, dm, t0, cfg)
+    before = cuda_build.LAUNCHES["icp2d_frame_pairs"]
+    rot, t, its = align2d_cuda.icp2d_frame_pairs(*args)
+    assert cuda_build.LAUNCHES["icp2d_frame_pairs"] == before + 1
+    rot_p, t_p, its_p = align2d_cuda.icp2d_frame_pairs_plain(*args)
+    assert torch.equal(its.to(torch.int32), its_p)
+    torch.testing.assert_close(rot, rot_p, atol=SOLVER_TOL, rtol=0)
+    torch.testing.assert_close(t, t_p, atol=SOLVER_TOL, rtol=0)
+    by_threads = {}
+    for c, threads in align2d_cuda.PAIRS_SHAPES:
+        if (c > 1 and n < 32 * c) or align2d_cuda._frame_resident(
+                n, n, c, threads) < b:
+            continue
+        _, largs, out, _keep = align2d_cuda._icp2d_frame_args(
+            *args, shape=(c, threads))
+        assert cuda_build.launcher("icp2d_frame_pairs")(*largs) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out[:, 6].to(torch.int32), its_p)
+        torch.testing.assert_close(out[:, :4].reshape(b, 2, 2), rot_p,
+                                   atol=SOLVER_TOL, rtol=0)
+        torch.testing.assert_close(out[:, 4:6], t_p, atol=SOLVER_TOL,
+                                   rtol=0)
+        ref = by_threads.setdefault(threads, out.clone())
+        assert torch.equal(out, ref), (c, threads)
+    assert len(by_threads) >= 2
 
 
 def test_irls_loop_batched_kernel_matches_plain(dev):
