@@ -52,7 +52,9 @@ frames, each subsampled to a seeded count in 411-670 points, padded to
    brute-force sweep; nn_pairs_list also to its schedule's emulation, and
    at work items of 1 to all list entries with 1, 2 and 4 queries a
    thread (each printed with its launcher-alone time).  nn_pairs_list
-   timed by its launcher alone and by its wrapper.
+   timed by its launcher alone and by its wrapper on the warm call,
+   nn_pairs by its launcher alone and by its wrapper on the cold call,
+   beside nn_pairs_list's launcher alone on the same cold case.
 7. irls_loop_batched vs its plain version on the 209 pairs' first-iteration
    correspondences, plus an all-masked pair and a one-point pair, and on
    every call of phase 17's ``run_slam2d`` over 12 full xy frames
@@ -96,7 +98,10 @@ workload of benchmarks/bench_p2l.py), with voxel normals at 0.3 m:
 12. p2l_stats vs its plain version at the identity and at one warm
     transform, through ``align3d.weighted_gn_update_p2l_cuda``: the 27
     sums and the error within P2L_STATS_TOL relative, the count exact,
-    sigma within P2L_SIGMA_TOL relative.
+    sigma within P2L_SIGMA_TOL relative.  Timed by its launcher alone on
+    clusters of 1, 2, 4, 8 and 16 blocks at 28,800 points and at their
+    first 3,072 and 1,000 (each held to the same gates), and by its
+    wrapper.
 13. The p2l path: ``run_odometry_p2l_fused`` over the 96 frames, run
     twice (bitwise equal; the second run is timed): frames/s, ATE-xy < 0.05
     m and max |z| < 0.05 m against ground truth, outer iterations, and
@@ -151,7 +156,9 @@ The last two kernels and the scan-to-submap path:
     GN_STATS_TOL of their Cauchy-Schwarz bounds, the count exact, sigma
     within GN_SIGMA_TOL relative, and the update's delta within
     GN_DELTA_TOL of ``weighted_gauss_newton_update``'s with equal ``ok``.
-    Timed by their launchers alone and by their wrappers.
+    Timed by their launchers alone (gn_stats as p2l_stats in phase 12, on
+    every cluster size at 28,800, 3,072 and 1,000 points) and by their
+    wrappers.
 19. ``run_submap_odometry`` at ``benchmarks/bench_submap.py``'s width (the
     96 frames padded to 28,800; voxel 0.05 m, capacity 2^17, a 65,536-row
     map view), twice (bitwise equal; the second run timed): frames/s, ATE
@@ -172,7 +179,7 @@ The last two kernels and the scan-to-submap path:
 The launch counts of each path are zeroed just before it and read just
 after.  Prints one ``{"kernels": [...]}`` line, one entry per kernel (the
 fourteen): the contract's keys for its first timed shape and path
-(``ms`` by the launcher alone for kernels 1-7, 9-13, beside
+(``ms`` by the launcher alone for every kernel, beside
 ``wrapper_ms``), its launches on every path driven
 (``launches_by_path``) and the other shapes it was timed at
 (``other_shapes``); then the card's name and power
@@ -182,13 +189,19 @@ operations / 67 TFLOP/s (H100 SXM float32 without tensor cores).
 
     python3 chip_smoke.py --times
 
-builds the kernels and only times kernels 3, 9 and 10 by their launchers
-alone at every shape their paths give them (kernel 9 on every call of the
-batched path and of SLAM 2D, kernel 10 at 209 x 768, 64 x 1,536 and B =
-1), at every schedule or setting the tree has, with the two frame
+builds the kernels and only times kernels 12, 14, 3, 9 and 10 by their
+launchers alone at every shape their paths give them (kernels 12 and 14
+at 28,800, 3,072 and 1,000 points, kernel 9 on every call of the batched
+path and of SLAM 2D, kernel 10 at 209 x 768, 64 x 1,536 and B = 1), at
+every cluster size, schedule or setting the tree has, with the two frame
 kernels' splits of an outer iteration into its sweep, IRLS loop and tail
 per pair (``kernel_times``, ``frame_split``): one JSON line, to compare
-two trees in one run on one card.
+two trees in one run on one card.  Then it holds kernel 10 at every
+shape within FRAME_TOL of its plain version with equal outer iteration
+counts, and on a miss traces the worst pair through kernels 10 and 3
+(``frame_trace``: per outer iteration the kernel's matches against the
+plain and the exact nearest neighbours of its own rows, its IRLS result
+against the plain loop on its own inputs) and exits non-zero.
 
     python3 chip_smoke.py --profile
 
@@ -1028,6 +1041,19 @@ def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
             del keep
             print(f"# nn_pairs_list warm: launcher alone {ms} ms, wrapper "
                   f"{extra['wrapper_ms']:.4f} ms")
+        elif torch.device(device).type == "cuda":
+            # Kernel 8 by its launcher alone, beside kernel 9 on the same
+            # cold case (+inf bounds, every chunk listed).
+            largs, _out = nn_pairs_cuda._nn_pairs_args(*args)
+            cold = timed[("list", "cold")]["args"]
+            cargs, _cout, keep = nn_pairs_cuda._nn_pairs_list_args(*cold)
+            extra = dict(wrapper_ms=ms, list_cold_ms=launcher_ms(
+                "nn_pairs_list", cargs, device))
+            ms = launcher_ms("nn_pairs", largs, device)
+            del keep
+            print(f"# nn_pairs cold: launcher alone {ms} ms, wrapper "
+                  f"{extra['wrapper_ms']:.4f} ms; nn_pairs_list on the "
+                  f"cold case, launcher alone {extra['list_cold_ms']} ms")
         plain_ms = time_ms(lambda: c["plain"](*args), device, reps=3)
         query_p, dbf = args[0], args[1]
         tables = sum(x.numel() * 4 for x in args[2:] if torch.is_tensor(x))
@@ -1213,12 +1239,13 @@ def phase_irls_batched_wide(device="cuda", wide_frames: int = 12,
                                 iterations=first_its.tolist())
 
 
-def _frame_pairs_check(args, what: str, strict: bool = True):
+def _frame_pairs_check(args, what: str):
     """Kernel 10 through its wrapper against its plain version on one
     batch: rot and t within FRAME_TOL per pair, equal outer iteration
-    counts (when ``strict``; else a miss is printed and returned).
-    Returns (max |diff|, outer iterations per pair, the plain version's
-    (rot, t), the pairs whose counts differ)."""
+    counts.  On a miss on the card, the worst pair is traced through
+    kernel 10 and, alone, through kernel 3 (``frame_trace``) before the
+    check raises.  Returns (max |diff|, outer iterations per pair, the
+    plain version's (rot, t))."""
     rot, t, its = align2d_cuda.icp2d_frame_pairs(*args)
     rot_p, t_p, its_p = align2d_cuda.icp2d_frame_pairs_plain(*args)
     err = max(float(torch.max(torch.abs(rot - rot_p))),
@@ -1233,32 +1260,32 @@ def _frame_pairs_check(args, what: str, strict: bool = True):
           f"{int(its_pl.sum())}; max |diff| rot/t {err:.3e} (tol "
           f"{FRAME_TOL})")
     differ = int((its_k != its_pl).sum())
-    if strict and not err <= FRAME_TOL:
-        raise RuntimeError(f"icp2d_frame_pairs {what} differs from its "
-                           f"plain version: {err}")
-    if strict and differ:
-        raise RuntimeError(f"icp2d_frame_pairs {what}: outer iteration "
-                           "counts differ from the plain version's")
     if differ or not err <= FRAME_TOL:
-        worst = torch.argmax(torch.maximum(
+        worst = int(torch.argmax(torch.maximum(
             torch.amax(torch.abs(rot - rot_p), dim=(-2, -1)),
-            torch.amax(torch.abs(t - t_p), dim=-1))).item()
+            torch.amax(torch.abs(t - t_p), dim=-1))))
         print(f"# icp2d_frame_pairs {what}: OUTSIDE FRAME_TOL: max |diff| "
               f"{err:.3e} at pair {worst} (outer iterations {its_k[worst]}, "
               f"plain {its_pl[worst]}), {differ} counts differ")
-    return err, its_k, (rot_p, t_p), differ
+        if rot.device.type == "cuda":
+            frame_trace(rot.device, "icp2d_frame_pairs", args, worst)
+            sp, dp, sm, dm, t0, cfg = args
+            alone = (sp[worst], dp[worst], sm[worst], dm[worst],
+                     RigidTransform2(t0.rot[worst], t0.t[worst]), cfg)
+            frame_trace(rot.device, "icp2d_frame", alone, 0)
+        raise RuntimeError(f"icp2d_frame_pairs {what} differs from its "
+                           f"plain version: {err}, {differ} outer "
+                           "iteration counts differ")
+    return err, its_k, (rot_p, t_p)
 
 
-def _frame_pairs_settings(args, plain, device, reps: int = 10,
-                          tol: float = FRAME_TOL):
+def _frame_pairs_settings(args, device, reps: int = 10):
     """Kernel 10 by its launcher alone on the wrapper's (blocks a pair,
     threads a block) and, where the tree has them, on every setting of
     PAIRS_SHAPES of which the card holds all B clusters at once and that
-    leaves 32 query rows a block: each within ``tol`` of the plain
-    version ``plain`` (rot, t) with the wrapper's outer iteration counts,
-    and bitwise equal to the other settings of its thread count.  Returns
-    (ms on the wrapper's setting, {"C=..,T=..": ms}, the wrapper's
-    setting)."""
+    leaves 32 query rows a block.  Returns (ms on the wrapper's setting,
+    {"C=..,T=..": ms}, the wrapper's setting, its output, {(blocks,
+    threads): output}); ``_frame_pairs_hold`` checks the outputs."""
     _, largs, out, keep = align2d_cuda._icp2d_frame_args(*args)
     ms = launcher_ms("icp2d_frame_pairs", largs, device, reps=reps)
     _sync(device)
@@ -1266,12 +1293,11 @@ def _frame_pairs_settings(args, plain, device, reps: int = 10,
     del keep
     shapes = getattr(align2d_cuda, "PAIRS_SHAPES", ())
     if not shapes:
-        return ms, {}, None
+        return ms, {}, None, ref, {}
     b, n, m = args[0].shape[0], args[0].shape[1], args[1].shape[1]
     chosen = align2d_cuda.frame_pairs_shape(
         b, n, lambda c, t: align2d_cuda._frame_resident(n, m, c, t))
-    by_shape, by_threads = {}, {}
-    rot_p, t_p = plain
+    by_shape, outs = {}, {}
     for c, t in shapes:
         if not ((c == 1 or n >= 32 * c)
                 and align2d_cuda._frame_resident(n, m, c, t) >= b):
@@ -1281,18 +1307,29 @@ def _frame_pairs_settings(args, plain, device, reps: int = 10,
         by_shape[f"C={c},T={t}"] = launcher_ms("icp2d_frame_pairs", largs,
                                                device, reps=reps)
         _sync(device)
+        outs[(c, t)] = o.clone()
+        del keep
+    return ms, by_shape, chosen, ref, outs
+
+
+def _frame_pairs_hold(plain, ref, outs):
+    """Kernel 10's outputs on every setting (``_frame_pairs_settings``):
+    each within FRAME_TOL of the plain version ``plain`` (rot, t) with the
+    wrapper's outer iteration counts ``ref``, and bitwise equal to the
+    other settings of its thread count."""
+    rot_p, t_p = plain
+    by_threads = {}
+    for (c, t), o in outs.items():
         err = max(float(torch.max(torch.abs(o[:, :4] - rot_p.reshape(-1, 4)))),
                   float(torch.max(torch.abs(o[:, 4:6] - t_p))))
-        if not (err <= tol and torch.equal(o[:, 6], ref[:, 6])):
+        if not (err <= FRAME_TOL and torch.equal(o[:, 6], ref[:, 6])):
             raise RuntimeError(f"icp2d_frame_pairs: clusters of {c} blocks "
                                f"of {t} threads give {err} or other outer "
                                "iteration counts")
-        first = by_threads.setdefault(t, o.clone())
+        first = by_threads.setdefault(t, o)
         if not torch.equal(o[:, :7], first[:, :7]):
             raise RuntimeError(f"icp2d_frame_pairs: clusters of {c} blocks "
                                f"of {t} threads change the result")
-        del keep
-    return ms, by_shape, chosen
 
 
 def phase_frame_pairs(device="cuda", n_scans: int = BATCH_SCANS,
@@ -1305,13 +1342,15 @@ def phase_frame_pairs(device="cuda", n_scans: int = BATCH_SCANS,
     b = src.shape[0]
     t0 = RigidTransform2.identity((b,), dtype=torch.float32, device=device)
     args = (src, dst, smask, dmask, t0, cfg)
-    err, its_k, plain, _ = _frame_pairs_check(args, f"{b}x{pad}")
+    err, its_k, plain = _frame_pairs_check(args, f"{b}x{pad}")
     extra = {}
     if torch.device(device).type == "cuda":
         inner = align2d_cuda.icp2d_frame_raw(*args)[:, 7].double().cpu()
         wrapper_ms = time_ms(lambda: align2d_cuda.icp2d_frame_pairs(*args),
                              device, reps=10)
-        ms, by_shape, chosen = _frame_pairs_settings(args, plain, device)
+        ms, by_shape, chosen, ref, outs = _frame_pairs_settings(args,
+                                                                device)
+        _frame_pairs_hold(plain, ref, outs)
         extra = dict(wrapper_ms=wrapper_ms, shape=chosen,
                      shape_ms=by_shape)
         print(f"# icp2d_frame_pairs: launcher alone {ms} ms on clusters of "
@@ -1664,16 +1703,25 @@ def phase_p2l_loop(device="cuda", stride: int = 1):
                                        for k, d in cluster_ms.items()}))
 
 
-def phase_p2l_stats(device="cuda", stride: int = 1):
-    """Kernel 14 vs its plain version at the identity and at one warm
-    transform, through align3d.weighted_gn_update_p2l_cuda (kernel 14's
-    path: its launches are counted there)."""
-    cfg = _config()
+def _p2l_stats_inputs(device, stride: int = 1):
+    """Kernel 14's path shapes: frame 1's first-iteration p2l
+    correspondences (N = 28,800) and the transform their plain loop
+    reaches: (src, matched, normals, mask, identity, warm)."""
     src, matched, m_n, mask = _first_p2l_correspondences(device, stride)
     ident = RigidTransform3.identity(device=src.device)
     warm = align3d.estimate_transform_p2l(
-        src, matched, m_n, mask, cfg.with_(align_backend="torch"))
-    k = cfg.huber_k
+        src, matched, m_n, mask, _config(align_backend="torch"))
+    return src, matched, m_n, mask, ident, warm
+
+
+def phase_p2l_stats(device="cuda", stride: int = 1):
+    """Kernel 14 vs its plain version at the identity and at one warm
+    transform, through align3d.weighted_gn_update_p2l_cuda (kernel 14's
+    path: its launches are counted there); on the card timed by its
+    launcher alone on every cluster size (``_stats_times``) and by its
+    wrapper."""
+    k = _config().huber_k
+    src, matched, m_n, mask, ident, warm = _p2l_stats_inputs(device, stride)
     _sync(device)
     cuda_build.reset_launches()
     updates = [align3d.weighted_gn_update_p2l_cuda(t, src, matched, m_n,
@@ -1683,32 +1731,33 @@ def phase_p2l_stats(device="cuda", stride: int = 1):
     launches = dict(cuda_build.LAUNCHES)
     worst, abs_err = 0.0, 0.0
     for name, t, upd in zip(("identity", "warm"), (ident, warm), updates):
-        got = align3d_cuda.p2l_stats(src, matched, m_n, mask, t.rot, t.t, k)
-        want = align3d_cuda.p2l_stats_plain(src, matched, m_n, mask, t.rot,
-                                            t.t, k)
-        rel, dn, sig_rel = align3d_cuda.stats_errors(got, want)
-        abs_err = max(abs_err, float(torch.max(torch.abs(got - want))))
-        print(f"# p2l_stats {name}: sums and error max rel {rel:.3e} "
-              f"(tol {P2L_STATS_TOL}), count diff {dn:g}, sigma rel "
-              f"{sig_rel:.3e} (tol {P2L_SIGMA_TOL}); update ok "
-              f"{bool(upd.ok)}")
-        if not (rel <= P2L_STATS_TOL and dn == 0.0
-                and sig_rel <= P2L_SIGMA_TOL):
-            raise RuntimeError(f"p2l_stats {name} differs from its plain "
-                               "version")
-        worst = max(worst, rel)
+        args = (src, matched, m_n, mask, t.rot, t.t, k)
+        rel, err = _stats_gate("p2l_stats", align3d_cuda.p2l_stats(*args),
+                               args, f"p2l_stats {name}")
+        print(f"# p2l_stats {name}: update ok {bool(upd.ok)}")
+        worst, abs_err = max(worst, rel), max(abs_err, err)
     args = (src, matched, m_n, mask, warm.rot, warm.t, k)
-    ms = time_ms(lambda: align3d_cuda.p2l_stats(*args), device, reps=20)
+    wrapper_ms = time_ms(lambda: align3d_cuda.p2l_stats(*args), device,
+                         reps=20)
+    ms, extra = wrapper_ms, dict(wrapper_ms=wrapper_ms)
+    if torch.device(device).type == "cuda":
+        extra["cluster_ms"] = _stats_times("p2l_stats", args, device)
+        n = src.shape[0]
+        ms = extra["cluster_ms"][n][align3d_cuda.p2l_cluster(n)]
+        print(f"# p2l_stats: launcher alone {ms} ms (a cluster of "
+              f"{align3d_cuda.p2l_cluster(n)}), wrapper {wrapper_ms:.4f} ms")
     plain_ms = time_ms(lambda: align3d_cuda.p2l_stats_plain(*args), device,
                        reps=3)
     ops = float(mask.sum()) * P2L_OPS_PER_POINT
-    b, by = bound_ms(10 * src.shape[0] * 4 + 12 * 4 + 32 * 4, ops)
+    n_pts = src.shape[0]
+    b, by = bound_ms(9 * 4 * n_pts + mask.element_size() * n_pts + 12 * 4
+                     + 32 * 4, ops)
     return dict(name="p2l_stats", route="cuda", path="p2l_stats",
                 source="icp_rust_tpu_torch/csrc/p2l_stats.cu",
                 replaces="icp_rust_tpu/ops/align3d_pallas.py:120",
                 max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, library_ms=None, launches=launches["p2l_stats"],
-                max_rel_err=worst)
+                max_rel_err=worst, extra=extra)
 
 
 def _run_p2l(pts, mask, cfg, device, voxel: float = P2L_VOXEL_M):
@@ -2329,6 +2378,86 @@ def profile_slam3d(device="cuda", n_frames: int = 96):
     print(avgs.table(sort_by="self_device_time_total", row_limit=20))
 
 
+# Kernels 12 and 14: the cluster sizes timed, and the smaller point counts
+# timed beside the paths' 28,800 (the first points of the same inputs),
+# for the cluster-size rule.
+STATS_CLUSTERS = (1, 2, 4, 8, 16)
+STATS_POINTS = (3072, 1000)
+
+
+def _stats_args(name: str, args, cluster=None):
+    """Kernel 12's (gn_stats) or 14's (p2l_stats) launcher arguments on
+    ``args``, its wrapper's, in the tree at hand: (the arguments, out, the
+    tensors they point into).  ``cluster``: blocks in its cluster, by
+    default its rule's; a tree whose kernel is one block takes none."""
+    if name == "gn_stats":
+        if hasattr(align2d_cuda, "_gn_stats_args"):
+            return align2d_cuda._gn_stats_args(*args, cluster=cluster)
+        return align2d_cuda._gn_args("gn_stats", *args)
+    if hasattr(align3d_cuda, "_p2l_stats_args"):
+        return align3d_cuda._p2l_stats_args(*args, cluster=cluster)
+    # The one-block kernel's columns, as its wrapper built them.
+    src, dst, nrm, mask, rot, t, k = args
+    cols = align3d_cuda._columns(src, dst, nrm, mask)
+    rt = torch.cat([rot.reshape(9), t]).float().contiguous()
+    scratch = torch.empty(src.shape[0], dtype=torch.float32,
+                          device=src.device)
+    out = torch.empty(32, dtype=torch.float32, device=src.device)
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    largs = (*[c.data_ptr() for c in cols], src.shape[0], rt.data_ptr(),
+             scratch.data_ptr(), out.data_ptr(), k, k * k, 2.0 * k, stream)
+    return largs, out, (cols, rt, scratch)
+
+
+def _stats_gate(name: str, got, args, what: str):
+    """Kernel 12's or 14's packed stats ``got`` held to PERF.md's stats
+    gates against its plain version on ``args``: each sum and the error
+    within the tolerance of its Cauchy-Schwarz bound, the count exact,
+    sigma within the relative tolerance.  Returns (max relative error, max
+    |diff|); raises on a miss."""
+    if name == "gn_stats":
+        want = align2d_cuda.gn_stats_plain(*args)
+        rel, dn, sig_rel = align2d_cuda.gn_stats_errors(got, want)
+        tol, sig_tol = GN_STATS_TOL, GN_SIGMA_TOL
+    else:
+        want = align3d_cuda.p2l_stats_plain(*args)
+        rel, dn, sig_rel = align3d_cuda.stats_errors(got, want)
+        tol, sig_tol = P2L_STATS_TOL, P2L_SIGMA_TOL
+    print(f"# {what}: sums and error max rel {rel:.3e} (tol {tol}), count "
+          f"diff {dn:g}, sigma rel {sig_rel:.3e} (tol {sig_tol})")
+    if not (rel <= tol and dn == 0.0 and sig_rel <= sig_tol):
+        raise RuntimeError(f"{what} differs from its plain version")
+    return rel, float(torch.max(torch.abs(got.cpu() - want.cpu())))
+
+
+def _stats_times(name: str, args, device, reps: int = 50):
+    """Kernel 12 or 14 (``name``) by its launcher alone on ``args`` (its
+    path's shape) and on their first STATS_POINTS points, on every
+    cluster size of STATS_CLUSTERS where the tree's kernel takes one,
+    each result held to the stats gates (``_stats_gate``): {points:
+    {blocks: ms}} ({points: {"one block": ms}} in a tree whose kernel is
+    one block)."""
+    clustered = hasattr(align2d_cuda if name == "gn_stats"
+                        else align3d_cuda,
+                        "_gn_stats_args" if name == "gn_stats"
+                        else "_p2l_stats_args")
+    res = {}
+    for m in (args[0].shape[0], *STATS_POINTS):
+        sub = tuple(x[:m] for x in args[:-3]) + tuple(args[-3:])
+        times = {}
+        for c in STATS_CLUSTERS if clustered else (None,):
+            largs, got, keep = _stats_args(name, sub, c)
+            times["one block" if c is None else c] = launcher_ms(
+                name, largs, device, reps=reps)
+            _sync(device)
+            _stats_gate(name, got, sub, f"{name} {m} points, cluster {c}")
+            del keep
+        res[m] = times
+        print(f"# times {name} {m} points: launcher alone by cluster size "
+              f"{times} ms")
+    return res
+
+
 def _gn_check(name, got, want, upd, ref):
     """Gate one gn_stats case: stats against the plain version's, and the
     update against weighted_gauss_newton_update's.  Returns (max relative
@@ -2348,13 +2477,11 @@ def _gn_check(name, got, want, upd, ref):
     return rel, float(torch.max(torch.abs(got - want)))
 
 
-def phase_gn_stats(device="cuda", stride: int = 1,
-                   n_scans: int = BATCH_SCANS, pad: int = BATCH_PAD):
-    """Kernels 12 and 13 vs their plain versions through
-    align2d.weighted_gn_update_cuda (their only caller: their launches are
-    counted there), at the main path's and the batched path's shapes."""
+def _gn_stats_inputs(device, stride: int = 1):
+    """Kernel 12's path shapes: frame 1's first-iteration correspondences
+    (N = 28,800, xy) and the transform their plain loop reaches: (src,
+    matched, mask, identity, warm)."""
     cfg = _config()
-    k, eps = cfg.huber_k, cfg.det_rel_eps
     src, smask, dst, dmask = _first_pair(device, stride)
     _, matched = nearest_neighbor_matched(
         src, dst, dmask, payload=dst[:, :2], backend="torch",
@@ -2363,14 +2490,27 @@ def phase_gn_stats(device="cuda", stride: int = 1,
     ident = RigidTransform2.identity(device=src.device)
     warm = align2d.estimate_transform(s_xy, matched, smask,
                                       cfg.with_(align_backend="torch"))
+    return s_xy, matched, smask, ident, warm
+
+
+def phase_gn_stats(device="cuda", stride: int = 1,
+                   n_scans: int = BATCH_SCANS, pad: int = BATCH_PAD):
+    """Kernels 12 and 13 vs their plain versions through
+    align2d.weighted_gn_update_cuda (their only caller: their launches are
+    counted there), at the main path's and the batched path's shapes; on
+    the card timed by their launchers alone (kernel 12 on every cluster
+    size, ``_stats_times``) and by their wrappers."""
+    cfg = _config()
+    k, eps = cfg.huber_k, cfg.det_rel_eps
+    s_xy, matched, smask, ident, warm = _gn_stats_inputs(device, stride)
     b_src, b_smask, b_dst, b_dmask = _batch(device, n_scans, pad, sort=True)
     _, b_matched = nearest_neighbor_matched(b_src, b_dst, b_dmask,
                                             backend="torch", tile=pad)
-    extra = torch.zeros_like(b_smask[:2])
-    extra[1, :101] = True  # an odd count; row 0 all masked
+    odd = torch.zeros_like(b_smask[:2])
+    odd[1, :101] = True  # an odd count; row 0 all masked
     bs = torch.cat([b_src, b_src[:2]])
     bd = torch.cat([b_matched, b_matched[:2]])
-    bk = torch.cat([b_smask, extra])
+    bk = torch.cat([b_smask, odd])
     rng = np.random.default_rng(8)
     tw = rng.normal(0, 1, (bs.shape[0], 3)) * [0.05, 0.05, 0.02]
     tw[-2:] = 0.0
@@ -2398,20 +2538,28 @@ def phase_gn_stats(device="cuda", stride: int = 1,
         raise RuntimeError("gn_stats_batched: the odd-count pair is not ok "
                            "or the all-masked pair is")
     recs = []
-    for kern, line, args in (
-            ("gn_stats", 188, (s_xy, matched, smask, warm.rot, warm.t, k)),
-            ("gn_stats_batched", 467, (bs, bd, bk, bt.rot, bt.t, k))):
+    # Bytes read once a point: kernel 12 reads src and dst in place and a
+    # bool mask, kernel 13 five float32 columns.
+    for kern, line, args, point_bytes in (
+            ("gn_stats", 188, (s_xy, matched, smask, warm.rot, warm.t, k),
+             4 * 4 + 1),
+            ("gn_stats_batched", 467, (bs, bd, bk, bt.rot, bt.t, k), 5 * 4)):
         fn = getattr(align2d_cuda, kern)
         plain = getattr(align2d_cuda, kern + "_plain")
         wrapper_ms = time_ms(lambda: fn(*args), device, reps=50)
-        ms = wrapper_ms
-        if torch.device(device).type == "cuda":
-            largs, _, keep = align2d_cuda._gn_args(kern, *args)
+        ms, extra = wrapper_ms, dict(wrapper_ms=wrapper_ms)
+        if torch.device(device).type == "cuda" and kern == "gn_stats":
+            extra["cluster_ms"] = _stats_times(kern, args, device)
+            n = args[0].shape[0]
+            ms = extra["cluster_ms"][n][align2d_cuda.gn_cluster(n)]
+        elif torch.device(device).type == "cuda":
+            largs, _, keep = align2d_cuda._gn_batched_args(*args)
             ms = launcher_ms(kern, largs, device)
             del keep
         plain_ms = time_ms(lambda: plain(*args), device, reps=3)
         n_pts, n_pairs = args[0].shape[-2], args[0][..., 0, 0].numel()
-        b, by = bound_ms(5 * n_pairs * n_pts * 4 + n_pairs * (6 + 16) * 4,
+        b, by = bound_ms(point_bytes * n_pairs * n_pts
+                         + n_pairs * (6 + 16) * 4,
                          float(args[2].sum()) * IRLS_OPS_PER_POINT)
         recs.append(dict(name=kern, route="cuda", path=kern,
                          source=f"icp_rust_tpu_torch/csrc/{kern}.cu",
@@ -2419,10 +2567,12 @@ def phase_gn_stats(device="cuda", stride: int = 1,
                          max_abs_err=worst[kern][1], ms=ms, plain_ms=plain_ms,
                          bound_ms=b, bound_by=by, library_ms=None,
                          launches=launches[kern], max_rel_err=worst[kern][0],
-                         extra=dict(wrapper_ms=wrapper_ms)))
+                         extra=extra))
         print(f"# {kern}: launcher alone {ms:.4f} ms, wrapper "
               f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms")
     return recs
+
+
 
 
 def _run_submap(pts, mask, cfg, device, with_metrics: bool = True, **kw):
@@ -2801,41 +2951,206 @@ def _split_design(kernel: str) -> str:
     return "cluster"
 
 
+def _stamped_library(kernel: str, tag: str, fname: str, stamps,
+                     prelude: str, entries):
+    """A copy of ``kernel``'s library with ``stamps`` ((anchor, code
+    inserted after it), each anchor once) in its source ``fname`` and
+    ``prelude`` before its main file, built once per process under
+    _build/<tag>/<kernel>: (its launch entry, {name: the C entry point of
+    ``entries``, {name: argument types}})."""
+    out_dir = cuda_build.BUILD_DIR / tag / kernel
+    lib = out_dir / f"lib{kernel}_{tag}.so"
+    if not lib.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        main = f"{kernel}.cu"
+        files = {main: (cuda_build.CSRC / main).read_text()}
+        # The headers that the stamped file includes come from out_dir.
+        for name in (*cuda_build.HEADERS, fname):
+            if (cuda_build.CSRC / name).exists():
+                files.setdefault(name, (cuda_build.CSRC / name).read_text())
+        text = files[fname]
+        for anchor, code in stamps:
+            if text.count(anchor) != 1:
+                raise RuntimeError(f"{tag}: {anchor!r} is not in {fname} "
+                                   "once")
+            text = text.replace(anchor, anchor + code)
+        files[fname] = text
+        files[main] = prelude + files[main]
+        for name, body in files.items():
+            (out_dir / name).write_text(body)
+        subprocess.run([cuda_build._nvcc(), *cuda_build.FLAGS, "-I",
+                        str(out_dir), "-I", str(cuda_build.CSRC), "-o",
+                        str(lib), str(out_dir / main)],
+                       check=True, capture_output=True, timeout=600)
+    dll = ctypes.CDLL(str(lib))
+    entry, argtypes = cuda_build._SIGNATURES[kernel]
+    fn = getattr(dll, entry)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    got = {}
+    for name, types in entries.items():
+        got[name] = getattr(dll, name)
+        got[name].argtypes, got[name].restype = types, ctypes.c_int
+    return fn, got
+
+
 def _split_library(kernel: str):
     """The stamped copy of ``kernel``'s library, built once per process:
     (its launch entry, icp_split_zero, icp_split_copy, the design)."""
     design = _split_design(kernel)
     fname, who, pair, stamps = _SPLIT_STAMPS[design]
-    out_dir = cuda_build.BUILD_DIR / "split" / kernel
-    lib = out_dir / f"lib{kernel}_split.so"
-    if not lib.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        main = f"{kernel}.cu"
-        files = {main: (cuda_build.CSRC / main).read_text()}
-        text = (cuda_build.CSRC / fname).read_text()
-        for anchor, code in stamps:
-            if text.count(anchor) != 1:
-                raise RuntimeError(f"frame_split: {anchor!r} is not in "
-                                   f"{fname} once")
-            code = {"ADD": _split_add(who, pair),
-                    "TOTAL": _split_total(pair)}.get(code, code)
-            text = text.replace(anchor, anchor + code)
-        files[fname] = text
-        files[main] = _SPLIT_PRELUDE + files[main]
-        for name, body in files.items():
-            (out_dir / name).write_text(body)
-        subprocess.run([cuda_build._nvcc(), *cuda_build.FLAGS, "-I",
-                        str(out_dir), "-I", str(cuda_build.CSRC), "-o",
-                        str(lib), str(out_dir / main)], check=True,
-                       capture_output=True, timeout=600)
-    dll = ctypes.CDLL(str(lib))
-    entry, argtypes = cuda_build._SIGNATURES[kernel]
-    fn = getattr(dll, entry)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    zero, copy = dll.icp_split_zero, dll.icp_split_copy
-    zero.argtypes, zero.restype = [ctypes.c_int], ctypes.c_int
-    copy.argtypes, copy.restype = [ctypes.c_void_p, ctypes.c_int], ctypes.c_int
-    return fn, zero, copy, design
+    stamps = [(anchor, {"ADD": _split_add(who, pair),
+                        "TOTAL": _split_total(pair)}.get(code, code))
+              for anchor, code in stamps]
+    fn, got = _stamped_library(
+        kernel, "split", fname, stamps, _SPLIT_PRELUDE,
+        {"icp_split_zero": [ctypes.c_int],
+         "icp_split_copy": [ctypes.c_void_p, ctypes.c_int]})
+    return fn, got["icp_split_zero"], got["icp_split_copy"], design
+
+
+# A frame kernel's record of one pair's outer iterations (``frame_trace``):
+# a copy of frame_cluster.cuh into whose leader block of the traced pair
+# every thread writes, each outer iteration, the IRLS loop's inputs (the
+# transformed src rows and their matched dst points) and thread 0 the
+# transform they were swept at and the loop's result.
+_TRACE_ITERS = 32
+_TRACE_PRELUDE = f"""#include <cuda_runtime.h>
+__device__ int icp_trace_pair = -1;
+__device__ float icp_trace_pts[{_TRACE_ITERS}][4][1536];
+__device__ float icp_trace_t[{_TRACE_ITERS}][16];
+extern "C" int icp_trace_set(int pair) {{
+  return (int)cudaMemcpyToSymbol(icp_trace_pair, &pair, sizeof(int));
+}}
+extern "C" int icp_trace_copy(float* pts, float* t) {{
+  cudaError_t e = cudaMemcpyFromSymbol(pts, icp_trace_pts,
+                                       sizeof(icp_trace_pts), 0,
+                                       cudaMemcpyDeviceToDevice);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaMemcpyFromSymbol(t, icp_trace_t, sizeof(icp_trace_t), 0,
+                                   cudaMemcpyDeviceToDevice);
+}}
+"""
+_TRACE_STAMPS = (
+    ("    cluster.sync();  // the matches are in the leader\n",
+     f"    if (rank == 0 && (int)pair == icp_trace_pair\n"
+     f"        && fs.it < {_TRACE_ITERS}) {{\n"
+     "      for (int i = tid; i < fs.n_eff; i += T) {\n"
+     "        icp_trace_pts[fs.it][0][i] = stx[i];\n"
+     "        icp_trace_pts[fs.it][1][i] = sty[i];\n"
+     "        icp_trace_pts[fs.it][2][i] = mdx[i];\n"
+     "        icp_trace_pts[fs.it][3][i] = mdy[i];\n"
+     "      }\n"
+     "      if (tid == 0) {\n"
+     "        for (int k = 0; k < 6; ++k) icp_trace_t[fs.it][k] = Tm[k];\n"
+     "        icp_trace_t[fs.it][15] = (float)fs.n_eff;\n"
+     "      }\n"
+     "    }\n"),
+    ("      irls_loop(stx, sty, mdx, mdy, mk, fs.n_eff, rx, ry, P, fs.sh, d);"
+     "\n",
+     f"      if ((int)pair == icp_trace_pair && tid == 0\n"
+     f"          && fs.it < {_TRACE_ITERS}) {{\n"
+     "        for (int k = 0; k < 7; ++k) icp_trace_t[fs.it][6 + k] = d[k];\n"
+     "      }\n"))
+
+
+def frame_trace(device, kernel: str, args, pair: int):
+    """Kernel 3 or 10 (on frame_cluster.cuh) on ``args`` (the wrapper's),
+    with the outer iterations of pair ``pair`` recorded, held against its
+    plain version layer by layer: at each outer iteration the kernel's own
+    transform T, its matches against the plain NN of its own transformed
+    rows (float32) and against the exact NN (float64 at T), and its IRLS
+    result against the plain loop, float32 and float64, on its own
+    inputs; and T against the plain outer loop's, float32 and float64.
+    Returns a list of per-outer-iteration dicts."""
+    fn, got = _stamped_library(
+        kernel, "trace", "frame_cluster.cuh", _TRACE_STAMPS, _TRACE_PRELUDE,
+        {"icp_trace_set": [ctypes.c_int],
+         "icp_trace_copy": [ctypes.c_void_p, ctypes.c_void_p]})
+    sp, dp, sm, dm, t0, cfg = args
+    one = (slice(None),) if sp.ndim == 2 else (pair,)
+    src, dst, smask, dmask = sp[one], dp[one], sm[one], dm[one]
+    _, largs, out, keep = align2d_cuda._icp2d_frame_args(*args)
+    pts = torch.zeros((_TRACE_ITERS, 4, 1536), dtype=torch.float32,
+                      device=device)
+    rec = torch.zeros((_TRACE_ITERS, 16), dtype=torch.float32,
+                      device=device)
+    cuda_build.check(got["icp_trace_set"](pair if sp.ndim == 3 else 0),
+                     "frame_trace set")
+    cuda_build.check(fn(*largs), f"{kernel} (traced)")
+    _sync(device)
+    cuda_build.check(got["icp_trace_copy"](pts.data_ptr(), rec.data_ptr()),
+                     "frame_trace copy")
+    _sync(device)
+    o = out.reshape(-1, 8)[pair if sp.ndim == 3 else 0]
+    del keep
+    # The plain outer loop's transforms, float32 and float64.
+    plain_t = {}
+    for dt in (torch.float32, torch.float64):
+        calls, undo = _capture_calls(align2d, "estimate_transform")
+        try:
+            tu = RigidTransform2(t0.rot[one].to(dt), t0.t[one].to(dt))
+            align2d_cuda.icp2d_frame_plain(src.to(dt), dst.to(dt), smask,
+                                           dmask, tu, cfg)
+        finally:
+            undo()
+        plain_t[dt] = calls
+    s = cfg.point_scale
+    solver = (cfg.huber_k / s, cfg.det_rel_eps, cfg.inner_delta_sq_tol,
+              cfg.inner_max_iter, s)
+    rows = []
+    for it in range(int(o[6])):
+        n = int(rec[it, 15])
+        tk = rec[it, :6].double()
+        stx = pts[it, :2, :n].T.contiguous()
+        mk = pts[it, 2:, :n].T.contiguous()
+        mask = smask[:n]
+        valid = mask.nonzero().flatten()
+        # The plain NN of the kernel's own rows, float32.
+        nn32 = nn_torch(stx, dst, dmask, tile=dst.shape[0])
+        m32 = dst[nn32.index]
+        # The exact NN at the kernel's T.
+        rot64 = tk[:4].reshape(2, 2)
+        q64 = src[:n].double() @ rot64.T + tk[4:6]
+        nn64 = nn_torch(q64, dst.double(), dmask, tile=dst.shape[0])
+        m64 = dst.double()[nn64.index]
+        d32 = torch.any(m32[valid] != mk[valid], dim=-1)
+        d64 = torch.any(m64[valid] != mk[valid].double(), dim=-1)
+        # Each row whose match is not the exact one: its query's squared
+        # distance to the kernel's match above that to the exact match, in
+        # float64 at T, and in float32 ulps of the latter.
+        ties = []
+        for r in valid[d64].tolist()[:8]:
+            dk = float(((q64[r] - mk[r].double()) ** 2).sum())
+            de = float(((q64[r] - m64[r]) ** 2).sum())
+            ulp = float(np.spacing(np.float32(de)))
+            ties.append(dict(row=r, exact_d2=de, excess=dk - de,
+                             excess_ulps=(dk - de) / ulp))
+        # The plain loop on the kernel's own inputs.
+        loop = {}
+        for dt in (torch.float32, torch.float64):
+            r_p, t_p, i_p = align2d_cuda.irls_loop_plain(
+                stx.to(dt), mk.to(dt), mask, *solver)
+            loop[dt] = (torch.cat([r_p.reshape(4), t_p]).double(), int(i_p))
+        dk = rec[it, 6:12].double()
+        row = dict(outer=it, inner=int(rec[it, 12]),
+                   matches_differ_plain32=int(d32.sum()),
+                   matches_differ_exact=int(d64.sum()),
+                   near_ties=ties,
+                   loop_vs_plain32=float((dk - loop[torch.float32][0]).abs()
+                                         .max()),
+                   inner_plain32=loop[torch.float32][1],
+                   loop_vs_plain64=float((dk - loop[torch.float64][0]).abs()
+                                         .max()),
+                   inner_plain64=loop[torch.float64][1])
+        for dt, name in ((torch.float32, "32"), (torch.float64, "64")):
+            if it < len(plain_t[dt]):
+                # The plain loop's transformed rows at this outer iteration
+                # against the kernel's.
+                row[f"rows_vs_plain{name}"] = float(
+                    (plain_t[dt][it][0].double() - stx.double()).abs().max())
+        rows.append(row)
+        print(f"# frame trace {kernel} pair {pair} outer {it}: {row}")
+    return rows
 
 
 def frame_split(device, kernel: str = "icp2d_frame", inputs=None,
@@ -3008,24 +3323,34 @@ def _pairs_list_times(calls, device, reps: int = 20):
                 chunk_walks=walks, pairs=pairs, schedules_sum_ms=by_sched)
 
 
-def frame_pairs_inputs(device, scans, big: int = 64,
-                       n_max: int = align2d_cuda.FRAME_MAX_POINTS):
-    """Kernel 10's arguments: {shape: (src, dst, src mask, dst mask, t0,
-    config)} at the batched path's 209 unsorted pairs of 768, at ``big``
-    consecutive pairs of synthetic frames subsampled to ``n_max`` points
-    (FRAME_MAX_POINTS), and at one pair of each (B = 1)."""
-    cfg = _config()
-    src, smask, dst, dmask = _batch(device, scans=scans)
+def big_frame_pairs(device, big: int = 64,
+                    n_max: int = align2d_cuda.FRAME_MAX_POINTS):
+    """``big`` consecutive pairs of synthetic frames (``synthesize_frames3d
+    (big + 1, seed=7)``), the xy of each subsampled to ``n_max`` seeded
+    points (FRAME_MAX_POINTS): (src, dst, src mask, dst mask), (big, n_max,
+    ...) each."""
     frames, _ = io.synthesize_frames3d(big + 1, seed=7)
     rng = np.random.default_rng(7)
     xy = np.stack([f[rng.choice(len(f), n_max, replace=False), :2]
                    for f in frames])
     p = torch.as_tensor(xy, dtype=torch.float32, device=device)
     ones = torch.ones(p.shape[:2], dtype=torch.bool, device=device)
+    return p[:-1], p[1:], ones[:-1], ones[1:]
+
+
+def frame_pairs_inputs(device, scans, big: int = 64,
+                       n_max: int = align2d_cuda.FRAME_MAX_POINTS):
+    """Kernel 10's arguments: {shape: (src, dst, src mask, dst mask, t0,
+    config)} at the batched path's 209 unsorted pairs of 768, at
+    ``big_frame_pairs``' ``big`` pairs of ``n_max`` points, and at one pair
+    of each (B = 1)."""
+    cfg = _config()
+    src, smask, dst, dmask = _batch(device, scans=scans)
+    sp, dp, sm, dm = big_frame_pairs(device, big, n_max)
     out = {}
     for shape, (sp, sm, dp, dm) in (
             (f"{src.shape[0]}x{src.shape[1]}", (src, smask, dst, dmask)),
-            (f"{big}x{n_max}", (p[:-1], ones[:-1], p[1:], ones[1:]))):
+            (f"{big}x{n_max}", (sp, sm, dp, dm))):
         for b in (sp.shape[0], 1):
             t0 = RigidTransform2.identity((b,), dtype=torch.float32,
                                           device=device)
@@ -3035,16 +3360,31 @@ def frame_pairs_inputs(device, scans, big: int = 64,
 
 
 def kernel_times(device="cuda", reps: int = 20):
-    """Kernels 3, 9 and 10 by their launchers alone at every shape their
-    paths give them, each call held against its plain version (kernel 9
-    bitwise; kernels 3 and 10 max |diff| of rot/t and the outer iteration
-    counts): kernel 3 at ``frame_inputs``' pairs and at 128-1,024 points
-    on every cluster size; kernel 9 on every call of the batched path and
-    of SLAM 2D and at the db-4096 case (``pairs_list_inputs``), at every
-    schedule where the tree has them; kernel 10 at ``frame_pairs_inputs``
+    """Kernels 12, 14, 3, 9 and 10 by their launchers alone at every shape
+    their paths give them, each call held against its plain version:
+    kernels 12 and 14 at their phases' 28,800 points and at 3,072 and
+    1,000 on every cluster size where the tree has them (the stats gates,
+    ``_stats_times``); kernel 3 at ``frame_inputs``' pairs and at
+    128-1,024 points on every cluster size (max |diff| of rot/t, outer
+    iterations); kernel 9 on every call of the batched path and of SLAM 2D
+    and at the db-4096 case (``pairs_list_inputs``), at every schedule
+    where the tree has them (bitwise); kernel 10 at ``frame_pairs_inputs``
     on every setting the card holds at once where the tree has them; and
-    the two frame kernels' splits (``frame_split``)."""
+    the two frame kernels' splits (``frame_split``).  Prints the times as
+    one JSON line, then holds kernel 10 at every shape strictly: within
+    FRAME_TOL of its plain version with equal outer iteration counts
+    (``_frame_pairs_check``, ``_frame_pairs_hold``), raising at the first
+    miss."""
+    card = torch.device(device).type == "cuda"
     times = {"icp2d_frame": {}, "nn_pairs_list": {}, "icp2d_frame_pairs": {}}
+    src, matched, smask, _, warm = _gn_stats_inputs(device)
+    times["gn_stats"] = _stats_times(
+        "gn_stats", (src, matched, smask, warm.rot, warm.t,
+                     _config().huber_k), device)
+    src, matched, m_n, mask, _, warm = _p2l_stats_inputs(device)
+    times["p2l_stats"] = _stats_times(
+        "p2l_stats", (src, matched, m_n, mask, warm.rot, warm.t,
+                      _config().huber_k), device)
     for shape, pair in frame_inputs(device).items():
         rec = times["icp2d_frame"][shape] = _frame_times(pair, device, reps)
         print(f"# times icp2d_frame {shape}: launcher alone {rec['ms']} ms "
@@ -3068,16 +3408,13 @@ def kernel_times(device="cuda", reps: int = 20):
               f"{rec['sum_ms']} ms, bitwise equal to plain (calls "
               f"{rec['ms']}); by schedule, summed {rec['schedules_sum_ms']}")
     inputs = frame_pairs_inputs(device, scans)
+    held = {}
     for shape, args in inputs.items():
-        err, its, plain, differ = _frame_pairs_check(args, shape,
-                                                     strict=False)
-        # Every setting within the wrapper's own distance from the plain
-        # version (or FRAME_TOL), with its outer iteration counts.
-        ms, by_shape, chosen = _frame_pairs_settings(
-            args, plain, device, tol=max(FRAME_TOL, 2 * err))
+        ms, by_shape, chosen, ref, outs = _frame_pairs_settings(args, device)
+        held[shape] = (ref, outs)
+        its = ref[:, 6].to(torch.int64).cpu()
         times["icp2d_frame_pairs"][shape] = dict(
-            ms=ms, max_abs_err=err, counts_differ=differ,
-            outer=its.tolist() if len(its) <= 16
+            ms=ms, outer=its.tolist() if len(its) <= 16
             else torch.bincount(its).tolist(), setting=chosen,
             setting_ms=by_shape)
         print(f"# times icp2d_frame_pairs {shape}: launcher alone {ms} ms "
@@ -3085,6 +3422,13 @@ def kernel_times(device="cuda", reps: int = 20):
     times["icp2d_frame_pairs_split"] = frame_split(
         device, "icp2d_frame_pairs", {k: v for k, v in inputs.items()
                                       if not k.startswith("1x")}, reps=reps)
+    print(json.dumps({"kernel_times": times, "card": _card() if card
+                      else None}))
+    for shape, args in inputs.items():
+        _, _, plain = _frame_pairs_check(args, shape)
+        _frame_pairs_hold(plain, *held[shape])
+        print(f"# times icp2d_frame_pairs {shape}: every setting within "
+              f"FRAME_TOL of plain with equal outer iterations")
     return times
 
 
@@ -3114,6 +3458,14 @@ def _ptxas_lines(report: dict):
                 print(f"# ptxas {name}{entry}: {line.strip()}")
 
 
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def main() -> int:
     profile_run = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -3127,19 +3479,17 @@ def main() -> int:
     _ptxas_lines(cuda_build.build())
     print(f"# kernels built in {time.perf_counter() - t0:.1f} s")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _card()
     print(f"# card: {smi}")
     if "--times" in sys.argv[1:]:
-        print(json.dumps({"kernel_times": kernel_times(device),
-                          "card": smi}))
+        kernel_times(device)
         return 0
     print(f"# nn_list: work items of {nn_cuda.ITEM_CHUNKS} chunks; "
           f"irls_loop: a thread-block cluster of {align2d_cuda.IRLS_CLUSTER}"
-          f" blocks; p2l_loop: a cluster of 16 blocks above "
-          f"{align3d_cuda.P2L_CLUSTER_16_ABOVE} points, else 8; nn_pruned: "
+          f" blocks; p2l_loop and p2l_stats: a cluster of 16 blocks above "
+          f"{align3d_cuda.P2L_CLUSTER_16_ABOVE} points, else 8; gn_stats: "
+          f"a cluster of 16 blocks above {align2d_cuda.GN_CLUSTER_16_ABOVE} "
+          f"points, else 8; nn_pruned: "
           f"work items of {nn_sweep_cuda.ITEM_TILES} "
           f"tiles, {nn_sweep_cuda.QUERIES_PER_THREAD} queries a thread; "
           f"nn_matched and nn_sweep: {nn_sweep_cuda.MATCHED_Q} queries a "

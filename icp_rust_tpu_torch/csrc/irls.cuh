@@ -1,16 +1,17 @@
 // The fixed-correspondence robust SE(2) IRLS loop as one thread block.
 //
-// Shared by irls_loop.cu (one launch per estimate_transform call, arrays
-// in global memory, resident in L2), irls_loop_batched.cu (one block per
-// pair of a batch) and the frame kernels of frame_cluster.cuh (the whole
-// 2D ICP call, arrays in the leader block's shared memory), so all run one
-// op sequence, as the TPU kernels shared align2d_pallas._irls_loop.  The
-// routine takes any block of 64 to 1024 threads, a multiple of 32 (two
-// warps pick the two medians' digits).
+// Shared by irls_loop_batched.cu's one-block route (one block per pair of
+// a batch) and the frame kernels of frame_cluster.cuh (the whole 2D ICP
+// call, arrays in the leader block's shared memory), so all run one op
+// sequence, as the TPU kernels shared align2d_pallas._irls_loop;
+// irls_cluster.cuh spreads its passes over a cluster for irls_loop.cu,
+// irls_loop_batched.cu's cluster route and gn_stats.cu.  The routine takes
+// any block of 64 to 1024 threads, a multiple of 32 (two warps pick the
+// two medians' digits).
 //
 // Steps 1-4 are gn_stats_block, one GN update's statistics at a given
-// transform, which gn_stats.cu and gn_stats_batched.cu also run (as the
-// TPU's _gn_kernel and _irls_loop share align2d_pallas._gn_stats_core).
+// transform, which gn_stats_batched.cu also runs (as the TPU's
+// _gn_batched_kernel and _irls_loop share align2d_pallas._gn_stats_core).
 //
 // Per iteration, with the whole block:
 //   1. residuals r = R s + t - d into the rx/ry scratch (one pass);

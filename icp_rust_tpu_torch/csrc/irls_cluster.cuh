@@ -1,5 +1,8 @@
 // The fixed-correspondence robust SE(2) IRLS loop on one thread-block
-// cluster (irls_loop.cu).
+// cluster (irls_loop.cu, irls_loop_batched.cu's cluster route), and one
+// GN update's statistics on one (gn_stats.cu): irls_cluster_run<false>
+// runs one iteration of the loop's body, the statistics at a given
+// transform, without the tail, so the two run one op sequence.
 //
 // irls.cuh runs the loop as one block; here a cluster of C blocks shares
 // it.  Block r of the cluster owns the contiguous slice [r*per,
@@ -240,11 +243,18 @@ __device__ void cluster_median_pair(const Slice& S, bool absdev, float c0,
   out1 = sh.med[1];
 }
 
-// The whole IRLS loop from identity on the cluster.  Block rank 0's
-// thread 0 writes out: r00 r01 r10 r11 tx ty iterations 0, then the first
-// iteration's median and sigma of x and y.
-__device__ void irls_loop_cluster(const Slice& S, const IrlsParams& P,
-                                  ClusterShared& sh, float* out) {
+// kLoop: the whole IRLS loop from identity on the cluster.  Block rank
+// 0's thread 0 writes out: r00 r01 r10 r11 tx ty iterations 0, then the
+// first iteration's median and sigma of x and y.
+// Not kLoop: one GN update's statistics at rt = (r00 r01 r10 r11 tx ty),
+// one pass of the loop's body (P.max_iter is 1) without the tail.  Block
+// rank 0's thread 0 writes out's 16 floats in _gn_kernel's layout: the 11
+// sums (S_u, S_uw, S_uw2, S_ur, S_uwr of x, of y, the Huber error), the
+// count, sigma_x, sigma_y, 0, 0.
+template <bool kLoop>
+__device__ void irls_cluster_run(const Slice& S, const IrlsParams& P,
+                                 ClusterShared& sh, float* out,
+                                 const float* rt) {
   cg::cluster_group cluster = cg::this_cluster();
   const int n_blocks = (int)cluster.num_blocks();
   const bool writer = cluster.block_rank() == 0;
@@ -264,12 +274,18 @@ __device__ void irls_loop_cluster(const Slice& S, const IrlsParams& P,
     int total = 0;
     for (int w = 0; w < (nthreads >> 5); ++w) total += sh.ired[w][0];
     sh.icnt[0] = total;
-    sh.rot[0] = 1.0f; sh.rot[1] = 0.0f; sh.rot[2] = 0.0f; sh.rot[3] = 1.0f;
-    sh.t[0] = 0.0f; sh.t[1] = 0.0f;
+    if constexpr (kLoop) {
+      sh.rot[0] = 1.0f; sh.rot[1] = 0.0f; sh.rot[2] = 0.0f; sh.rot[3] = 1.0f;
+      sh.t[0] = 0.0f; sh.t[1] = 0.0f;
+    } else {
+      for (int k = 0; k < 4; ++k) sh.rot[k] = rt[k];
+      sh.t[0] = rt[4];
+      sh.t[1] = rt[5];
+    }
     sh.prev_err = FLT_MAX;
     sh.it = 0;
     sh.done = 0;
-    if (writer) {
+    if (kLoop && writer) {
       for (int k = 8; k < 12; ++k) out[k] = 0.0f;
     }
   }
@@ -371,7 +387,18 @@ __device__ void irls_loop_cluster(const Slice& S, const IrlsParams& P,
       float s[kNumSums];
 #pragma unroll
       for (int k = 0; k < kNumSums; ++k) s[k] = (float)v[k];
-      if (lane == 0) {
+      if (!kLoop && lane == 0) {
+        if (writer) {
+          for (int k = 0; k < kNumSums; ++k) out[k] = s[k];
+          out[11] = (float)n;
+          out[12] = sig_x;
+          out[13] = sig_y;
+          out[14] = 0.0f;
+          out[15] = 0.0f;
+        }
+        sh.it += 1;
+      }
+      if (kLoop && lane == 0) {
         if (writer && sh.it == 0) {
           out[8] = med_x;
           out[9] = med_y;
@@ -454,7 +481,7 @@ __device__ void irls_loop_cluster(const Slice& S, const IrlsParams& P,
     }
     __syncthreads();
   }
-  if (writer && tid == 0) {
+  if (kLoop && writer && tid == 0) {
     for (int k = 0; k < 4; ++k) out[k] = sh.rot[k];
     out[4] = sh.t[0];
     out[5] = sh.t[1];
@@ -465,19 +492,21 @@ __device__ void irls_loop_cluster(const Slice& S, const IrlsParams& P,
   cluster.sync();
 }
 
-// A cluster's whole loop over one pair of n_pts points: block r stages
-// its slice (src/dst (n, 2) with element strides s0/s1 and d0/d1, the
-// bool mask with stride m0) into `stage`, the block's dynamic shared
-// memory (kStagedPointBytes a point), or, when not `staged`, reads it in
-// place with the residuals in scratch (2 n_pts floats); then runs
-// irls_loop_cluster.  Shared by irls_loop.cu (one pair) and
-// irls_loop_batched.cu (a cluster per pair, pointers offset by pair).
+// A cluster's whole loop (kLoop) or one update's statistics at rt (not
+// kLoop) over one pair of n_pts points: block r stages its slice (src/dst
+// (n, 2) with element strides s0/s1 and d0/d1, the bool mask with stride
+// m0) into `stage`, the block's dynamic shared memory (kStagedPointBytes
+// a point), or, when not `staged`, reads it in place with the residuals
+// in scratch (2 n_pts floats); then runs irls_cluster_run.  Shared by
+// irls_loop.cu (one pair), irls_loop_batched.cu (a cluster per pair,
+// pointers offset by pair) and gn_stats.cu.
+template <bool kLoop = true>
 __device__ __forceinline__ void irls_cluster_pair(
     const float* __restrict__ src, long long s0, long long s1,
     const float* __restrict__ dst, long long d0, long long d1,
     const unsigned char* __restrict__ mask, long long m0, int n_pts,
     int staged, float* scratch, const IrlsParams& P, float* stage,
-    ClusterShared& sh, float* out) {
+    ClusterShared& sh, float* out, const float* rt = nullptr) {
   const int n_blocks = (int)cg::this_cluster().num_blocks();
   const int rank = (int)cg::this_cluster().block_rank();
   const int per = (n_pts + n_blocks - 1) / n_blocks;
@@ -503,7 +532,7 @@ __device__ __forceinline__ void irls_cluster_pair(
               dst + lo * d0 + d1, s0, d0, mask + lo * m0, m0,
               scratch + lo, scratch + n_pts + lo, n_loc};
   }
-  irls_loop_cluster(S, P, sh, out);
+  irls_cluster_run<kLoop>(S, P, sh, out, rt);
 }
 
 }  // namespace icp

@@ -1,18 +1,19 @@
 // The fixed-correspondence robust SE(3) point-to-plane IRLS loop on one
-// thread-block cluster (p2l_loop.cu).
+// thread-block cluster (p2l_loop.cu), and one GN update's statistics on
+// one (p2l_stats.cu): p2l_cluster_run<false> runs one iteration of the
+// loop's body, the statistics at a given transform, without the tail, so
+// the two run one op sequence.
 //
-// p2l.cuh runs an iteration as one block (p2l_stats.cu still does); here
-// a cluster of C blocks shares it, as irls_cluster.cuh shares the SE(2)
-// loop.  Block r of the cluster owns the contiguous slice [r*per,
-// (r+1)*per) of the N points, per = ceil(N / C), held in its shared
-// memory (src, dst, normals, the mask as a byte and the residual: 41
-// bytes a point; P2lStagedSlice) when the slice fits, else read in place
-// from global memory with the residuals in a scratch array
+// A cluster of C blocks shares each iteration, as irls_cluster.cuh
+// shares the SE(2) loop.  Block r of the cluster owns the contiguous
+// slice [r*per, (r+1)*per) of the N points, per = ceil(N / C), held in
+// its shared memory (src, dst, normals, the mask as a byte and the
+// residual: 41 bytes a point; P2lStagedSlice) when the slice fits, else
+// read in place from global memory with the residuals in a scratch array
 // (P2lGlobalSlice).  Every pass over the points is a pass over each
-// block's slice; what the one-block routine reduces over its warps, the
-// cluster reduces over its blocks through distributed shared memory
-// (DSMEM), each block reading its peers' partials after a cluster
-// barrier:
+// block's slice, and the cluster reduces over its blocks through
+// distributed shared memory (DSMEM), each block reading its peers'
+// partials after a cluster barrier:
 //   - each of the four radix passes of the exact median and of the MAD:
 //     every block builds its own 256-bin histogram, then sums the C
 //     histograms bin by bin (all C loads in flight) and picks the digit
@@ -22,18 +23,18 @@
 //     buffer while its peers may still read this pass's;
 //   - the count/max pass of the even-length lower order statistic: C
 //     counts and maxima, one lane per peer, combined exactly.  So the
-//     median and the MAD are bitwise those of p2l.cuh's median_single
-//     and of the exact masked median;
+//     median and the MAD are the exact masked median's, bitwise;
 //   - the sums pass: each point's 28 terms (21 of u J J^T, 6 of u J r,
-//     the Huber error) in float32, in p2l_stats' op order, accumulated
-//     in float64 (per thread, its warp's shuffle tree, its block's warps
-//     in order, then the blocks by one fixed shuffle tree in every block)
-//     and rounded to float32 once.  The order is fixed, so runs repeat
-//     bitwise, and the sums are the exact sums correctly rounded to
-//     within float64's roundoff: the stop tests (err > prev_err, d2_phys
-//     < tol_d2) go as the exact sums would take them, whatever C is.
-// Every block then runs p2l.cuh's scalar tail p2l_step on thread 0 with
-// the same sums (the 6x6 Cholesky, ok, the three stops in
+//     the Huber error) in float32, in _p2l_stats_core's op order,
+//     accumulated in float64 (per thread, its warp's shuffle tree, its
+//     block's warps in order, then the blocks by one fixed shuffle tree in
+//     every block) and rounded to float32 once.  The order is fixed, so
+//     runs repeat bitwise, and the sums are the exact sums correctly
+//     rounded to within float64's roundoff: the stop tests (err >
+//     prev_err, d2_phys < tol_d2) go as the exact sums would take them,
+//     whatever C is.
+// In the loop every block then runs p2l.cuh's scalar tail p2l_step on
+// thread 0 with the same sums (the 6x6 Cholesky, ok, the three stops in
 // _p2l_loop_kernel's order, the SE(3) exp, the compose), so every block
 // holds the same transform and stop flag and runs the same number of
 // iterations and cluster barriers.  A last cluster barrier keeps every
@@ -56,8 +57,8 @@ constexpr int kP2lClusterWarps = kP2lClusterThreads / 32;
 constexpr int kP2lStagedPointBytes = 10 * 4 + 1;
 
 struct P2lClusterShared {
-  // The transform, stop state, float sums and per-warp partials that
-  // p2l.cuh's tail and reductions use.
+  // The transform, stop state and float sums of p2l.cuh's tail, and the
+  // median's per-warp partials.
   P2lShared one;
   unsigned hist[2][256];  // [buffer][bin], this block's
   unsigned total[256];    // the cluster's counts of the current pass
@@ -116,8 +117,8 @@ struct P2lStagedSlice {
   }
 };
 
-// p = R s + t for point i of a slice, left to right as p2l.cuh's
-// p2l_point.
+// p = R s + t for point i of a slice, left to right as _p2l_stats_core
+// writes it.
 template <class Slice>
 __device__ __forceinline__ void p2l_moved(const Slice& S, int i,
                                           const float* rt, float& px,
@@ -206,7 +207,7 @@ __device__ float p2l_cluster_median(const Slice& S, bool absdev, float c,
   }
   if (lane == 0) {
     sh.one.ired[warp] = cl;
-    sh.one.red[warp][0] = mx;
+    sh.one.red[warp] = mx;
   }
   __syncthreads();
   if (tid == 0) {
@@ -214,7 +215,7 @@ __device__ float p2l_cluster_median(const Slice& S, bool absdev, float c,
     float m = -INFINITY;
     for (int w = 0; w < (nthreads >> 5); ++w) {
       cnt += sh.one.ired[w];
-      m = fmaxf(m, sh.one.red[w][0]);
+      m = fmaxf(m, sh.one.red[w]);
     }
     sh.icnt = cnt;
     sh.imax = m;
@@ -244,12 +245,19 @@ __device__ float p2l_cluster_median(const Slice& S, bool absdev, float c,
   return sh.one.med;
 }
 
-// The whole p2l IRLS loop from the identity on the cluster.  Block rank
-// 0's thread 0 writes out: r00..r22 (row-major), tx ty tz, iterations,
-// then the first iteration's median, MAD and sigma (0 when max_iter < 1).
-template <class Slice>
-__device__ void p2l_loop_cluster(const Slice& S, const P2lParams& P,
-                                 P2lClusterShared& sh, float* out) {
+// kLoop: the whole p2l IRLS loop from the identity on the cluster.  Block
+// rank 0's thread 0 writes out: r00..r22 (row-major), tx ty tz,
+// iterations, then the first iteration's median, MAD and sigma (0 when
+// max_iter < 1).
+// Not kLoop: one GN update's statistics at `at` = (R row-major, t), one
+// pass of the loop's body (P.max_iter is 1) without the tail.  Block rank
+// 0's thread 0 writes out's 32 floats in _p2l_kernel's layout: the 21
+// upper-triangle sums of u J J^T, the 6 of u J r, the Huber error, the
+// count, sigma, 0, 0.
+template <bool kLoop, class Slice>
+__device__ void p2l_cluster_run(const Slice& S, const P2lParams& P,
+                                P2lClusterShared& sh, float* out,
+                                const float* at) {
   cg::cluster_group cluster = cg::this_cluster();
   const int n_blocks = (int)cluster.num_blocks();
   const bool writer = cluster.block_rank() == 0;
@@ -269,15 +277,20 @@ __device__ void p2l_loop_cluster(const Slice& S, const P2lParams& P,
     int total = 0;
     for (int w = 0; w < (nthreads >> 5); ++w) total += sh.one.ired[w];
     sh.icnt = total;
+    if constexpr (kLoop) {
 #pragma unroll
-    for (int k = 0; k < 9; ++k) sh.one.rot[k] = (k % 4 == 0) ? 1.0f : 0.0f;
-    sh.one.t[0] = 0.0f;
-    sh.one.t[1] = 0.0f;
-    sh.one.t[2] = 0.0f;
+      for (int k = 0; k < 9; ++k) sh.one.rot[k] = (k % 4 == 0) ? 1.0f : 0.0f;
+      sh.one.t[0] = 0.0f;
+      sh.one.t[1] = 0.0f;
+      sh.one.t[2] = 0.0f;
+    } else {
+      for (int k = 0; k < 9; ++k) sh.one.rot[k] = at[k];
+      for (int k = 0; k < 3; ++k) sh.one.t[k] = at[9 + k];
+    }
     sh.one.prev_err = FLT_MAX;
     sh.one.it = 0;
     sh.one.done = 0;
-    if (writer) {
+    if (kLoop && writer) {
       for (int k = 13; k < 16; ++k) out[k] = 0.0f;
     }
   }
@@ -369,7 +382,17 @@ __device__ void p2l_loop_cluster(const Slice& S, const P2lParams& P,
           v[k] += __shfl_down_sync(kFull, v[k], o);
         }
       }
-      if (lane == 0) {
+      if (!kLoop && lane == 0) {
+        if (writer) {
+          for (int k = 0; k < kP2lSums; ++k) out[k] = (float)v[k];
+          out[28] = (float)n;
+          out[29] = sig;
+          out[30] = 0.0f;
+          out[31] = 0.0f;
+        }
+        sh.one.it += 1;
+      }
+      if (kLoop && lane == 0) {
 #pragma unroll
         for (int k = 0; k < kP2lSums; ++k) sh.one.sums[k] = (float)v[k];
         if (writer && sh.one.it == 0) {
@@ -382,13 +405,64 @@ __device__ void p2l_loop_cluster(const Slice& S, const P2lParams& P,
     }
     __syncthreads();
   }
-  if (writer && tid == 0) {
+  if (kLoop && writer && tid == 0) {
     for (int k = 0; k < 9; ++k) out[k] = sh.one.rot[k];
     for (int k = 0; k < 3; ++k) out[9 + k] = sh.one.t[k];
     out[12] = (float)sh.one.it;
   }
   // No block leaves while a peer may still read its shared memory.
   cluster.sync();
+}
+
+// A cluster's whole loop (kLoop) or one update's statistics at `at` (not
+// kLoop) over one cloud of n_pts points: src, dst and normals (n, 3) with
+// element strides (s0, s1), (d0, d1), (n0, n1), the bool or float32
+// (mask_f32, true above 0.5) mask with stride m0.  kStaged: block r
+// stages its slice into `stage`, the block's dynamic shared memory
+// (kP2lStagedPointBytes a point), else it reads it in place with the
+// residuals in scratch (n_pts floats); then runs p2l_cluster_run.  The
+// body of p2l_loop.cu's and p2l_stats.cu's kernels.
+template <bool kStaged, bool kLoop>
+__device__ __forceinline__ void p2l_cluster_cloud(
+    const float* __restrict__ src, long long s0, long long s1,
+    const float* __restrict__ dst, long long d0, long long d1,
+    const float* __restrict__ nrm, long long n0, long long n1,
+    const void* __restrict__ mask, long long m0, int mask_f32, int n_pts,
+    float* scratch, const P2lParams& P, float* stage, P2lClusterShared& sh,
+    float* out, const float* at) {
+  const int n_blocks = (int)cooperative_groups::this_cluster().num_blocks();
+  const int rank = (int)cooperative_groups::this_cluster().block_rank();
+  const int per = (n_pts + n_blocks - 1) / n_blocks;
+  const int lo = min(n_pts, rank * per);
+  const int n_loc = min(n_pts, lo + per) - lo;
+  const unsigned char* mb = static_cast<const unsigned char*>(mask);
+  const float* mf = static_cast<const float*>(mask);
+  if constexpr (kStaged) {
+    // Columns sx sy sz dx dy dz nx ny nz r, per floats each, then the
+    // mask bytes.
+    float* f = stage;
+    unsigned char* m = reinterpret_cast<unsigned char*>(stage + 10 * per);
+    for (int i = threadIdx.x; i < n_loc; i += blockDim.x) {
+      const long long k = lo + i;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        f[c * per + i] = src[k * s0 + c * s1];
+        f[(3 + c) * per + i] = dst[k * d0 + c * d1];
+        f[(6 + c) * per + i] = nrm[k * n0 + c * n1];
+      }
+      m[i] = mask_f32 ? (mf[k * m0] > 0.5f) : (mb[k * m0] != 0);
+    }
+    __syncthreads();
+    p2l_cluster_run<kLoop>(P2lStagedSlice{f, m, per, n_loc, f + 9 * per}, P,
+                           sh, out, at);
+  } else {
+    p2l_cluster_run<kLoop>(
+        P2lGlobalSlice{src + lo * s0, dst + lo * d0, nrm + lo * n0, s0, s1,
+                       d0, d1, n0, n1, mask_f32 ? nullptr : mb + lo * m0,
+                       mask_f32 ? mf + lo * m0 : nullptr, m0, scratch + lo,
+                       n_loc},
+        P, sh, out, at);
+  }
 }
 
 }  // namespace icp

@@ -45,40 +45,9 @@ p2l_cluster_kernel(const float* __restrict__ src, long long s0, long long s1,
                    int n_pts, float* scratch, icp::P2lParams P, float* out) {
   extern __shared__ __align__(16) float stage[];
   __shared__ icp::P2lClusterShared sh;
-  const int n_blocks = (int)cooperative_groups::this_cluster().num_blocks();
-  const int rank = (int)cooperative_groups::this_cluster().block_rank();
-  const int per = (n_pts + n_blocks - 1) / n_blocks;
-  const int lo = min(n_pts, rank * per);
-  const int n_loc = min(n_pts, lo + per) - lo;
-  const unsigned char* mb = static_cast<const unsigned char*>(mask);
-  const float* mf = static_cast<const float*>(mask);
-  if constexpr (kStaged) {
-    // Columns sx sy sz dx dy dz nx ny nz r, per floats each, then the
-    // mask bytes.
-    float* f = stage;
-    unsigned char* m = reinterpret_cast<unsigned char*>(stage + 10 * per);
-    for (int i = threadIdx.x; i < n_loc; i += blockDim.x) {
-      const long long k = lo + i;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        f[c * per + i] = src[k * s0 + c * s1];
-        f[(3 + c) * per + i] = dst[k * d0 + c * d1];
-        f[(6 + c) * per + i] = nrm[k * n0 + c * n1];
-      }
-      m[i] = mask_f32 ? (mf[k * m0] > 0.5f) : (mb[k * m0] != 0);
-    }
-    __syncthreads();
-    icp::p2l_loop_cluster(icp::P2lStagedSlice{f, m, per, n_loc, f + 9 * per},
-                          P, sh, out);
-  } else {
-    icp::p2l_loop_cluster(
-        icp::P2lGlobalSlice{src + lo * s0, dst + lo * d0, nrm + lo * n0, s0,
-                            s1, d0, d1, n0, n1,
-                            mask_f32 ? nullptr : mb + lo * m0,
-                            mask_f32 ? mf + lo * m0 : nullptr, m0,
-                            scratch + lo, n_loc},
-        P, sh, out);
-  }
+  icp::p2l_cluster_cloud<kStaged, true>(src, s0, s1, dst, d0, d1, nrm, n0,
+                                        n1, mask, m0, mask_f32, n_pts,
+                                        scratch, P, stage, sh, out, nullptr);
 }
 
 }  // namespace

@@ -14,18 +14,20 @@ versions:
   same body on a cluster per pair, each pair to its own fixed point
   (``frame_pairs_shape``; ``_icp2d_frame_pairs_kernel``);
 - ``csrc/gn_stats.cu``: one GN update's packed statistics at a given
-  transform (``_gn_kernel``);
+  transform on a thread-block cluster of ``gn_cluster(N)`` blocks
+  (``_gn_kernel``; ``csrc/irls_cluster.cuh``);
 - ``csrc/gn_stats_batched.cu``: the same for B pairs, one block per pair
   (``_gn_batched_kernel``).
 
-All six run the device routines of ``csrc/irls.cuh`` (the two stats
-kernels its ``gn_stats_block``, one iteration's statistics of the loop;
-irls_loop and irls_loop_batched its helpers, spread over a cluster by
-``csrc/irls_cluster.cuh``; the two frame kernels its whole loop, on the
-leader block of each cluster of ``csrc/frame_cluster.cuh``), so they
-share one op sequence.  The frame kernels' cluster sweep finds bitwise
-the matches of one thread sweeping all of dst (``frame_sweep`` emulates
-it).
+All six run the device routines of ``csrc/irls.cuh`` (gn_stats_batched
+its ``gn_stats_block``, one iteration's statistics of the loop;
+irls_loop, irls_loop_batched and gn_stats its helpers, spread over a
+cluster by ``csrc/irls_cluster.cuh``, whose ``irls_cluster_run`` is the
+cluster loop and, run once without its tail, the whole of gn_stats; the
+two frame kernels its whole loop, on the leader block of each cluster of
+``csrc/frame_cluster.cuh``), so they share one op sequence.  The frame
+kernels' cluster sweep finds bitwise the matches of one thread sweeping
+all of dst (``frame_sweep`` emulates it).
 
 Plain versions: the inner loops' is ``align2d.irls_loop_torch`` (the
 ``align_backend="torch"`` loop, batched over pairs); the frames' is the
@@ -38,8 +40,9 @@ reaches the kernel or raises.  The kernels take float32 only: the float64
 reference path is a CPU path.
 
 Tolerance against the plain versions: float32 roundoff of the sums, which
-are taken in another order (block tree vs torch reductions); the medians
-are exact order statistics of residuals that may differ in their last bit.
+are taken in another order (the cluster kernels' float64 rounded once, or
+a float32 block tree, vs torch reductions); the medians are exact order
+statistics of residuals that may differ in their last bit.
 """
 
 from __future__ import annotations
@@ -81,12 +84,21 @@ IRLS_CLUSTER = 16
 BATCHED_BLOCK_MAX_POINTS = 4096
 BATCHED_MIN_POINTS = 1024
 BATCHED_CLUSTERS = (16, 8, 4, 2, 1)
+# Blocks in gn_stats' thread-block cluster: 16 above this many points,
+# else 8 (measured on an H100, PERF.md).  Which points each block sums
+# follows from N alone, so it is a rule, not a knob.
+GN_CLUSTER_16_ABOVE = 16384
 # The one-block route stages 7 floats a point in at most 200 KB.
 _BLOCK_ROUTE_MAX_POINTS = 200 * 1024 // 28
 # (n, cluster, threads) -> clusters the card holds at once.
 _RESIDENT: dict = {}
 # (n, m, cluster, threads) -> icp2d_frame_pairs' clusters resident at once.
 _FRAME_RESIDENT: dict = {}
+
+
+def gn_cluster(n: int) -> int:
+    """The cluster size gn_stats launches for n points."""
+    return 16 if n > GN_CLUSTER_16_ABOVE else 8
 
 
 def _solver_params(huber_k: float, det_rel_eps: float, tol_d2: float,
@@ -567,47 +579,67 @@ def gn_stats_plain(src: Tensor, dst: Tensor, mask: Tensor, rot: Tensor,
 gn_stats_batched_plain = gn_stats_plain
 
 
-def _gn_launch(name: str, src: Tensor, dst: Tensor, mask: Tensor,
-               rot: Tensor, t: Tensor, huber_k: float) -> Tensor:
-    """Launch gn_stats (src (N, 2)) or gn_stats_batched (src (B, N, 2)) on
-    CUDA tensors; returns the (16,) or (B, 16) output."""
-    args, out, _scratch = _gn_args(name, src, dst, mask, rot, t, huber_k)
-    status = cuda_build.launcher(name)(*args)
-    cuda_build.LAUNCHES[name] += 1
-    cuda_build.check(status, name)
-    return out
-
-
-def _gn_args(name: str, src: Tensor, dst: Tensor, mask: Tensor,
-             rot: Tensor, t: Tensor, huber_k: float):
-    """Check the CUDA inputs of gn_stats or gn_stats_batched and prepare
-    their columns, output and scratch.  Returns (the launcher's arguments,
-    out, the prepared tensors that the arguments point into, which the
-    caller holds until the launch is enqueued)."""
+def _gn_stats_args(src: Tensor, dst: Tensor, mask: Tensor, rot: Tensor,
+                   t: Tensor, huber_k: float, cluster: int | None = None):
+    """Check the CUDA inputs of the gn_stats kernel and allocate its output
+    and scratch.  The kernel reads src/dst (N, 2) float32 and the mask
+    (N,) as bool (true where nonzero, as the plain version takes it) in
+    place, with their strides.  ``cluster`` defaults to ``gn_cluster(N)``.
+    Returns (the launcher's arguments, out (16,), the tensors that the
+    arguments point into, which the caller holds until the launch is
+    enqueued)."""
     if src.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {src.device}")
-    _check_cuda_f32(name, src, dst)
-    batch = src.shape[:-2]
-    n = src.shape[-2]
-    if (src.shape != (*batch, n, 2) or dst.shape != src.shape
-            or mask.shape != (*batch, n) or rot.shape != (*batch, 2, 2)
-            or t.shape != (*batch, 2) or n == 0 or 0 in batch):
+        raise ValueError(f"gn_stats: unsupported device {src.device}")
+    _check_cuda_f32("gn_stats", src, dst)
+    n = src.shape[0]
+    if (src.shape != (n, 2) or dst.shape != (n, 2) or mask.shape != (n,)
+            or rot.shape != (2, 2) or t.shape != (2,) or n == 0):
         raise ValueError(
-            f"{name}: src/dst must be (N, 2) or (B, N, 2) with N, B > 0, "
-            f"mask, rot and t batched alike; got {tuple(src.shape)}, "
-            f"{tuple(mask.shape)}, {tuple(rot.shape)}, {tuple(t.shape)}")
-    cols = [src[..., 0].contiguous(), src[..., 1].contiguous(),
-            dst[..., 0].contiguous(), dst[..., 1].contiguous(),
-            mask.to(device=src.device, dtype=torch.float32).contiguous()]
-    rt = torch.cat([rot.reshape(*batch, 4), t], dim=-1).to(
-        device=src.device, dtype=torch.float32).contiguous()
-    scratch = torch.empty(2 * src[..., 0].numel(), dtype=torch.float32,
-                          device=src.device)
-    out = torch.empty((*batch, 16), dtype=torch.float32, device=src.device)
+            f"gn_stats: src/dst must be (N, 2) with N > 0, mask (N,), rot "
+            f"(2, 2), t (2,); got {tuple(src.shape)}, {tuple(mask.shape)}, "
+            f"{tuple(rot.shape)}, {tuple(t.shape)}")
+    mask = mask.to(device=src.device, dtype=torch.bool)
+    cluster = gn_cluster(n) if cluster is None else cluster
+    rt = torch.cat([rot.reshape(4), t]).to(device=src.device,
+                                           dtype=torch.float32).contiguous()
+    buf = torch.empty(16 + 2 * n, dtype=torch.float32, device=src.device)
     stream = torch.cuda.current_stream(src.device).cuda_stream
     # ctypes rounds each float to f32 once (k * k and 2 k taken in double
     # first), as the TPU kernel's f32 constants are.
-    args = (*[c.data_ptr() for c in cols], *batch, n, rt.data_ptr(),
+    args = (src.data_ptr(), *src.stride(), dst.data_ptr(), *dst.stride(),
+            mask.data_ptr(), mask.stride(0), n, rt.data_ptr(),
+            buf[16:].data_ptr(), buf.data_ptr(), huber_k, huber_k * huber_k,
+            2.0 * huber_k, cluster, stream)
+    return args, buf[:16], (mask, rt, buf)
+
+
+def _gn_batched_args(src: Tensor, dst: Tensor, mask: Tensor, rot: Tensor,
+                     t: Tensor, huber_k: float):
+    """Check the CUDA inputs of gn_stats_batched and prepare its columns,
+    output and scratch.  Returns (the launcher's arguments, out (B, 16),
+    the prepared tensors that the arguments point into, which the caller
+    holds until the launch is enqueued)."""
+    name = "gn_stats_batched"
+    if src.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {src.device}")
+    _check_cuda_f32(name, src, dst)
+    b, n = src.shape[:2]
+    if (src.shape != (b, n, 2) or dst.shape != src.shape
+            or mask.shape != (b, n) or rot.shape != (b, 2, 2)
+            or t.shape != (b, 2) or n == 0 or b == 0):
+        raise ValueError(
+            f"{name}: src/dst must be (B, N, 2) with N, B > 0, mask, rot and "
+            f"t batched alike; got {tuple(src.shape)}, {tuple(mask.shape)}, "
+            f"{tuple(rot.shape)}, {tuple(t.shape)}")
+    cols = [src[..., 0].contiguous(), src[..., 1].contiguous(),
+            dst[..., 0].contiguous(), dst[..., 1].contiguous(),
+            mask.to(device=src.device, dtype=torch.float32).contiguous()]
+    rt = torch.cat([rot.reshape(b, 4), t], dim=-1).to(
+        device=src.device, dtype=torch.float32).contiguous()
+    scratch = torch.empty(2 * b * n, dtype=torch.float32, device=src.device)
+    out = torch.empty((b, 16), dtype=torch.float32, device=src.device)
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    args = (*[c.data_ptr() for c in cols], b, n, rt.data_ptr(),
             scratch.data_ptr(), out.data_ptr(), huber_k, huber_k * huber_k,
             2.0 * huber_k, stream)
     return args, out, (cols, rt, scratch)
@@ -621,9 +653,15 @@ def gn_stats(src: Tensor, dst: Tensor, mask: Tensor, rot: Tensor, t: Tensor,
     0 comes from its (M, 128) layout, not copied here)."""
     if src.device.type == "cpu":
         return gn_stats_plain(src, dst, mask, rot, t, huber_k)
-    if src.ndim != 2:
-        raise ValueError("gn_stats: src/dst must be (N, 2)")
-    return _gn_launch("gn_stats", src, dst, mask, rot, t, huber_k)
+    args, out, _keep = _gn_stats_args(src, dst, mask, rot, t, huber_k)
+    status = cuda_build.launcher("gn_stats")(*args)
+    cuda_build.LAUNCHES["gn_stats"] += 1
+    if status == -1:
+        raise RuntimeError(
+            f"gn_stats: no thread-block cluster of {args[-2]} blocks can be "
+            "placed on this card")
+    cuda_build.check(status, "gn_stats")
+    return out
 
 
 def gn_stats_batched(src: Tensor, dst: Tensor, mask: Tensor, rot: Tensor,
@@ -632,9 +670,11 @@ def gn_stats_batched(src: Tensor, dst: Tensor, mask: Tensor, rot: Tensor,
     t (B, 2)): (B, 16) for src/dst (B, N, 2), mask (B, N)."""
     if src.device.type == "cpu":
         return gn_stats_batched_plain(src, dst, mask, rot, t, huber_k)
-    if src.ndim != 3:
-        raise ValueError("gn_stats_batched: src/dst must be (B, N, 2)")
-    return _gn_launch("gn_stats_batched", src, dst, mask, rot, t, huber_k)
+    args, out, _keep = _gn_batched_args(src, dst, mask, rot, t, huber_k)
+    status = cuda_build.launcher("gn_stats_batched")(*args)
+    cuda_build.LAUNCHES["gn_stats_batched"] += 1
+    cuda_build.check(status, "gn_stats_batched")
+    return out
 
 
 def assemble_update(stats: Tensor, rot: Tensor):

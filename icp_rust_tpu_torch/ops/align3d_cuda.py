@@ -5,24 +5,24 @@ PyTorch versions:
   one cloud in one launch on a thread-block cluster of ``p2l_cluster(N)``
   blocks (align3d_pallas ``_p2l_loop_kernel``; ``csrc/p2l_cluster.cuh``);
 - ``csrc/p2l_stats.cu``: one GN update's packed statistics at a given
-  transform, one block (``_p2l_kernel``).
+  transform on a cluster of ``p2l_cluster(N)`` blocks (``_p2l_kernel``).
 
-Both run the routines of ``csrc/p2l.cuh`` (p2l_loop its scalar tail and
-the one-block median's exact order statistics, spread over a cluster), so
-they share one op sequence.  The plain versions follow the TPU kernels'
-op sequence, not the ``align_backend="torch"`` loop: the exact radix
-median and MAD of the scalar residual (``ops/select``), the 21 + 6 sums
-and the Huber error, and for the loop the 6x6 Cholesky in
-``_chol_solve6``'s order written out over the six indices, ``ok =
-solve_ok & n >= 6 & sigma != 0`` with no residual gate, the stop order of
-``align3d_pallas.py:285-290`` and the SE(3) exp with the
-``eps_f32**0.25`` branch.  A wrapper takes the plain version only for a
-CPU tensor; a CUDA tensor reaches the kernel or raises.  The kernels take
-float32 only.
+Both run ``csrc/p2l_cluster.cuh``'s ``p2l_cluster_run`` (p2l_loop the
+whole loop with ``csrc/p2l.cuh``'s scalar tail, p2l_stats one pass of
+its body without the tail), so they share one op sequence.  The plain
+versions follow the TPU kernels' op sequence, not the
+``align_backend="torch"`` loop: the exact radix median and MAD of the
+scalar residual (``ops/select``), the 21 + 6 sums and the Huber error,
+and for the loop the 6x6 Cholesky in ``_chol_solve6``'s order written
+out over the six indices, ``ok = solve_ok & n >= 6 & sigma != 0`` with
+no residual gate, the stop order of ``align3d_pallas.py:285-290`` and
+the SE(3) exp with the ``eps_f32**0.25`` branch.  A wrapper takes the
+plain version only for a CPU tensor; a CUDA tensor reaches the kernel or
+raises.  The kernels take float32 only.
 
-Tolerance against the plain versions: float32 roundoff of the sums, which
-are taken in another order (float64 over the cluster, rounded once, or a
-float32 block tree, vs torch reductions); the medians are exact order
+Tolerance against the plain versions: float32 roundoff of the sums,
+which are taken in another order (float64 over the cluster, rounded
+once, vs torch's float32 reductions); the medians are exact order
 statistics of residuals that may differ in their last bit.
 """
 
@@ -34,15 +34,15 @@ from torch import Tensor
 from icp_rust_tpu_torch.ops import cuda_build, robust
 
 _SMALL_ANGLE_F32 = float(torch.finfo(torch.float32).eps) ** 0.25
-# Blocks in p2l_loop's thread-block cluster: 16 above this many points,
-# else 8 (on an H100 16 is 6-10 % faster at 28,160-28,800 points, 8 is
-# 3-19 % faster at 3,072-14,400; PERF.md).  Which points each block sums
-# follows from N alone, so it is a rule, not a knob.
+# Blocks in p2l_loop's and p2l_stats' thread-block cluster: 16 above this
+# many points, else 8 (on an H100 16 is 6-10 % faster at 28,160-28,800
+# points, 8 is 3-19 % faster at 3,072-14,400; PERF.md).  Which points each
+# block sums follows from N alone, so it is a rule, not a knob.
 P2L_CLUSTER_16_ABOVE = 16384
 
 
 def p2l_cluster(n: int) -> int:
-    """The cluster size p2l_loop launches for n points."""
+    """The cluster size p2l_loop and p2l_stats launch for n points."""
     return 16 if n > P2L_CLUSTER_16_ABOVE else 8
 # (i, j) -> index into the 21 row-major upper-triangle sums.
 _SYM6 = [[min(i, j) * 6 - min(i, j) * (min(i, j) - 1) // 2
@@ -250,6 +250,15 @@ def _check(name: str, src, dst, normals, mask) -> int:
     return n
 
 
+def _check_mask(name: str, src: Tensor, mask: Tensor) -> None:
+    """The p2l kernels read a bool or float32 mask (true above 0.5) on
+    src's device."""
+    if (mask.dtype not in (torch.bool, torch.float32)
+            or mask.device != src.device):
+        raise TypeError(f"{name}: mask must be bool or float32 on "
+                        f"{src.device}")
+
+
 def _p2l_loop_args(src: Tensor, dst: Tensor, normals: Tensor, mask: Tensor,
                    huber_k: float, tol_d2: float, max_iter: int,
                    point_scale: float, cluster: int | None = None):
@@ -261,10 +270,7 @@ def _p2l_loop_args(src: Tensor, dst: Tensor, normals: Tensor, mask: Tensor,
     MAD and sigma.  ``cluster`` defaults to ``p2l_cluster(N)``."""
     n = _check("p2l_loop", src, dst, normals, mask)
     cluster = p2l_cluster(n) if cluster is None else cluster
-    if (mask.dtype not in (torch.bool, torch.float32)
-            or mask.device != src.device):
-        raise TypeError(f"p2l_loop: mask must be bool or float32 on "
-                        f"{src.device}")
+    _check_mask("p2l_loop", src, mask)
     buf = torch.empty(16 + n, dtype=torch.float32, device=src.device)
     stream = torch.cuda.current_stream(src.device).cuda_stream
     # ctypes rounds each float to f32 once (k*k, 2k and s^2 taken in
@@ -311,25 +317,46 @@ def p2l_loop(src: Tensor, dst: Tensor, normals: Tensor, mask: Tensor,
     return out[:9].reshape(3, 3), out[9:12], out[12]
 
 
+def _p2l_stats_args(src: Tensor, dst: Tensor, normals: Tensor,
+                    mask: Tensor, rot: Tensor, t: Tensor, huber_k: float,
+                    cluster: int | None = None):
+    """Check the CUDA inputs of the p2l_stats kernel and allocate its
+    output and scratch.  The kernel reads src, dst and normals (N, 3)
+    float32 and the bool or float32 mask (N,) in place, with their
+    strides.  ``cluster`` defaults to ``p2l_cluster(N)``.  Returns (the
+    launcher's arguments, out (32,), the tensors that the arguments point
+    into, which the caller holds until the launch is enqueued)."""
+    n = _check("p2l_stats", src, dst, normals, mask)
+    if rot.shape != (3, 3) or t.shape != (3,):
+        raise ValueError("p2l_stats: rot must be (3, 3), t (3,)")
+    _check_mask("p2l_stats", src, mask)
+    cluster = p2l_cluster(n) if cluster is None else cluster
+    rt = torch.cat([rot.reshape(9), t]).to(
+        device=src.device, dtype=torch.float32).contiguous()
+    buf = torch.empty(32 + n, dtype=torch.float32, device=src.device)
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    args = (src.data_ptr(), *src.stride(), dst.data_ptr(), *dst.stride(),
+            normals.data_ptr(), *normals.stride(), mask.data_ptr(),
+            mask.stride(0), int(mask.dtype == torch.float32), n,
+            rt.data_ptr(), buf[32:].data_ptr(), buf.data_ptr(), huber_k,
+            huber_k * huber_k, 2.0 * huber_k, cluster, stream)
+    return args, buf[:32], (rt, buf)
+
+
 def p2l_stats(src: Tensor, dst: Tensor, normals: Tensor, mask: Tensor,
               rot: Tensor, t: Tensor, huber_k: float) -> Tensor:
     """One p2l GN update's statistics at (rot (3, 3), t (3,)): the packed
     (32,) vector of ``assemble_p2l``."""
     if src.device.type == "cpu":
         return p2l_stats_plain(src, dst, normals, mask, rot, t, huber_k)
-    n = _check("p2l_stats", src, dst, normals, mask)
-    if rot.shape != (3, 3) or t.shape != (3,):
-        raise ValueError("p2l_stats: rot must be (3, 3), t (3,)")
-    cols = _columns(src, dst, normals, mask)
-    rt = torch.cat([rot.reshape(9), t]).to(
-        device=src.device, dtype=torch.float32).contiguous()
-    scratch = torch.empty(n, dtype=torch.float32, device=src.device)
-    out = torch.empty(32, dtype=torch.float32, device=src.device)
-    stream = torch.cuda.current_stream(src.device).cuda_stream
-    status = cuda_build.launcher("p2l_stats")(
-        *[c.data_ptr() for c in cols], n, rt.data_ptr(), scratch.data_ptr(),
-        out.data_ptr(), huber_k, huber_k * huber_k, 2.0 * huber_k, stream)
+    args, out, _keep = _p2l_stats_args(src, dst, normals, mask, rot, t,
+                                       huber_k)
+    status = cuda_build.launcher("p2l_stats")(*args)
     cuda_build.LAUNCHES["p2l_stats"] += 1
+    if status == -1:
+        raise RuntimeError(
+            f"p2l_stats: no thread-block cluster of {args[-2]} blocks can be "
+            "placed on this card")
     cuda_build.check(status, "p2l_stats")
     return out
 

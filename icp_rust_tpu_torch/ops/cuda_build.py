@@ -87,10 +87,11 @@ _SIGNATURES = {
     "p2l_loop": ("p2l_loop_launch",
                  [_P, _L, _L] * 3 + [_P, _L] + [_I] * 2 + [_P] * 2
                  + [_F] * 4 + [_I] + [_F] * 2 + [_I, _P]),
-    # sx sy sz dx dy dz nx ny nz mask; n; rt, scratch, out; huber_k, k2,
-    # two_k; stream
+    # src, dst, normals, each with its two strides; mask, its stride;
+    # mask_f32, n; rt, scratch, out; huber_k, k2, two_k; cluster, stream
     "p2l_stats": ("p2l_stats_launch",
-                  [_P] * 10 + [_I] + [_P] * 3 + [_F] * 3 + [_P]),
+                  [_P, _L, _L] * 3 + [_P, _L] + [_I] * 2 + [_P] * 3
+                  + [_F] * 3 + [_I, _P]),
     # query, db_cm, dist, idx, part, ticket; b, qp, d_dim, m_pad, item,
     # q_per_thread; stream
     "nn_sweep": ("nn_sweep_launch", [_P] * 6 + [_I] * 6 + [_P]),
@@ -101,9 +102,11 @@ _SIGNATURES = {
     # qp, q_tile, db_tile, d_dim, f_dim, m_pad, item, threads,
     # q_per_thread; stream
     "nn_pruned": ("nn_pruned_launch", [_P] * 10 + [_I] * 9 + [_P]),
-    # sx, sy, dx, dy, mask; n; rt, scratch, out; huber_k, k2, two_k; stream
+    # src, its two strides, dst likewise, mask, its stride; n; rt,
+    # scratch, out; huber_k, k2, two_k; cluster, stream
     "gn_stats": ("gn_stats_launch",
-                 [_P] * 5 + [_I] + [_P] * 3 + [_F] * 3 + [_P]),
+                 [_P, _L, _L] * 2 + [_P, _L, _I] + [_P] * 3 + [_F] * 3
+                 + [_I, _P]),
     # sx, sy, dx, dy, mask; b, n; rt, scratch, out; huber_k, k2, two_k;
     # stream
     "gn_stats_batched": ("gn_stats_batched_launch",

@@ -276,6 +276,19 @@ def nn_pairs(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor, cbox: Tensor,
     if query_p.device.type == "cpu":
         return nn_pairs_plain(query_p, dbf_cm, qbox, cbox, qbound, d_dim,
                               q_sub)
+    args, out = _nn_pairs_args(query_p, dbf_cm, qbox, cbox, qbound, d_dim,
+                               q_sub)
+    status = cuda_build.launcher("nn_pairs")(*args)
+    cuda_build.LAUNCHES["nn_pairs"] += 1
+    cuda_build.check(status, "nn_pairs")
+    return out
+
+
+def _nn_pairs_args(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor,
+                   cbox: Tensor, qbound: Tensor, d_dim: int,
+                   q_sub: int = Q_SUB):
+    """Check the CUDA inputs of the nn_pairs kernel and allocate its
+    outputs.  Returns (the launcher's arguments, (dist, idx, pay))."""
     _check_launch("nn_pairs", query_p, dbf_cm, d_dim, q_sub,
                   (("qbox", qbox, torch.float32),
                    ("cbox", cbox, torch.float32),
@@ -286,14 +299,11 @@ def nn_pairs(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor, cbox: Tensor,
         raise ValueError("nn_pairs: bad box or bound shapes")
     dist, idx, pay = _outputs(query_p, dbf_cm, d_dim)
     stream = torch.cuda.current_stream(query_p.device).cuda_stream
-    status = cuda_build.launcher("nn_pairs")(
-        query_p.data_ptr(), dbf_cm.data_ptr(), qbox.data_ptr(),
-        cbox.data_ptr(), qbound.data_ptr(), dist.data_ptr(), idx.data_ptr(),
-        pay.data_ptr(), b, qp, q_sub, d_dim, dbf_cm.shape[1] - d_dim,
-        dbf_cm.shape[2], stream)
-    cuda_build.LAUNCHES["nn_pairs"] += 1
-    cuda_build.check(status, "nn_pairs")
-    return dist, idx, pay
+    args = (query_p.data_ptr(), dbf_cm.data_ptr(), qbox.data_ptr(),
+            cbox.data_ptr(), qbound.data_ptr(), dist.data_ptr(),
+            idx.data_ptr(), pay.data_ptr(), b, qp, q_sub, d_dim,
+            dbf_cm.shape[1] - d_dim, dbf_cm.shape[2], stream)
+    return args, (dist, idx, pay)
 
 
 def nn_pairs_list(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,

@@ -18,10 +18,15 @@ their sums in another order than the plain versions: rot and t within
 1e-5, equal iteration counts for p2l_loop.  p2l_stats, gn_stats and
 gn_stats_batched: each sum and the error within 1e-5 of the
 Cauchy-Schwarz bound of its absolute terms, the count exact, sigma within
-1e-6 relative; the update from gn_stats' statistics against the einsum
-update at the JAX package's gate (delta rtol 2e-4, atol 1e-6).  The voxel hash table on the card equals the CPU's: keys,
-counts and drops exact, point sums to float32 roundoff.  chip_smoke.py
-runs the same comparisons at the paths' full sizes.
+1e-6 relative (gn_stats' and p2l_stats' bitwise the plain versions', on
+every cluster size their rules pick); the update from gn_stats'
+statistics against the einsum update at the JAX package's gate (delta
+rtol 2e-4, atol 1e-6).  icp2d_frame_pairs at 64 pairs of 1,536 points,
+and icp2d_frame on their pair 5, within 1e-5 of the plain version with
+equal outer and inner iteration counts.  The voxel hash table on the
+card equals the CPU's: keys, counts and drops exact, point sums to
+float32 roundoff.  chip_smoke.py runs the same comparisons at the paths'
+full sizes.
 """
 
 import numpy as np
@@ -444,6 +449,67 @@ def test_icp2d_frame_pairs_settings_match_plain(dev, b, n):
     assert len(by_threads) >= 2
 
 
+@pytest.fixture(scope="module")
+def big_pairs():
+    """chip_smoke.py's 64 consecutive pairs of 1,536 synthetic points."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (an NVIDIA Hopper card)")
+    import chip_smoke
+
+    return chip_smoke.big_frame_pairs(torch.device("cuda"))
+
+
+def _plain_inner_iterations(src, dst, smask, dmask, t0, cfg):
+    """The plain frame loop's inner iterations on one pair, summed over its
+    outer loop."""
+    inner = []
+    real = align2d.irls_loop_torch
+
+    def spy(*a, **kw):
+        res = real(*a, **kw)
+        inner.append(int(res[2]))
+        return res
+
+    align2d.irls_loop_torch = spy
+    try:
+        align2d_cuda.icp2d_frame_plain(src, dst, smask, dmask, t0, cfg)
+    finally:
+        align2d.irls_loop_torch = real
+    return sum(inner)
+
+
+@pytest.mark.parametrize("kernel", ["icp2d_frame_pairs", "icp2d_frame"])
+def test_frame_kernels_match_plain_at_1536_points(dev, big_pairs, kernel):
+    """Kernel 10 at chip_smoke.py's 64 pairs of 1,536 points, and kernel 3
+    on their pair 5 alone: rot and t within 1e-5 (chip_smoke.FRAME_TOL) of
+    the plain version with equal outer iteration counts per pair, and on
+    pair 5 equal inner iteration counts."""
+    import chip_smoke
+
+    sp, dp, sm, dm = big_pairs
+    cfg = chip_smoke._config()
+    pair = 5
+    if kernel == "icp2d_frame_pairs":
+        t0 = RigidTransform2.identity((sp.shape[0],), device=dev)
+        args = (sp, dp, sm, dm, t0, cfg)
+        row = pair
+    else:
+        t0 = RigidTransform2.identity(device=dev)
+        args = (sp[pair], dp[pair], sm[pair], dm[pair], t0, cfg)
+        row = 0
+    out = align2d_cuda.icp2d_frame_raw(*args).reshape(-1, 8)
+    rot_p, t_p, its_p = align2d_cuda.icp2d_frame_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:, 6].to(torch.int32), its_p.reshape(-1))
+    torch.testing.assert_close(out[:, :4], rot_p.reshape(-1, 4),
+                               atol=SOLVER_TOL, rtol=0)
+    torch.testing.assert_close(out[:, 4:6], t_p.reshape(-1, 2),
+                               atol=SOLVER_TOL, rtol=0)
+    one = RigidTransform2.identity(device=dev)
+    assert int(out[row, 7]) == _plain_inner_iterations(
+        sp[pair], dp[pair], sm[pair], dm[pair], one, cfg)
+
+
 def test_irls_loop_batched_kernel_matches_plain(dev):
     rng = np.random.default_rng(6)
     b, n = 70, 768
@@ -629,9 +695,24 @@ def test_p2l_loop_kernel_matches_plain(dev, case):
         assert int(it) == 1 and torch.equal(rot, torch.eye(3, device=dev))
 
 
-@pytest.mark.parametrize("warm", [False, True])
-def test_p2l_stats_kernel_matches_plain(dev, warm):
-    src, dst, nrm, mask = _p2l_problem(dev)
+# Kernels 12 and 14 at one point, an odd and an even count, SLAM small's
+# 3,072, the paths' 28,800, slices too large to stage (140,000) and no
+# valid point, beside the first cases' 3,000.
+STATS_SIZES = [1, 999, 1000, 3072, 28800, 140000, "all-masked"]
+
+
+@pytest.mark.parametrize("warm,n", [(False, 3000), (True, 3000)]
+                         + [(True, n) for n in STATS_SIZES])
+def test_p2l_stats_kernel_matches_plain(dev, warm, n):
+    """Kernel 14 through weighted_gn_update_p2l_cuda and alone, on the
+    wrapper's cluster and on every cluster size its rule picks
+    (align3d_cuda.p2l_cluster): each sum and the error within 1e-5 of its
+    Cauchy-Schwarz bound, the count exact, sigma bitwise the plain
+    version's (the exact median and MAD of the same residuals)."""
+    size = 3000 if n == "all-masked" else n
+    src, dst, nrm, mask = _p2l_problem(dev, n=size)
+    if n == "all-masked":
+        mask[:] = False
     t = RigidTransform3.identity(device=dev)
     if warm:
         t = RigidTransform3.from_twist(torch.tensor(
@@ -639,12 +720,23 @@ def test_p2l_stats_kernel_matches_plain(dev, warm):
     before = cuda_build.LAUNCHES["p2l_stats"]
     upd = align3d.weighted_gn_update_p2l_cuda(t, src, dst, nrm, mask, 1.345)
     assert cuda_build.LAUNCHES["p2l_stats"] == before + 1
-    assert bool(upd.ok)
-    got = align3d_cuda.p2l_stats(src, dst, nrm, mask, t.rot, t.t, 1.345)
+    assert bool(upd.ok) == (n not in (1, "all-masked"))
     want = align3d_cuda.p2l_stats_plain(src, dst, nrm, mask, t.rot, t.t,
                                         1.345)
-    rel, dn, sig_rel = align3d_cuda.stats_errors(got, want)
-    assert rel <= 1e-5 and dn == 0 and sig_rel <= 1e-6
+    outs = [align3d_cuda.p2l_stats(src, dst, nrm, mask, t.rot, t.t, 1.345)]
+    for c in sorted({align3d_cuda.p2l_cluster(1),
+                     align3d_cuda.p2l_cluster(1 << 30)}):
+        args, out, _keep = align3d_cuda._p2l_stats_args(
+            src, dst, nrm, mask, t.rot, t.t, 1.345, cluster=c)
+        assert cuda_build.launcher("p2l_stats")(*args) == 0
+        torch.cuda.synchronize()
+        outs.append(out)
+    for got in outs:
+        rel, dn, sig_rel = align3d_cuda.stats_errors(got, want)
+        assert rel <= 1e-5 and dn == 0 and sig_rel <= 1e-6
+        assert torch.equal(got[29], want[29])
+    if n == "all-masked":
+        assert not bool(outs[0].any())
 
 
 def test_p2l_odometry_on_the_card_tracks_the_plain_path(dev):
@@ -1016,9 +1108,19 @@ def _gn_problem(dev, batch=(), n=3000, seed=8):
             for x in (src, dst)] + [torch.as_tensor(mask, device=dev), t]
 
 
-@pytest.mark.parametrize("batched", [False, True])
-def test_gn_stats_kernels_match_plain(dev, batched):
-    src, dst, mask, t = _gn_problem(dev, (6,) if batched else ())
+@pytest.mark.parametrize("batched,n", [(False, 3000), (True, 3000)]
+                         + [(False, n) for n in STATS_SIZES])
+def test_gn_stats_kernels_match_plain(dev, batched, n):
+    """Kernels 12 and 13 through weighted_gn_update_cuda against the einsum
+    update, and their packed stats against their plain versions: each sum
+    and the error within 1e-5 of its Cauchy-Schwarz bound, the count
+    exact, sigma within 1e-6; kernel 12 also on every cluster size its
+    rule picks (align2d_cuda.gn_cluster), its sigmas bitwise the plain
+    version's (the exact medians and MADs of the same residuals)."""
+    size = 3000 if n == "all-masked" else n
+    src, dst, mask, t = _gn_problem(dev, (6,) if batched else (), n=size)
+    if n == "all-masked":
+        mask[:] = False
     if batched:
         mask[2] = False  # a fully masked pair
         mask[3, :] = False
@@ -1042,6 +1144,20 @@ def test_gn_stats_kernels_match_plain(dev, batched):
     if batched:
         assert torch.equal(got[2], torch.zeros(16, device=dev))
         assert not bool(upd.ok[2]) and bool(upd.ok[3])
+        return
+    assert bool(upd.ok) == (n not in (1, "all-masked"))
+    assert torch.equal(got[12:14], want[12:14])
+    for c in sorted({align2d_cuda.gn_cluster(1),
+                     align2d_cuda.gn_cluster(1 << 30)}):
+        args, out, _keep = align2d_cuda._gn_stats_args(
+            src, dst, mask, t.rot, t.t, 1.345, cluster=c)
+        assert cuda_build.launcher("gn_stats")(*args) == 0
+        torch.cuda.synchronize()
+        rel, dn, _ = align2d_cuda.gn_stats_errors(out, want)
+        assert rel <= 1e-5 and dn == 0
+        assert torch.equal(out[12:14], want[12:14])
+    if n == "all-masked":
+        assert not bool(got.any())
 
 
 def test_irls_cuh_kernels_agree_after_the_stats_refactor(dev):

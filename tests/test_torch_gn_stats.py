@@ -221,3 +221,28 @@ def test_gn_stats_wrappers_refuse_other_devices_and_shapes():
     for name in ("gn_stats", "gn_stats_batched"):
         assert name in cuda_build.SOURCES and name in cuda_build._SIGNATURES
         assert name in cuda_build.LAUNCHES
+
+
+@pytest.mark.parametrize("kernel", ["gn_stats", "p2l_stats"])
+def test_stats_cluster_rule_and_slices(kernel):
+    """Kernels 12 and 14's cluster sizes (``align2d_cuda.gn_cluster``,
+    ``align3d_cuda.p2l_cluster``): 8 blocks up to 16,384 points, 16
+    above.  Block r of C takes the points [min(N, r per), min(N, (r + 1)
+    per)), per = ceil(N / C) (irls_cluster.cuh's irls_cluster_pair,
+    p2l_stats.cu's kernel), which cover [0, N) exactly and in order; a
+    block stages its slice in shared memory up to 200 KB (25 and 41 bytes
+    a point) and reads it in place above, as at 140,000 points."""
+    from icp_rust_tpu_torch.ops import align3d_cuda
+
+    rule, point_bytes = ((align2d_cuda.gn_cluster, 25) if kernel == "gn_stats"
+                         else (align3d_cuda.p2l_cluster, 41))
+    for n, want in ((1, 8), (999, 8), (16384, 8), (16385, 16), (28800, 16),
+                    (140000, 16)):
+        c = rule(n)
+        assert c == want
+        per = -(-n // c)
+        bounds = [(min(n, r * per), min(n, (r + 1) * per)) for r in range(c)]
+        assert bounds[0][0] == 0 and bounds[-1][1] == n
+        assert all(a[1] == b[0] and a[0] <= a[1]
+                   for a, b in zip(bounds, bounds[1:]))
+        assert (per * point_bytes <= 200 * 1024) == (n != 140000)

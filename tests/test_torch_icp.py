@@ -296,3 +296,80 @@ def test_frame_cluster_sweep_is_the_first_minimum(n, m, cluster):
     none = torch.full_like(dst, _SENTINEL)
     got_d, got_i = ac.frame_sweep(query, none, cluster)
     assert bool(torch.isinf(got_d).all()) and not bool(got_i.any())
+
+
+def _chip_smoke():
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(root)
+    return chip_smoke
+
+
+@pytest.fixture(scope="module")
+def near_tie_pair():
+    """Pair 5 of chip_smoke.py's 64 consecutive pairs of 1,536 synthetic
+    points (``big_frame_pairs``; its first six pairs are those of the 64),
+    where the frame kernels on the card land 4.8e-5 from their plain
+    version (ROADMAP.md section 3), and the port's plain frame loop on it
+    in float32 and float64: (src, dst, mask, config, {dtype: (rot and t as
+    6 floats, outer iterations)})."""
+    cs = _chip_smoke()
+    sp, dp, sm, _ = cs.big_frame_pairs("cpu", big=6)
+    src, dst, mask = sp[5].numpy(), dp[5].numpy(), sm[5].numpy()
+    cfg = cs._config()
+    runs = {}
+    for dt in (torch.float32, torch.float64):
+        rot, t, it = m.align2d_cuda.icp2d_frame_plain(
+            torch.as_tensor(src, dtype=dt), torch.as_tensor(dst, dtype=dt),
+            torch.as_tensor(mask), torch.as_tensor(mask),
+            TT.identity(dtype=dt), cfg)
+        runs[dt] = (np.concatenate([rot.numpy().reshape(4), t.numpy()]),
+                    int(it))
+    return src, dst, mask, cfg, runs
+
+
+def test_plain_frame_loop_tracks_float64_and_jax_on_the_near_tie_pair(
+        near_tie_pair):
+    """The reference side of kernel 10's 64 x 1,536 case: the port's
+    float32 plain frame loop on pair 5 within FRAME_TOL of its float64
+    run and of the JAX package's float32 XLA icp2d, with equal outer
+    iteration counts."""
+    src, dst, mask, cfg, runs = near_tie_pair
+    got, outer = runs[torch.float32]
+    want, outer64 = runs[torch.float64]
+    tol = _chip_smoke().FRAME_TOL
+    assert np.abs(got - want).max() <= tol and outer == outer64
+    jcfg = JaxConfig(nn_backend="xla", align_backend="xla",
+                     frame_backend="off", det_rel_eps=cfg.det_rel_eps)
+    jt, jst = j_icp.icp2d(jnp.asarray(src), jnp.asarray(dst),
+                          jnp.asarray(mask), jnp.asarray(mask),
+                          JT.identity(dtype=jnp.float32), jcfg,
+                          return_stats=True)
+    jax_t = np.concatenate([np.array(jt.rot).reshape(4), np.array(jt.t)])
+    assert np.abs(got - jax_t).max() <= tol
+    assert int(jst.outer_iters) == outer
+
+
+def test_jax_frame_kernel_takes_the_other_side_of_the_near_tie(
+        near_tie_pair):
+    """The JAX package's own whole-frame kernel (_icp2d_frame_kernel, in
+    interpret mode) on the same pair lands farther than FRAME_TOL from
+    the float64 plain loop, as the port's frame kernels do on the card:
+    in float32, with its rounding of the transform, one point's nearest
+    neighbour at the sixth outer iteration is the other side of a near
+    tie (chip_smoke.frame_trace), and the loop ends at another fixed
+    point.  Not a fault of the port (ROADMAP.md section 3)."""
+    src, dst, mask, cfg, runs = near_tie_pair
+    jcfg = JaxConfig(nn_backend="xla", align_backend="xla",
+                     frame_backend="interpret", det_rel_eps=cfg.det_rel_eps)
+    jt = j_icp.icp2d(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask),
+                     jnp.asarray(mask), JT.identity(dtype=jnp.float32), jcfg)
+    jax_t = np.concatenate([np.array(jt.rot).reshape(4), np.array(jt.t)])
+    assert np.abs(jax_t - runs[torch.float64][0]).max() > \
+        _chip_smoke().FRAME_TOL
