@@ -49,9 +49,10 @@ frames, each subsampled to a seeded count in 411-670 points, padded to
    +inf bounds (every chunk listed), the warm bounds of one real outer
    step, a masked db, exact ties, and 4 pairs at the 4096-point db limit.
    Indices, distances and payload must be bitwise equal, and equal to a
-   brute-force sweep; nn_pairs_list also to its schedule's emulation, and
-   at work items of 1 to all list entries with 1, 2 and 4 queries a
-   thread (each printed with its launcher-alone time).  nn_pairs_list
+   brute-force sweep; both also to their schedules' emulations, and at
+   work items of 1, 2, 3, 6 and all of the db's chunks (nn_pairs) or of 1
+   to all list entries (nn_pairs_list) with 1, 2 and 4 queries a thread
+   (each printed with its launcher-alone time).  nn_pairs_list
    timed by its launcher alone and by its wrapper on the warm call,
    nn_pairs by its launcher alone and by its wrapper on the cold call,
    beside nn_pairs_list's launcher alone on the same cold case.
@@ -157,8 +158,10 @@ The last two kernels and the scan-to-submap path:
     within GN_SIGMA_TOL relative, and the update's delta within
     GN_DELTA_TOL of ``weighted_gauss_newton_update``'s with equal ``ok``.
     Timed by their launchers alone (gn_stats as p2l_stats in phase 12, on
-    every cluster size at 28,800, 3,072 and 1,000 points) and by their
-    wrappers.
+    every cluster size at 28,800, 3,072 and 1,000 points; gn_stats_batched
+    on every route: one block a pair at each thread count of
+    GN_BLOCK_THREADS that holds the pair, clusters of 1-16 blocks a pair,
+    each held to the same gates) and by their wrappers.
 19. ``run_submap_odometry`` at ``benchmarks/bench_submap.py``'s width (the
     96 frames padded to 28,800; voxel 0.05 m, capacity 2^17, a 65,536-row
     map view), twice (bitwise equal; the second run timed): frames/s, ATE
@@ -189,16 +192,23 @@ operations / 67 TFLOP/s (H100 SXM float32 without tensor cores).
 
     python3 chip_smoke.py --times
 
-builds the kernels and only times kernels 12, 14, 3, 9 and 10 by their
-launchers alone at every shape their paths give them (kernels 12 and 14
-at 28,800, 3,072 and 1,000 points, kernel 9 on every call of the batched
-path and of SLAM 2D, kernel 10 at 209 x 768, 64 x 1,536 and B = 1), at
-every cluster size, schedule or setting the tree has, with the two frame
-kernels' splits of an outer iteration into its sweep, IRLS loop and tail
-per pair (``kernel_times``, ``frame_split``): one JSON line, to compare
-two trees in one run on one card.  Then it holds kernel 10 at every
-shape within FRAME_TOL of its plain version with equal outer iteration
-counts, and on a miss traces the worst pair through kernels 10 and 3
+builds the kernels and only times kernels 12, 14, 13, 3, 8, 9 and 10 by
+their launchers alone at every shape their paths give them (kernels 12
+and 14 at 28,800, 3,072 and 1,000 points, kernel 13 at 211 x 768 and at
+SLAM 2D wide's 11 x 28,160 and its first 1,536-4,096 points, kernel 8 at
+the batched path's cold call, kernel 9 on every call of the batched path
+and of SLAM 2D, kernel 10 at 209 x 768, 64 x 1,536 and B = 1), at every
+cluster size, route, schedule or setting the tree has, each call held
+against its plain version, with the two frame kernels' splits of an
+outer iteration into its sweep, IRLS loop and tail per pair
+(``kernel_times``, ``frame_split``): one JSON line, to compare two trees
+in one run on one card.  Then it holds kernel 10 at every shape to
+``frame_gate`` (within FRAME_TOL of its plain version with equal outer
+iteration counts; a pair outside FRAME_TOL passes only with an equal
+count at an exact fixed point of the plain outer step that lies within
+FRAME_TOL of the plain loop with one float32 nearest-neighbour near tie
+taken the other way, and is printed with its tie), and on a failure
+traces the worst failing pair through kernels 10 and 3
 (``frame_trace``: per outer iteration the kernel's matches against the
 plain and the exact nearest neighbours of its own rows, its IRLS result
 against the plain loop on its own inputs) and exits non-zero.
@@ -902,6 +912,37 @@ def _list_schedules(args, out, device, reps: int = 20):
     return res, f"I={item0},Q={q0}"
 
 
+def _pairs_schedules(args, out, device, reps: int = 20):
+    """Kernel 8 by its launcher alone at the wrapper's schedule and at
+    work items of 1, 2, 3, 6 and all of the db's chunks with 1, 2 and 4
+    queries a thread, each bitwise equal to the wrapper's result ``out``:
+    ({"T=..,Q=..": ms}, the wrapper's key).  Empty on the CPU and in a
+    tree whose kernel 8 has no work items."""
+    res = {}
+    if (torch.device(device).type != "cuda"
+            or not hasattr(nn_pairs_cuda, "pairs_item_chunks")):
+        return res, None
+    b, qp = args[0].shape[:2]
+    m_pad = args[1].shape[2]
+    n_ch = m_pad // 128
+    q0 = nn_pairs_cuda.PAIRS_Q
+    t0 = nn_pairs_cuda.pairs_item_chunks(b, qp, m_pad, q0)
+    items = sorted({1, 2, 3, 6, n_ch} & set(range(1, n_ch + 1)))
+    shapes = [(t0, q0)] + [(i, q) for q in (1, 2, 4) for i in items
+                           if (i, q) != (t0, q0)]
+    for item, q in shapes:
+        largs, got, keep = nn_pairs_cuda._nn_pairs_args(
+            *args, item=item, q_per_thread=q)
+        res[f"T={item},Q={q}"] = launcher_ms("nn_pairs", largs, device,
+                                             reps=reps)
+        _sync(device)
+        if not all(torch.equal(a, b) for a, b in zip(got, out)):
+            raise RuntimeError(f"nn_pairs: items of {item} chunks and {q} "
+                               "queries a thread change the result")
+        del keep
+    return res, f"T={t0},Q={q0}"
+
+
 def _list_walk(cnt, item: int) -> str:
     """What one kernel 9 call walks at items of ``item`` entries (a host
     read, for reports): chunk-walks, work items, the longest block's
@@ -971,6 +1012,17 @@ def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
                     and torch.equal(got[2][:, :n_q][hit], want_pay[hit])):
                 raise RuntimeError(f"{what}: differs from brute force")
             schedules = {}
+            if kind == "static" and hasattr(nn_pairs_cuda, "pairs_items"):
+                emul = nn_pairs_cuda.pairs_items(*args)
+                _equal_or_raise(got, emul[:3],
+                                f"{what} (the items' emulation)")
+                item8 = nn_pairs_cuda.pairs_item_chunks(
+                    *query_p.shape[:2], dbf.shape[2])
+                walk = (f"; {emul[3]} work items of {item8} chunks, "
+                        "bitwise equal to the items' emulation")
+                schedules = _pairs_schedules(args, got, device)[0]
+                if schedules:
+                    walk += f"; by schedule {schedules} ms"
             if kind == "list":
                 emul = nn_pairs_cuda.pairs_list_items(*args, item=item)
                 _equal_or_raise(got, emul[:3],
@@ -1044,13 +1096,13 @@ def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
         elif torch.device(device).type == "cuda":
             # Kernel 8 by its launcher alone, beside kernel 9 on the same
             # cold case (+inf bounds, every chunk listed).
-            largs, _out = nn_pairs_cuda._nn_pairs_args(*args)
+            res = nn_pairs_cuda._nn_pairs_args(*args)
             cold = timed[("list", "cold")]["args"]
             cargs, _cout, keep = nn_pairs_cuda._nn_pairs_list_args(*cold)
             extra = dict(wrapper_ms=ms, list_cold_ms=launcher_ms(
-                "nn_pairs_list", cargs, device))
-            ms = launcher_ms("nn_pairs", largs, device)
-            del keep
+                "nn_pairs_list", cargs, device), schedules_ms=c["schedules"])
+            ms = launcher_ms("nn_pairs", res[0], device)
+            del keep, res
             print(f"# nn_pairs cold: launcher alone {ms} ms, wrapper "
                   f"{extra['wrapper_ms']:.4f} ms; nn_pairs_list on the "
                   f"cold case, launcher alone {extra['list_cold_ms']} ms")
@@ -1062,9 +1114,8 @@ def phase_nn_pairs(device="cuda", n_scans: int = BATCH_SCANS,
                    * (4 + 4 + 4 * (dbf.shape[1] - 2)))
         pairs = float(c["pairs"])
         b, by = bound_ms(n_bytes, pairs * NN_OPS_PER_PAIR_2D)
-        if kind == "list":
-            extra["issue_floor_ms"] = \
-                pairs * NN_INSTR_PER_PAIR[2] / PEAK_F32_INSTR_PER_S * 1e3
+        extra["issue_floor_ms"] = \
+            pairs * NN_INSTR_PER_PAIR[2] / PEAK_F32_INSTR_PER_S * 1e3
         records.append(dict(
             name=rec_name, route="cuda", path="batched",
             source=f"icp_rust_tpu_torch/csrc/{src_file}",
@@ -1239,19 +1290,144 @@ def phase_irls_batched_wide(device="cuda", wide_frames: int = 12,
                                 iterations=first_its.tolist())
 
 
+def plain_fixed_point(args, rot, t) -> torch.Tensor:
+    """Per pair of kernel 10's (or 3's) arguments ``args``: is (rot, t) an
+    exact fixed point of the plain outer step?  ``icp2d_frame_plain``
+    warm-started there takes its fixed-point exit at the first outer
+    iteration: its dT is the identity bitwise (``_outer_fixed_point``'s
+    test)."""
+    sp, dp, sm, dm, _, cfg = args
+    _, _, lane_it = align2d_cuda.icp2d_frame_plain(
+        sp, dp, sm, dm, RigidTransform2(rot, t), cfg)
+    return lane_it.reshape(-1).cpu() == 1
+
+
+def near_tie_replay(src, dst, smask, dmask, t0, cfg, flip=None):
+    """The plain outer loop of one pair (src (N, 2), dst (M, 2) in solver
+    units, warm start t0) on the exact nearest neighbours: float64 squared
+    distances of the float32 rows, the lowest index on a tie.  ``flip``
+    (outer iteration, row) takes that row's second-nearest point at that
+    iteration instead.  Also lists the loop's near ties: (outer iteration
+    from 0, row, squared-distance gap, margin) where a valid row's two
+    nearest points lie closer in squared distance than a move of the row
+    by eps (1 + its largest |coordinate|), about one float32 ulp, can
+    reorder (margin 2 eps (1 + max |xy|) |p1 - p2|).  The frame kernels'
+    rows are that far from the plain loop's.  Returns (rot and t as 6
+    float64, outer iterations, near ties)."""
+    cfg = cfg.with_(align_backend="torch")
+    eps = torch.finfo(torch.float32).eps
+    t, ties = t0, []
+    d64 = dst.double()
+    for k in range(cfg.outer_iters):
+        xy = t.apply_points(src)
+        d2 = torch.sum((xy.double()[:, None] - d64[None]) ** 2, dim=-1)
+        d2 = torch.where(dmask[None], d2, torch.inf)
+        near, nidx = torch.topk(d2, min(2, d2.shape[1]), dim=-1,
+                                largest=False, sorted=True)
+        # topk does not promise the lowest index among equal distances.
+        idx = torch.argmin(d2, dim=-1)
+        if near.shape[1] == 2:
+            gap = near[:, 1] - near[:, 0]
+            two = torch.where(nidx[:, 0] == idx, nidx[:, 1], nidx[:, 0])
+            margin = (2 * eps * (1 + float(xy.abs().max()))
+                      * torch.linalg.norm(d64[idx] - d64[two], dim=-1))
+            for q in torch.nonzero(smask & (gap <= margin)).reshape(-1):
+                ties.append((k, int(q), float(gap[q]), float(margin[q])))
+            if flip is not None and flip[0] == k:
+                idx = idx.clone()
+                idx[flip[1]] = two[flip[1]]
+        dt = align2d.estimate_transform(xy, dst[idx], smask, cfg)
+        if bool(m_icp._is_identity(dt)):
+            return _six(t), k + 1, ties
+        t = dt.compose(t)
+    return _six(t), cfg.outer_iters, ties
+
+
+def _six(t: RigidTransform2) -> torch.Tensor:
+    return torch.cat([t.rot.reshape(4), t.t.reshape(2)]).double()
+
+
+def near_tie_match(src, dst, smask, dmask, t0, cfg, got, its: int):
+    """Is ``got`` (rot and t as 6 floats, ``its`` outer iterations) within
+    FRAME_TOL, with the same outer count, of the plain loop on the exact
+    nearest neighbours, or of that loop with one of its near ties taken
+    the other way (``near_tie_replay``)?  Returns a description of the
+    match, or None."""
+    got = got.double().reshape(6)
+    base, n, ties = near_tie_replay(src, dst, smask, dmask, t0, cfg)
+    err = float((base - got).abs().max())
+    if n == its and err <= FRAME_TOL:
+        return f"{err:.3e} from the plain loop on the exact nearest neighbours"
+    for k, q, gap, margin in ties:
+        six, n, _ = near_tie_replay(src, dst, smask, dmask, t0, cfg, (k, q))
+        err = float((six - got).abs().max())
+        if n == its and err <= FRAME_TOL:
+            return (f"{err:.3e} from the plain loop with row {q}'s nearest "
+                    f"neighbour at outer iteration {k + 1} taken as its "
+                    f"second (squared distances {gap:.3e} apart, under the "
+                    f"one-ulp margin {margin:.3e})")
+    return None
+
+
+def frame_gate(args, rot, t, its, plain, what: str):
+    """Kernel 10's (or 3's) gate on one batch: every pair within FRAME_TOL
+    of the plain version ``plain`` (rot, t, outer iterations) in rot and
+    t, with equal outer iteration counts.  A pair outside FRAME_TOL passes
+    only with an equal count, a result that is an exact fixed point of
+    the plain outer step (``plain_fixed_point``), and a result within
+    FRAME_TOL of the plain loop with one float32 nearest-neighbour near
+    tie taken the other way, at the same count (``near_tie_match``): such
+    a tie ends the loop at another fixed point of the same step (ROADMAP.md
+    section 3).  Each such pair is printed with its index, its distance
+    and its tie.  Returns (max |diff|, the pairs that fail)."""
+    rot_p, t_p, its_p = plain
+    d = torch.maximum(
+        torch.amax(torch.abs(rot - rot_p).reshape(-1, 4), dim=-1),
+        torch.amax(torch.abs(t - t_p).reshape(-1, 2), dim=-1)).cpu()
+    its_k = its.reshape(-1).to(torch.int64).cpu()
+    its_pl = its_p.reshape(-1).to(torch.int64).cpu()
+    bad = its_k != its_pl
+    miss = torch.nonzero((d > FRAME_TOL) & ~bad).reshape(-1)
+    if len(miss):
+        # Kernel 3's arguments are one pair: give them kernel 10's axis.
+        one = args[0].ndim == 2
+        sp, dp, sm, dm = ((x[None] if one else x) for x in args[:4])
+        t0, cfg = args[4], args[5]
+        rot0, tr0 = t0.rot.reshape(-1, 2, 2), t0.t.reshape(-1, 2)
+        got = torch.cat([rot.reshape(-1, 4), t.reshape(-1, 2)], dim=-1)
+        sel = miss.to(sp.device)
+        fixed = plain_fixed_point(
+            (sp[sel], dp[sel], sm[sel], dm[sel], None, cfg),
+            rot.reshape(-1, 2, 2)[miss.to(rot.device)],
+            t.reshape(-1, 2)[miss.to(t.device)])
+        for i, ok in zip(miss.tolist(), fixed.tolist()):
+            why = ok and near_tie_match(
+                sp[i], dp[i], sm[i], dm[i],
+                RigidTransform2(rot0[i], tr0[i]), cfg, got[i],
+                int(its_k[i]))
+            if why:
+                print(f"# {what}: pair {i} outside FRAME_TOL by "
+                      f"{float(d[i]):.3e} passes the near-tie gate: equal "
+                      f"outer iterations ({int(its_k[i])}), an exact fixed "
+                      f"point of the plain outer step, {why}")
+            else:
+                bad[i] = True
+    return float(d.max()), torch.nonzero(bad).reshape(-1).tolist()
+
+
 def _frame_pairs_check(args, what: str):
     """Kernel 10 through its wrapper against its plain version on one
-    batch: rot and t within FRAME_TOL per pair, equal outer iteration
-    counts.  On a miss on the card, the worst pair is traced through
-    kernel 10 and, alone, through kernel 3 (``frame_trace``) before the
-    check raises.  Returns (max |diff|, outer iterations per pair, the
-    plain version's (rot, t))."""
+    batch, held to ``frame_gate``.  On a failure on the card, the worst
+    failing pair is traced through kernel 10 and, alone, through kernel 3
+    (``frame_trace``) before the check raises.  Returns (max |diff|, outer
+    iterations per pair, the plain version's (rot, t, outer
+    iterations))."""
     rot, t, its = align2d_cuda.icp2d_frame_pairs(*args)
-    rot_p, t_p, its_p = align2d_cuda.icp2d_frame_pairs_plain(*args)
-    err = max(float(torch.max(torch.abs(rot - rot_p))),
-              float(torch.max(torch.abs(t - t_p))))
+    plain = align2d_cuda.icp2d_frame_pairs_plain(*args)
+    err, failed = frame_gate(args, rot, t, its, plain, f"icp2d_frame_pairs "
+                             f"{what}")
     its_k = its.to(torch.int64).cpu()
-    its_pl = its_p.to(torch.int64).cpu()
+    its_pl = plain[2].to(torch.int64).cpu()
     spread = torch.bincount(its_k).tolist()
     print(f"# icp2d_frame_pairs {what}: {its_k.shape[0]} pairs; outer "
           f"iterations per pair kernel min {int(its_k.min())} median "
@@ -1259,14 +1435,14 @@ def _frame_pairs_check(args, what: str):
           f"{int(its_k.sum())} (pairs by count {spread}), plain sum "
           f"{int(its_pl.sum())}; max |diff| rot/t {err:.3e} (tol "
           f"{FRAME_TOL})")
-    differ = int((its_k != its_pl).sum())
-    if differ or not err <= FRAME_TOL:
-        worst = int(torch.argmax(torch.maximum(
-            torch.amax(torch.abs(rot - rot_p), dim=(-2, -1)),
-            torch.amax(torch.abs(t - t_p), dim=-1))))
-        print(f"# icp2d_frame_pairs {what}: OUTSIDE FRAME_TOL: max |diff| "
-              f"{err:.3e} at pair {worst} (outer iterations {its_k[worst]}, "
-              f"plain {its_pl[worst]}), {differ} counts differ")
+    if failed:
+        d = torch.maximum(
+            torch.amax(torch.abs(rot - plain[0]), dim=(-2, -1)),
+            torch.amax(torch.abs(t - plain[1]), dim=-1)).cpu()
+        worst = max(failed, key=lambda i: float(d[i]))
+        print(f"# icp2d_frame_pairs {what}: FAILS THE GATE at pairs "
+              f"{failed}: worst {worst} by {float(d[worst]):.3e} (outer "
+              f"iterations {its_k[worst]}, plain {its_pl[worst]})")
         if rot.device.type == "cuda":
             frame_trace(rot.device, "icp2d_frame_pairs", args, worst)
             sp, dp, sm, dm, t0, cfg = args
@@ -1274,9 +1450,8 @@ def _frame_pairs_check(args, what: str):
                      RigidTransform2(t0.rot[worst], t0.t[worst]), cfg)
             frame_trace(rot.device, "icp2d_frame", alone, 0)
         raise RuntimeError(f"icp2d_frame_pairs {what} differs from its "
-                           f"plain version: {err}, {differ} outer "
-                           "iteration counts differ")
-    return err, its_k, (rot_p, t_p)
+                           f"plain version at pairs {failed}")
+    return err, its_k, plain
 
 
 def _frame_pairs_settings(args, device, reps: int = 10):
@@ -1312,20 +1487,25 @@ def _frame_pairs_settings(args, device, reps: int = 10):
     return ms, by_shape, chosen, ref, outs
 
 
-def _frame_pairs_hold(plain, ref, outs):
+def _frame_pairs_hold(args, plain, ref, outs):
     """Kernel 10's outputs on every setting (``_frame_pairs_settings``):
-    each within FRAME_TOL of the plain version ``plain`` (rot, t) with the
-    wrapper's outer iteration counts ``ref``, and bitwise equal to the
-    other settings of its thread count."""
-    rot_p, t_p = plain
+    each held to ``frame_gate`` against the plain version ``plain`` (rot,
+    t, outer iterations) with the wrapper's outer iteration counts
+    ``ref``, and bitwise equal to the other settings of its thread
+    count."""
     by_threads = {}
     for (c, t), o in outs.items():
-        err = max(float(torch.max(torch.abs(o[:, :4] - rot_p.reshape(-1, 4)))),
-                  float(torch.max(torch.abs(o[:, 4:6] - t_p))))
-        if not (err <= FRAME_TOL and torch.equal(o[:, 6], ref[:, 6])):
+        _, failed = frame_gate(args, o[:, :4].reshape(-1, 2, 2), o[:, 4:6],
+                               o[:, 6], plain, f"icp2d_frame_pairs clusters "
+                               f"of {c} blocks of {t} threads")
+        if failed and o.device.type == "cuda":
+            frame_trace(o.device, "icp2d_frame_pairs", args, failed[0],
+                        shape=(c, t))
+        if failed or not torch.equal(o[:, 6], ref[:, 6]):
             raise RuntimeError(f"icp2d_frame_pairs: clusters of {c} blocks "
-                               f"of {t} threads give {err} or other outer "
-                               "iteration counts")
+                               f"of {t} threads fail the gate at pairs "
+                               f"{failed} or give other outer iteration "
+                               "counts")
         first = by_threads.setdefault(t, o)
         if not torch.equal(o[:, :7], first[:, :7]):
             raise RuntimeError(f"icp2d_frame_pairs: clusters of {c} blocks "
@@ -1350,7 +1530,7 @@ def phase_frame_pairs(device="cuda", n_scans: int = BATCH_SCANS,
                              device, reps=10)
         ms, by_shape, chosen, ref, outs = _frame_pairs_settings(args,
                                                                 device)
-        _frame_pairs_hold(plain, ref, outs)
+        _frame_pairs_hold(args, plain, ref, outs)
         extra = dict(wrapper_ms=wrapper_ms, shape=chosen,
                      shape_ms=by_shape)
         print(f"# icp2d_frame_pairs: launcher alone {ms} ms on clusters of "
@@ -2458,6 +2638,91 @@ def _stats_times(name: str, args, device, reps: int = 50):
     return res
 
 
+# Kernel 13's one-block route is timed at these threads a block (where
+# they hold the pair: at most 8 points a thread, 4 above 512 threads), its
+# cluster route at these blocks a pair; its route rule is timed at the
+# SLAM 2D wide call's first GN_LIMIT_POINTS points.
+GN_BLOCK_THREADS = (128, 192, 256, 384, 512, 768, 1024)
+GN_LIMIT_POINTS = (1536, 2048, 3072, 4096)
+
+
+def _gn_batched_routes(args, device, reps: int = 50):
+    """Kernel 13 by its launcher alone on ``args`` on its wrapper's route
+    and, where the tree has routes, on one block a pair at every thread
+    count of GN_BLOCK_THREADS that holds the pair and on clusters of
+    STATS_CLUSTERS blocks a pair, each result held to the stats gates
+    (``_stats_gate``): ({route: ms}, the wrapper's route).  Routes are
+    "parent" (a tree without routes), "T=<threads>" and "C=<blocks>"."""
+    res = {}
+    if torch.device(device).type != "cuda":
+        return res, None
+    n = args[0].shape[1]
+    if not hasattr(align2d_cuda, "gn_batched_route"):
+        routes, chosen = [(None, None)], "parent"
+    else:
+        c0 = align2d_cuda.gn_batched_route(
+            args[0].shape[0], n, lambda c: align2d_cuda._gn_resident(n, c))
+        t0 = align2d_cuda.gn_batched_threads(n)
+        chosen = f"T={t0}" if c0 == 0 else f"C={c0}"
+        routes = [(c0, t0 if c0 == 0 else None)]
+        for t in GN_BLOCK_THREADS:
+            per = -(-n // t)
+            if per <= 8 and (per <= 4 or t <= 512) and (0, t) != routes[0]:
+                routes.append((0, t))
+        routes += [(c, None) for c in STATS_CLUSTERS
+                   if c != c0 and align2d_cuda._gn_resident(n, c) >= 1]
+    for c, t in routes:
+        key = "parent" if c is None else (f"T={t}" if c == 0 else f"C={c}")
+        extra = {} if c is None else dict(cluster=c, threads=t)
+        largs, got, keep = align2d_cuda._gn_batched_args(*args, **extra)
+        res[key] = launcher_ms("gn_stats_batched", largs, device, reps=reps)
+        _sync(device)
+        _stats_gate("gn_stats", got, args,
+                    f"gn_stats_batched {args[0].shape[0]}x{n} {key}")
+        del keep
+    return res, chosen
+
+
+def _gn_batched_inputs(device, n_scans: int = BATCH_SCANS,
+                       pad: int = BATCH_PAD):
+    """Kernel 13's phase-18 arguments: the batched path's pairs' first
+    correspondences, each pair at a seeded small transform, plus an
+    all-masked pair and one with an odd count: (src, matched, mask,
+    transform)."""
+    b_src, b_smask, b_dst, b_dmask = _batch(device, n_scans, pad, sort=True)
+    _, b_matched = nearest_neighbor_matched(b_src, b_dst, b_dmask,
+                                            backend="torch", tile=pad)
+    odd = torch.zeros_like(b_smask[:2])
+    odd[1, :101] = True  # an odd count; row 0 all masked
+    bs = torch.cat([b_src, b_src[:2]])
+    bd = torch.cat([b_matched, b_matched[:2]])
+    bk = torch.cat([b_smask, odd])
+    rng = np.random.default_rng(8)
+    tw = rng.normal(0, 1, (bs.shape[0], 3)) * [0.05, 0.05, 0.02]
+    tw[-2:] = 0.0
+    bt = RigidTransform2.from_twist(torch.as_tensor(
+        tw, dtype=torch.float32, device=bs.device))
+    return bs, bd, bk, bt
+
+
+def gn_batched_inputs(device, scans=None):
+    """Kernel 13's arguments at the shapes ``--times`` gives it: {shape:
+    (src, dst, mask, rot, t, huber_k)} at phase 18's 211 pairs of 768 and
+    at the first correspondences of SLAM 2D wide's first batched call (11
+    pairs of 28,160 points, ``_slam2d_wide_irls_calls``) at the plain
+    loop's transforms, and at that call's first GN_LIMIT_POINTS points."""
+    k = _config().huber_k
+    bs, bd, bk, bt = _gn_batched_inputs(device)
+    out = {f"{bs.shape[0]}x{bs.shape[1]}": (bs, bd, bk, bt.rot, bt.t, k)}
+    call = _slam2d_wide_irls_calls(device)[0]
+    src, dst, mask = call[:3]
+    rot, t, _ = align2d_cuda.irls_loop_batched_plain(*call)
+    for n in (src.shape[1], *GN_LIMIT_POINTS):
+        out[f"{src.shape[0]}x{n}"] = (src[:, :n], dst[:, :n], mask[:, :n],
+                                      rot, t, k)
+    return out
+
+
 def _gn_check(name, got, want, upd, ref):
     """Gate one gn_stats case: stats against the plain version's, and the
     update against weighted_gauss_newton_update's.  Returns (max relative
@@ -2503,19 +2768,7 @@ def phase_gn_stats(device="cuda", stride: int = 1,
     cfg = _config()
     k, eps = cfg.huber_k, cfg.det_rel_eps
     s_xy, matched, smask, ident, warm = _gn_stats_inputs(device, stride)
-    b_src, b_smask, b_dst, b_dmask = _batch(device, n_scans, pad, sort=True)
-    _, b_matched = nearest_neighbor_matched(b_src, b_dst, b_dmask,
-                                            backend="torch", tile=pad)
-    odd = torch.zeros_like(b_smask[:2])
-    odd[1, :101] = True  # an odd count; row 0 all masked
-    bs = torch.cat([b_src, b_src[:2]])
-    bd = torch.cat([b_matched, b_matched[:2]])
-    bk = torch.cat([b_smask, odd])
-    rng = np.random.default_rng(8)
-    tw = rng.normal(0, 1, (bs.shape[0], 3)) * [0.05, 0.05, 0.02]
-    tw[-2:] = 0.0
-    bt = RigidTransform2.from_twist(torch.as_tensor(
-        tw, dtype=torch.float32, device=bs.device))
+    bs, bd, bk, bt = _gn_batched_inputs(device, n_scans, pad)
     cases = [("gn_stats identity", ident, s_xy, matched, smask),
              ("gn_stats warm", warm, s_xy, matched, smask),
              ("gn_stats_batched", bt, bs, bd, bk)]
@@ -2538,12 +2791,13 @@ def phase_gn_stats(device="cuda", stride: int = 1,
         raise RuntimeError("gn_stats_batched: the odd-count pair is not ok "
                            "or the all-masked pair is")
     recs = []
-    # Bytes read once a point: kernel 12 reads src and dst in place and a
-    # bool mask, kernel 13 five float32 columns.
+    # Bytes read once a point: both read src and dst in place and a bool
+    # mask.
     for kern, line, args, point_bytes in (
             ("gn_stats", 188, (s_xy, matched, smask, warm.rot, warm.t, k),
              4 * 4 + 1),
-            ("gn_stats_batched", 467, (bs, bd, bk, bt.rot, bt.t, k), 5 * 4)):
+            ("gn_stats_batched", 467, (bs, bd, bk, bt.rot, bt.t, k),
+             4 * 4 + 1)):
         fn = getattr(align2d_cuda, kern)
         plain = getattr(align2d_cuda, kern + "_plain")
         wrapper_ms = time_ms(lambda: fn(*args), device, reps=50)
@@ -2553,9 +2807,9 @@ def phase_gn_stats(device="cuda", stride: int = 1,
             n = args[0].shape[0]
             ms = extra["cluster_ms"][n][align2d_cuda.gn_cluster(n)]
         elif torch.device(device).type == "cuda":
-            largs, _, keep = align2d_cuda._gn_batched_args(*args)
-            ms = launcher_ms(kern, largs, device)
-            del keep
+            extra["routes_ms"], route = _gn_batched_routes(args, device)
+            extra["route"] = route
+            ms = extra["routes_ms"][route]
         plain_ms = time_ms(lambda: plain(*args), device, reps=3)
         n_pts, n_pairs = args[0].shape[-2], args[0][..., 0, 0].numel()
         b, by = bound_ms(point_bytes * n_pairs * n_pts
@@ -3053,15 +3307,16 @@ _TRACE_STAMPS = (
      "      }\n"))
 
 
-def frame_trace(device, kernel: str, args, pair: int):
-    """Kernel 3 or 10 (on frame_cluster.cuh) on ``args`` (the wrapper's),
-    with the outer iterations of pair ``pair`` recorded, held against its
-    plain version layer by layer: at each outer iteration the kernel's own
-    transform T, its matches against the plain NN of its own transformed
-    rows (float32) and against the exact NN (float64 at T), and its IRLS
-    result against the plain loop, float32 and float64, on its own
-    inputs; and T against the plain outer loop's, float32 and float64.
-    Returns a list of per-outer-iteration dicts."""
+def frame_trace(device, kernel: str, args, pair: int, shape=None):
+    """Kernel 3 or 10 (on frame_cluster.cuh) on ``args`` (the wrapper's;
+    ``shape``: kernel 10's (blocks a pair, threads a block), by default
+    the wrapper's), with the outer iterations of pair ``pair`` recorded,
+    held against its plain version layer by layer: at each outer
+    iteration the kernel's own transform T, its matches against the plain
+    NN of its own transformed rows (float32) and against the exact NN
+    (float64 at T), and its IRLS result against the plain loop, float32
+    and float64, on its own inputs; and T against the plain outer loop's,
+    float32 and float64.  Returns a list of per-outer-iteration dicts."""
     fn, got = _stamped_library(
         kernel, "trace", "frame_cluster.cuh", _TRACE_STAMPS, _TRACE_PRELUDE,
         {"icp_trace_set": [ctypes.c_int],
@@ -3069,7 +3324,7 @@ def frame_trace(device, kernel: str, args, pair: int):
     sp, dp, sm, dm, t0, cfg = args
     one = (slice(None),) if sp.ndim == 2 else (pair,)
     src, dst, smask, dmask = sp[one], dp[one], sm[one], dm[one]
-    _, largs, out, keep = align2d_cuda._icp2d_frame_args(*args)
+    _, largs, out, keep = align2d_cuda._icp2d_frame_args(*args, shape=shape)
     pts = torch.zeros((_TRACE_ITERS, 4, 1536), dtype=torch.float32,
                       device=device)
     rec = torch.zeros((_TRACE_ITERS, 16), dtype=torch.float32,
@@ -3359,22 +3614,71 @@ def frame_pairs_inputs(device, scans, big: int = 64,
     return out
 
 
+def pairs_cold_inputs(device, scans):
+    """Kernel 8's arguments at the batched path's cold call (phase 6's
+    cold case: +inf bounds, Morton-sorted pairs), and kernel 9's on the
+    same case (every chunk listed)."""
+    src, _, dst, dmask = _batch(device, scans=scans, sort=True)
+    q_sub = nn_pairs_cuda.Q_SUB
+    query_p, dbf, cbox, qb_p = nn_pairs_cuda.prepare(src, dst, dmask, dst,
+                                                     None, q_sub)
+    args8 = (query_p, dbf, nn_pairs_cuda._query_boxes(query_p, q_sub), cbox,
+             nn_pairs_cuda._group_bounds(qb_p, q_sub), 2, q_sub)
+    lists, cnt = nn_pairs_cuda._survivor_lists(
+        query_p, cbox, qb_p, 2, q_sub, nn_pairs_cuda.LIST_GRP)
+    args9 = (query_p, dbf, lists, cnt, 2, q_sub)
+    if hasattr(nn_pairs_cuda, "group_walks"):
+        args9 += (qb_p, cbox)
+    return args8, args9
+
+
+def _pairs_cold_times(device, scans, reps: int = 20):
+    """Kernel 8 at the cold batched call by its launcher alone, bitwise
+    equal to its plain version, at its wrapper's schedule and, where the
+    tree has them, at every schedule of ``_pairs_schedules``; beside
+    kernel 9 on the same case and kernel 8's issue floor (its (query,
+    point) pairs at NN_INSTR_PER_PAIR instructions and the card's float32
+    instruction rate)."""
+    args8, args9 = pairs_cold_inputs(device, scans)
+    res = nn_pairs_cuda._nn_pairs_args(*args8)
+    ms = launcher_ms("nn_pairs", res[0], device, reps=reps)
+    _sync(device)
+    out = res[1]
+    _equal_or_raise(out, nn_pairs_cuda.nn_pairs_plain(*args8),
+                    "nn_pairs cold")
+    schedules, key = _pairs_schedules(args8, out, device, reps)
+    largs9, _out9, keep9 = nn_pairs_cuda._nn_pairs_list_args(*args9)[:3]
+    ms9 = launcher_ms("nn_pairs_list", largs9, device, reps=reps)
+    del res, keep9
+    query_p, _, qbox, cbox, gb, d_dim, q_sub = args8
+    walked = int((nn_pairs_cuda._box_lower_bound(qbox, cbox, d_dim)
+                  <= gb[..., None]).sum())
+    pairs = walked * q_sub * 128
+    return dict(ms=ms, schedule=key, schedules_ms=schedules,
+                list_cold_ms=ms9, pairs=pairs,
+                issue_floor_ms=pairs * NN_INSTR_PER_PAIR[d_dim]
+                / PEAK_F32_INSTR_PER_S * 1e3)
+
+
 def kernel_times(device="cuda", reps: int = 20):
-    """Kernels 12, 14, 3, 9 and 10 by their launchers alone at every shape
-    their paths give them, each call held against its plain version:
+    """Kernels 12, 14, 13, 3, 8, 9 and 10 by their launchers alone at every
+    shape their paths give them, each call held against its plain version:
     kernels 12 and 14 at their phases' 28,800 points and at 3,072 and
     1,000 on every cluster size where the tree has them (the stats gates,
-    ``_stats_times``); kernel 3 at ``frame_inputs``' pairs and at
-    128-1,024 points on every cluster size (max |diff| of rot/t, outer
+    ``_stats_times``); kernel 13 at ``gn_batched_inputs`` on every route
+    where the tree has them (the stats gates, ``_gn_batched_routes``);
+    kernel 8 at the cold batched call at every schedule where the tree has
+    them (bitwise, ``_pairs_cold_times``); kernel 3 at ``frame_inputs``'
+    pairs and at 128-1,024 points on every cluster size (max |diff| of
+    rot/t, outer
     iterations); kernel 9 on every call of the batched path and of SLAM 2D
     and at the db-4096 case (``pairs_list_inputs``), at every schedule
     where the tree has them (bitwise); kernel 10 at ``frame_pairs_inputs``
     on every setting the card holds at once where the tree has them; and
     the two frame kernels' splits (``frame_split``).  Prints the times as
-    one JSON line, then holds kernel 10 at every shape strictly: within
-    FRAME_TOL of its plain version with equal outer iteration counts
+    one JSON line, then holds kernel 10 at every shape to ``frame_gate``
     (``_frame_pairs_check``, ``_frame_pairs_hold``), raising at the first
-    miss."""
+    pair that fails it."""
     card = torch.device(device).type == "cuda"
     times = {"icp2d_frame": {}, "nn_pairs_list": {}, "icp2d_frame_pairs": {}}
     src, matched, smask, _, warm = _gn_stats_inputs(device)
@@ -3385,6 +3689,13 @@ def kernel_times(device="cuda", reps: int = 20):
     times["p2l_stats"] = _stats_times(
         "p2l_stats", (src, matched, m_n, mask, warm.rot, warm.t,
                       _config().huber_k), device)
+    times["gn_stats_batched"] = {}
+    for shape, args in gn_batched_inputs(device).items():
+        by_route, chosen = _gn_batched_routes(args, device)
+        times["gn_stats_batched"][shape] = dict(route=chosen,
+                                                routes_ms=by_route)
+        print(f"# times gn_stats_batched {shape}: launcher alone on route "
+              f"{chosen} {by_route[chosen]} ms (by route {by_route})")
     for shape, pair in frame_inputs(device).items():
         rec = times["icp2d_frame"][shape] = _frame_times(pair, device, reps)
         print(f"# times icp2d_frame {shape}: launcher alone {rec['ms']} ms "
@@ -3399,6 +3710,12 @@ def kernel_times(device="cuda", reps: int = 20):
               f"(clusters {rec['cluster_ms']})")
     times["icp2d_frame_split"] = frame_split(device, reps=reps)
     scans = scans2d()
+    rec = times["nn_pairs"] = _pairs_cold_times(device, scans, reps)
+    print(f"# times nn_pairs cold: launcher alone {rec['ms']} ms at "
+          f"schedule {rec['schedule']} (by schedule {rec['schedules_ms']}), "
+          f"bitwise equal to plain; nn_pairs_list on the same case "
+          f"{rec['list_cold_ms']} ms; issue floor {rec['issue_floor_ms']} "
+          f"ms for {rec['pairs']} (query, point) pairs")
     for path, calls in pairs_list_inputs(device, scans).items():
         rec = times["nn_pairs_list"][path] = _pairs_list_times(calls, device,
                                                                 reps)
@@ -3426,9 +3743,11 @@ def kernel_times(device="cuda", reps: int = 20):
                       else None}))
     for shape, args in inputs.items():
         _, _, plain = _frame_pairs_check(args, shape)
-        _frame_pairs_hold(plain, *held[shape])
-        print(f"# times icp2d_frame_pairs {shape}: every setting within "
-              f"FRAME_TOL of plain with equal outer iterations")
+        _frame_pairs_hold(args, plain, *held[shape])
+        print(f"# times icp2d_frame_pairs {shape}: every setting held to "
+              "the gate (within FRAME_TOL of plain, or of plain with one "
+              "near tie taken the other way at an exact fixed point of its "
+              "outer step), equal outer iterations")
     return times
 
 
@@ -3500,7 +3819,12 @@ def main() -> int:
           f"128; "
           f"irls_loop_batched: clusters of up to 16 blocks a pair, >= "
           f"{align2d_cuda.BATCHED_MIN_POINTS} points a block, all pairs "
-          f"resident; nn_pairs_list: work items of "
+          f"resident; gn_stats_batched: one block a pair up to "
+          f"{align2d_cuda.GN_BATCHED_BLOCK_MAX_POINTS} points, "
+          f"~{align2d_cuda.GN_BATCHED_POINTS} points a thread, else as "
+          f"irls_loop_batched; nn_pairs: work items for >= "
+          f"{nn_pairs_cuda.PAIRS_BLOCKS} blocks, {nn_pairs_cuda.PAIRS_Q} "
+          f"queries a thread; nn_pairs_list: work items of "
           f"{nn_pairs_cuda.LIST_ITEM} list entries, {nn_pairs_cuda.LIST_Q} "
           f"queries a thread; icp2d_frame_pairs: the first of "
           f"{align2d_cuda.PAIRS_SHAPES} (blocks a pair, threads a block) "

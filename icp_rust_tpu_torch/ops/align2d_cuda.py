@@ -16,15 +16,18 @@ versions:
 - ``csrc/gn_stats.cu``: one GN update's packed statistics at a given
   transform on a thread-block cluster of ``gn_cluster(N)`` blocks
   (``_gn_kernel``; ``csrc/irls_cluster.cuh``);
-- ``csrc/gn_stats_batched.cu``: the same for B pairs, one block per pair
-  (``_gn_batched_kernel``).
+- ``csrc/gn_stats_batched.cu``: the same for B pairs, one block a pair
+  with each pair's points and residuals held in registers, or gn_stats'
+  body on a cluster per pair (``gn_batched_route``;
+  ``_gn_batched_kernel``).
 
-All six run the device routines of ``csrc/irls.cuh`` (gn_stats_batched
-its ``gn_stats_block``, one iteration's statistics of the loop;
-irls_loop, irls_loop_batched and gn_stats its helpers, spread over a
-cluster by ``csrc/irls_cluster.cuh``, whose ``irls_cluster_run`` is the
-cluster loop and, run once without its tail, the whole of gn_stats; the
-two frame kernels its whole loop, on the leader block of each cluster of
+All six run the device routines of ``csrc/irls.cuh`` (gn_stats_batched's
+one-block route its helpers, with gn_stats_block's terms and order in
+registers; irls_loop, irls_loop_batched, gn_stats and gn_stats_batched's
+cluster route its helpers, spread over a cluster by
+``csrc/irls_cluster.cuh``, whose ``irls_cluster_run`` is the cluster loop
+and, run once without its tail, the whole of gn_stats; the two frame
+kernels its whole loop, on the leader block of each cluster of
 ``csrc/frame_cluster.cuh``), so they share one op sequence.  The frame
 kernels' cluster sweep finds bitwise the matches of one thread sweeping
 all of dst (``frame_sweep`` emulates it).
@@ -88,10 +91,20 @@ BATCHED_CLUSTERS = (16, 8, 4, 2, 1)
 # else 8 (measured on an H100, PERF.md).  Which points each block sums
 # follows from N alone, so it is a rule, not a knob.
 GN_CLUSTER_16_ABOVE = 16384
+# gn_stats_batched: pairs of at most GN_BATCHED_BLOCK_MAX_POINTS points
+# (8 a thread of 512) take one block each, about GN_BATCHED_POINTS points
+# a thread held in registers (``gn_batched_threads``); larger pairs a
+# cluster each, sized as irls_loop_batched's (``gn_batched_route``);
+# measured on an H100 (PERF.md).  They set which points each thread and
+# block sums, not the result's contract.
+GN_BATCHED_BLOCK_MAX_POINTS = 4096
+GN_BATCHED_POINTS = 3
 # The one-block route stages 7 floats a point in at most 200 KB.
 _BLOCK_ROUTE_MAX_POINTS = 200 * 1024 // 28
 # (n, cluster, threads) -> clusters the card holds at once.
 _RESIDENT: dict = {}
+# (n, cluster) -> gn_stats_batched's clusters resident at once.
+_GN_RESIDENT: dict = {}
 # (n, m, cluster, threads) -> icp2d_frame_pairs' clusters resident at once.
 _FRAME_RESIDENT: dict = {}
 
@@ -228,19 +241,46 @@ def batched_threads(per: int, most: int = 512) -> int:
     return min(most, max(64, 32 * warps))
 
 
-def batched_cluster(b: int, n: int, resident) -> int:
+def batched_cluster(b: int, n: int, resident,
+                    block_max: int = BATCHED_BLOCK_MAX_POINTS) -> int:
     """irls_loop_batched's route for B pairs of N points: 0, one block a
-    pair on irls.cuh's loop, up to BATCHED_BLOCK_MAX_POINTS points; else
-    blocks a pair's cluster, the largest of BATCHED_CLUSTERS that leaves a
-    block at least BATCHED_MIN_POINTS points and of which the card holds
-    all B clusters at once (``resident(cluster)``: clusters it holds), 1
-    when none does."""
-    if n <= BATCHED_BLOCK_MAX_POINTS:
+    pair on irls.cuh's loop, up to ``block_max`` points; else blocks a
+    pair's cluster, the largest of BATCHED_CLUSTERS that leaves a block at
+    least BATCHED_MIN_POINTS points and of which the card holds all B
+    clusters at once (``resident(cluster)``: clusters it holds), 1 when
+    none does."""
+    if n <= block_max:
         return 0
     for c in BATCHED_CLUSTERS[:-1]:
         if n >= c * BATCHED_MIN_POINTS and resident(c) >= b:
             return c
     return 1
+
+
+def gn_batched_route(b: int, n: int, resident) -> int:
+    """gn_stats_batched's route for B pairs of N points: 0, one block a
+    pair, up to GN_BATCHED_BLOCK_MAX_POINTS points, else
+    ``batched_cluster``'s cluster size (``resident(cluster)``: the
+    clusters of gn_stats_batched the card holds)."""
+    return batched_cluster(b, n, resident, GN_BATCHED_BLOCK_MAX_POINTS)
+
+
+def gn_batched_threads(n: int) -> int:
+    """gn_stats_batched's block on the one-block route: about
+    GN_BATCHED_POINTS points a thread, a multiple of 32 in [64, 512]
+    (more threads measured slower on an H100, PERF.md; the kernel holds
+    at most 8 points a thread at 512)."""
+    return min(512, max(64, 32 * -(-n // (32 * GN_BATCHED_POINTS))))
+
+
+def _gn_resident(n: int, cluster: int) -> int:
+    """Clusters of gn_stats_batched the card holds at once, for pairs of
+    n points (cached per shape)."""
+    got = _GN_RESIDENT.get((n, cluster))
+    if got is None:
+        got = _GN_RESIDENT[(n, cluster)] = cuda_build.query(
+            "gn_stats_batched_resident")(n, cluster)
+    return got
 
 
 def _threads_of(n: int, cluster: int) -> int:
@@ -614,11 +654,17 @@ def _gn_stats_args(src: Tensor, dst: Tensor, mask: Tensor, rot: Tensor,
 
 
 def _gn_batched_args(src: Tensor, dst: Tensor, mask: Tensor, rot: Tensor,
-                     t: Tensor, huber_k: float):
-    """Check the CUDA inputs of gn_stats_batched and prepare its columns,
-    output and scratch.  Returns (the launcher's arguments, out (B, 16),
-    the prepared tensors that the arguments point into, which the caller
-    holds until the launch is enqueued)."""
+                     t: Tensor, huber_k: float, cluster: int | None = None,
+                     threads: int | None = None):
+    """Check the CUDA inputs of gn_stats_batched and allocate its output.
+    The kernel reads src/dst (B, N, 2) float32 and the mask (B, N) as
+    bool (true where nonzero, as the plain version takes it) in place,
+    with their strides.  ``cluster``: 0 for one block a pair, else blocks
+    a pair's cluster, by default ``gn_batched_route``; ``threads``: the
+    one-block route's block, by default ``gn_batched_threads(N)``.
+    Returns (the launcher's arguments, out (B, 16), the tensors that the
+    arguments point into, which the caller holds until the launch is
+    enqueued)."""
     name = "gn_stats_batched"
     if src.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {src.device}")
@@ -631,18 +677,29 @@ def _gn_batched_args(src: Tensor, dst: Tensor, mask: Tensor, rot: Tensor,
             f"{name}: src/dst must be (B, N, 2) with N, B > 0, mask, rot and "
             f"t batched alike; got {tuple(src.shape)}, {tuple(mask.shape)}, "
             f"{tuple(rot.shape)}, {tuple(t.shape)}")
-    cols = [src[..., 0].contiguous(), src[..., 1].contiguous(),
-            dst[..., 0].contiguous(), dst[..., 1].contiguous(),
-            mask.to(device=src.device, dtype=torch.float32).contiguous()]
+    mask = mask.to(device=src.device, dtype=torch.bool)
+    if cluster is None:
+        cluster = gn_batched_route(b, n, lambda c: _gn_resident(n, c))
+    threads = gn_batched_threads(n) if threads is None else threads
+    per = -(-n // threads)
+    if cluster == 0 and (per > 8 or (per > 4 and threads > 512)):
+        raise ValueError(f"{name}: one block of {threads} threads takes at "
+                         "most 8 points a thread, 4 above 512 threads")
     rt = torch.cat([rot.reshape(b, 4), t], dim=-1).to(
         device=src.device, dtype=torch.float32).contiguous()
-    scratch = torch.empty(2 * b * n, dtype=torch.float32, device=src.device)
+    # A cluster block keeps its slice's residuals in this scratch where
+    # the slice is too large to stage (the kernel decides, and refuses a
+    # null scratch there); one block a pair keeps them in registers.
+    scratch = None if cluster == 0 else torch.empty(
+        2 * b * n, dtype=torch.float32, device=src.device)
     out = torch.empty((b, 16), dtype=torch.float32, device=src.device)
     stream = torch.cuda.current_stream(src.device).cuda_stream
-    args = (*[c.data_ptr() for c in cols], b, n, rt.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), huber_k, huber_k * huber_k,
-            2.0 * huber_k, stream)
-    return args, out, (cols, rt, scratch)
+    args = (src.data_ptr(), *src.stride(), dst.data_ptr(), *dst.stride(),
+            mask.data_ptr(), *mask.stride(), b, n, rt.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), out.data_ptr(),
+            huber_k, huber_k * huber_k, 2.0 * huber_k, cluster, threads,
+            stream)
+    return args, out, (mask, rt, scratch)
 
 
 def gn_stats(src: Tensor, dst: Tensor, mask: Tensor, rot: Tensor, t: Tensor,
@@ -673,6 +730,10 @@ def gn_stats_batched(src: Tensor, dst: Tensor, mask: Tensor, rot: Tensor,
     args, out, _keep = _gn_batched_args(src, dst, mask, rot, t, huber_k)
     status = cuda_build.launcher("gn_stats_batched")(*args)
     cuda_build.LAUNCHES["gn_stats_batched"] += 1
+    if status == -1:
+        raise RuntimeError(
+            f"gn_stats_batched: no thread-block cluster of {args[-3]} blocks "
+            "can be placed on this card")
     cuda_build.check(status, "gn_stats_batched")
     return out
 

@@ -63,9 +63,9 @@ _SIGNATURES = {
     "icp2d_frame": ("icp2d_frame_launch",
                     [_P] * 3 + [_I] * 2 + [_P] * 2 + [_F] * 5 + [_I]
                     + [_F] * 2 + [_I, _P]),
-    # query, dbf_cm, qbox, cbox, qbound, dist, idx, pay; b, qp, q_sub,
-    # d_dim, f_dim, m_pad; stream
-    "nn_pairs": ("nn_pairs_launch", [_P] * 8 + [_I] * 6 + [_P]),
+    # query, dbf_cm, qbox, cbox, qbound, dist, idx, pay, part, ticket; b,
+    # qp, q_sub, d_dim, f_dim, m_pad, item, q_per_thread; stream
+    "nn_pairs": ("nn_pairs_launch", [_P] * 10 + [_I] * 8 + [_P]),
     # query, dbf_cm, lists, cnt, qbound, cbox, dist, idx, pay, part,
     # ticket; b, qp, q_sub, d_dim, f_dim, m_pad, cap, item, q_per_thread;
     # stream
@@ -107,10 +107,11 @@ _SIGNATURES = {
     "gn_stats": ("gn_stats_launch",
                  [_P, _L, _L] * 2 + [_P, _L, _I] + [_P] * 3 + [_F] * 3
                  + [_I, _P]),
-    # sx, sy, dx, dy, mask; b, n; rt, scratch, out; huber_k, k2, two_k;
-    # stream
+    # src, its three strides, dst likewise, mask, its two strides; b, n;
+    # rt, scratch, out; huber_k, k2, two_k; cluster, threads; stream
     "gn_stats_batched": ("gn_stats_batched_launch",
-                         [_P] * 5 + [_I] * 2 + [_P] * 3 + [_F] * 3 + [_P]),
+                         [_P, _L, _L, _L] * 2 + [_P, _L, _L] + [_I] * 2
+                         + [_P] * 3 + [_F] * 3 + [_I] * 2 + [_P]),
 }
 
 # Other C entry points: entry -> (library, argument types).
@@ -121,6 +122,8 @@ _QUERIES = {
     "icp2d_frame_cluster": ("icp2d_frame", [_I]),
     # n, m, cluster, threads -> clusters resident at once
     "icp2d_frame_pairs_resident": ("icp2d_frame_pairs", [_I] * 4),
+    # n, cluster -> gn_stats_batched's clusters resident at once
+    "gn_stats_batched_resident": ("gn_stats_batched", [_I] * 2),
     # icp2d_frame_launch's arguments with the cluster size before the
     # stream
     "icp2d_frame_launch_cluster": ("icp2d_frame",

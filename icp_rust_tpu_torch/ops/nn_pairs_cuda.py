@@ -17,10 +17,15 @@ previous iteration (dist_new <= dist_prev + |dq|).  A skipped chunk holds
 no point of any query's tie set, so results are bit-identical to the
 unpruned sweep.
 
-- Static sweep (kernel 8): one block per (pair, subtile), one thread a
-  query; the prune test per (subtile, chunk) runs in the kernel, from
-  per-chunk boxes, per-subtile query boxes and per-subtile bounds; on the
-  cold iteration every bound is +inf and every chunk is walked.
+- Static sweep (kernel 8): the prune test per (subtile, chunk) runs in
+  the kernel, from per-chunk boxes, per-subtile query boxes and
+  per-subtile bounds; on the cold iteration every bound is +inf and every
+  chunk is walked.  The kernel is kernels 4 and 5's block body
+  (``csrc/nn_items.cuh``) with the test: each pair's chunks cut into work
+  items of ``pairs_item_chunks`` chunks, one block each, ``PAIRS_Q``
+  queries a thread, the items merged lexicographically, a chunk that
+  fails every test of the block's subtiles neither staged nor swept
+  (``pairs_items`` emulates the schedule on tensors).
 - Survivor lists (kernel 9): the test runs here in torch per
   ``LIST_GRP``-query group and is unioned per subtile; the list holds the
   surviving chunk ids in ascending order, with capacity n_chunks rounded
@@ -49,6 +54,7 @@ from torch import Tensor
 from icp_rust_tpu_torch.ops import cuda_build
 from icp_rust_tpu_torch.ops.nn_cuda import _SENTINEL, _round_up, \
     _trim_sentinel
+from icp_rust_tpu_torch.ops.nn_sweep_cuda import MATCHED_THREADS, _tickets
 
 PAIRS_MAX_DB = 4096
 Q_SUB = 256
@@ -63,13 +69,19 @@ _DIMS = (2, 3)
 LIST_ITEM = 2
 LIST_Q = 2
 _LIST_QS = (1, 2, 4)
+# nn_pairs' schedule: queries a thread and the blocks a launch aims for
+# (at least, where the db has the chunks), which sizes its work items
+# (``pairs_item_chunks``): at the batched path's cold call (627 query
+# groups of 6 chunks) the whole db an item and 2 queries a thread
+# measured best on an H100 (PERF.md).  Like kernel 9's they set which
+# block walks which chunks, never the result.
+PAIRS_Q = 2
+PAIRS_BLOCKS = 512
+_PAIRS_QS = (1, 2, 4)
 # With the queries' bounds and the chunk boxes, nn_pairs_list repeats the
 # prune test per group of LIST_WARP queries (a warp's, in every schedule)
 # and such a group skips a listed chunk that fails it.
 LIST_WARP = 32
-# Per device, nn_pairs_list's per-(pair, subtile) tickets: zero between
-# launches (the merging block resets its row's), so no call clears them.
-_TICKETS: dict = {}
 
 
 def pack_pairs(db: Tensor, db_mask, payload: Tensor) -> Tensor:
@@ -200,6 +212,59 @@ def nn_pairs_plain(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor,
     return _masked_sweep(query_p, dbf_cm, walk, d_dim, q_sub)
 
 
+def pairs_item_chunks(b: int, qp: int, m_pad: int,
+                      q_per_thread: int = PAIRS_Q) -> int:
+    """nn_pairs' work item in 128-point chunks for B pairs of qp queries
+    against m_pad db points: the largest that still gives at least
+    PAIRS_BLOCKS blocks (the whole db where the query groups alone do),
+    one chunk where none does."""
+    groups = b * -(-qp // (MATCHED_THREADS * q_per_thread))
+    n_ch = m_pad // _CHUNK
+    for item in range(n_ch, 1, -1):
+        if groups * -(-n_ch // item) >= PAIRS_BLOCKS:
+            return item
+    return 1
+
+
+def pairs_items(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor, cbox: Tensor,
+                qbound: Tensor, d_dim: int, q_sub: int = Q_SUB,
+                item: int | None = None, q_per_thread: int = PAIRS_Q):
+    """nn_pairs' schedule on tensors: each pair's chunks cut into work
+    items of ``item`` chunks (default ``pairs_item_chunks``), each item
+    swept ascending over the chunks its queries' subtile walks (the first
+    minimum; (+inf, 0) where none is finite), the items merged
+    lexicographically on (distance, index), the payload read at the
+    winner.  Returns (dist, idx int32, pay, the work items that stage at
+    least one chunk for groups of 128 x ``q_per_thread`` queries)."""
+    b, qp, _ = query_p.shape
+    nc = dbf_cm.shape[2] // _CHUNK
+    if item is None:
+        item = pairs_item_chunks(b, qp, dbf_cm.shape[2], q_per_thread)
+    walk = _box_lower_bound(qbox, cbox, d_dim) <= qbound[..., None]
+    dev, dt = query_p.device, query_p.dtype
+    best = torch.full((b, qp), float("inf"), dtype=dt, device=dev)
+    bi = torch.zeros((b, qp), dtype=torch.int64, device=dev)
+    chunk = torch.arange(nc, device=dev)
+    for k in range(0, nc, item):
+        mine = (chunk >= k) & (chunk < k + item)
+        ld, li, _ = _masked_sweep(query_p, dbf_cm, walk & mine, d_dim, q_sub)
+        li = li.to(torch.int64)
+        better = (ld < best) | ((ld == best) & (li < bi))
+        best = torch.where(better, ld, best)
+        bi = torch.where(better, li, bi)
+    pay = torch.take_along_dim(dbf_cm[:, d_dim:], bi[:, None, :], dim=2)
+    pay = torch.where(torch.isinf(best)[:, None, :], torch.zeros_like(pay),
+                      pay).transpose(1, 2)
+    g = MATCHED_THREADS * q_per_thread
+    rows = walk.repeat_interleave(q_sub, dim=1)  # (B, Qp, n_chunks)
+    n_items = 0
+    for q0 in range(0, qp, g):
+        grp = rows[:, q0:q0 + g].any(dim=1)  # (B, n_chunks)
+        for k in range(0, nc, item):
+            n_items += int(grp[:, k:k + item].any(dim=1).sum())
+    return best, bi.to(torch.int32), pay.contiguous(), n_items
+
+
 def _list_walk(query_p: Tensor, dbf_cm: Tensor, lists: Tensor, cnt: Tensor,
                d_dim: int, q_sub: int, q_bound, cbox, first: int = 0,
                last=None):
@@ -276,8 +341,8 @@ def nn_pairs(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor, cbox: Tensor,
     if query_p.device.type == "cpu":
         return nn_pairs_plain(query_p, dbf_cm, qbox, cbox, qbound, d_dim,
                               q_sub)
-    args, out = _nn_pairs_args(query_p, dbf_cm, qbox, cbox, qbound, d_dim,
-                               q_sub)
+    args, out, _keep = _nn_pairs_args(query_p, dbf_cm, qbox, cbox, qbound,
+                                      d_dim, q_sub)
     status = cuda_build.launcher("nn_pairs")(*args)
     cuda_build.LAUNCHES["nn_pairs"] += 1
     cuda_build.check(status, "nn_pairs")
@@ -286,24 +351,44 @@ def nn_pairs(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor, cbox: Tensor,
 
 def _nn_pairs_args(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor,
                    cbox: Tensor, qbound: Tensor, d_dim: int,
-                   q_sub: int = Q_SUB):
+                   q_sub: int = Q_SUB, item=None, q_per_thread=None):
     """Check the CUDA inputs of the nn_pairs kernel and allocate its
-    outputs.  Returns (the launcher's arguments, (dist, idx, pay))."""
+    outputs and scratch; ``item`` (chunks a work item) and
+    ``q_per_thread`` default to ``pairs_item_chunks`` and PAIRS_Q.
+    Returns (the launcher's arguments, (dist, idx, pay), the scratch,
+    which the caller holds until the launch is enqueued)."""
     _check_launch("nn_pairs", query_p, dbf_cm, d_dim, q_sub,
                   (("qbox", qbox, torch.float32),
                    ("cbox", cbox, torch.float32),
                    ("qbound", qbound, torch.float32)))
     b, qp, _ = query_p.shape
+    m_pad = dbf_cm.shape[2]
     if (qbox.shape != (b, qp // q_sub, 8) or qbound.shape != (b, qp // q_sub)
-            or cbox.shape != (b, dbf_cm.shape[2] // _CHUNK, 8)):
+            or cbox.shape != (b, m_pad // _CHUNK, 8)):
         raise ValueError("nn_pairs: bad box or bound shapes")
+    q = PAIRS_Q if q_per_thread is None else q_per_thread
+    item = pairs_item_chunks(b, qp, m_pad, q) if item is None else item
+    if (q not in _PAIRS_QS or item < 1 or q_sub % MATCHED_THREADS
+            or dbf_cm.data_ptr() % 16):
+        raise ValueError(f"nn_pairs: bad schedule (items of {item} chunks, "
+                         f"{q} queries a thread of {_PAIRS_QS}), q_sub "
+                         f"{q_sub} not a multiple of {MATCHED_THREADS} or "
+                         "dbf_cm not 16-byte aligned")
+    g = MATCHED_THREADS * q
+    n_groups = -(-qp // g)
+    n_items = -(-(m_pad // _CHUNK) // item)
+    dev = query_p.device
+    tickets = _tickets(dev, b * n_groups, "nn_pairs")
+    part = torch.empty(b * n_groups * n_items * 2 * g if n_items > 1 else 1,
+                       dtype=torch.float32, device=dev)
     dist, idx, pay = _outputs(query_p, dbf_cm, d_dim)
-    stream = torch.cuda.current_stream(query_p.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     args = (query_p.data_ptr(), dbf_cm.data_ptr(), qbox.data_ptr(),
             cbox.data_ptr(), qbound.data_ptr(), dist.data_ptr(),
-            idx.data_ptr(), pay.data_ptr(), b, qp, q_sub, d_dim,
-            dbf_cm.shape[1] - d_dim, dbf_cm.shape[2], stream)
-    return args, (dist, idx, pay)
+            idx.data_ptr(), pay.data_ptr(), part.data_ptr(),
+            tickets.data_ptr(), b, qp, q_sub, d_dim,
+            dbf_cm.shape[1] - d_dim, m_pad, item, q, stream)
+    return args, (dist, idx, pay), part
 
 
 def nn_pairs_list(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
@@ -372,10 +457,7 @@ def _nn_pairs_list_args(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
                          "least 32 threads) or dbf_cm not 16-byte aligned")
     dev = query_p.device
     rows = b * (qp // q_sub)
-    tickets = _TICKETS.get(dev)
-    if tickets is None or tickets.shape[0] < rows:
-        tickets = _TICKETS[dev] = torch.zeros(max(rows, 1024),
-                                              dtype=torch.int32, device=dev)
+    tickets = _tickets(dev, rows, "nn_pairs_list")
     part = torch.empty(rows * -(-cap // item) * 2 * q_sub,
                        dtype=torch.float32, device=dev)
     dist, idx, pay = _outputs(query_p, dbf_cm, d_dim)

@@ -77,8 +77,8 @@ _PRUNED_Q = (2, 4, 8)
 MATCHED_THREADS = 128
 MATCHED_Q = 2
 MATCHED_BLOCKS = 8192
-# Tickets of kernels 4, 5 and 6's query groups, one buffer per (device,
-# kernel), zero between launches (each launch resets its own).
+# Tickets of kernels 4, 5, 6, 8 and 9's query groups, one buffer per
+# (device, kernel), zero between launches (each launch resets its own).
 _TICKETS: dict = {}
 # (D, payload width) of the kernel instances, what the callers pass: the
 # unmatched sweeps; the matched xy of icp2d (2D) and icp3d_planar (3D), the

@@ -9,7 +9,8 @@ and ``--noconftest`` keeps the JAX test setup out):
 Tolerances: nn_list, nn_pairs, nn_pairs_list, nn_sweep, nn_matched and
 nn_pruned are bitwise equal to their plain versions (indices, distances
 and payload) and to a brute-force sweep, nn_sweep, nn_matched and
-nn_pruned at every work-item split, nn_pairs_list at every schedule;
+nn_pruned at every work-item split, nn_pairs and nn_pairs_list at every
+schedule;
 icp2d_frame's result is bitwise the same at every cluster size, and
 icp2d_frame_pairs' at every cluster size of one thread count.  irls_loop's medians and sigmas
 are bitwise those of the exact median and of gn_stats.  irls_loop,
@@ -19,11 +20,14 @@ their sums in another order than the plain versions: rot and t within
 gn_stats_batched: each sum and the error within 1e-5 of the
 Cauchy-Schwarz bound of its absolute terms, the count exact, sigma within
 1e-6 relative (gn_stats' and p2l_stats' bitwise the plain versions', on
-every cluster size their rules pick); the update from gn_stats'
-statistics against the einsum update at the JAX package's gate (delta
-rtol 2e-4, atol 1e-6).  icp2d_frame_pairs at 64 pairs of 1,536 points,
-and icp2d_frame on their pair 5, within 1e-5 of the plain version with
-equal outer and inner iteration counts.  The voxel hash table on the
+every cluster size their rules pick, gn_stats_batched's on every route);
+the update from gn_stats' statistics against the einsum update at the
+JAX package's gate (delta rtol 2e-4, atol 1e-6).  icp2d_frame_pairs at
+64 pairs of 1,536 points, and icp2d_frame on their pair 5, with equal
+outer and inner iteration counts, within 1e-5 of the plain version or,
+at a float32 nearest-neighbour near-tie, at an exact fixed point of its
+outer step within 1e-5 of the plain loop with that tie taken the other
+way (chip_smoke.frame_gate).  The voxel hash table on the
 card equals the CPU's: keys, counts and drops exact, point sums to
 float32 roundoff.  chip_smoke.py runs the same comparisons at the paths'
 full sizes.
@@ -361,6 +365,69 @@ def test_nn_pairs_kernels_bitwise_equal_to_plain(dev, d, warm):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("d,f_dim", [(2, 2), (2, 3), (3, 2), (3, 3)])
+@pytest.mark.parametrize("bounds", ["cold", "tight", "empty-and-full"])
+def test_nn_pairs_schedules_bitwise(dev, d, f_dim, bounds):
+    """Kernel 8 at its wrapper's schedule and at work items of 1, 3, 6 and
+    32 chunks (the whole 4,096-point db) with 1, 2 and 4 queries a thread
+    (700 queries: a ragged last group at 4): bitwise equal to its plain
+    version, to its schedule's emulation and to brute force; exact ties
+    (the db's first half twice), one pair's db fully masked; +inf
+    bounds, tight ones, and a -inf subtile beside +inf ones."""
+    from icp_rust_tpu_torch.ops.nn import nn_torch
+
+    rng = np.random.default_rng(40 + 4 * d + f_dim)
+    b, n, m = 3, 700, 4096
+    half = torch.as_tensor(rng.uniform(-3, 3, (b, m // 2, d)),
+                           dtype=torch.float32, device=dev)
+    db = torch.cat([half, half], dim=1)
+    mask = torch.as_tensor(rng.random((b, m)) > 0.3, device=dev)
+    mask[1] = False
+    query = db[:, :n] + torch.as_tensor(rng.normal(0, 0.05, (b, n, d)),
+                                        dtype=torch.float32, device=dev) \
+        * (torch.arange(n, device=dev)[None, :, None] % 2)
+    pay = torch.as_tensor(rng.normal(size=(b, m, f_dim)),
+                          dtype=torch.float32, device=dev)
+    brute = nn_torch(query, db, mask)
+    qb = {"cold": None,
+          "tight": brute.dist_sq * (1.0 + 32.0 * 1.2e-7),
+          "empty-and-full": torch.full((b, n), float("inf"), device=dev)}[
+        bounds]
+    if bounds == "empty-and-full":
+        qb[:, :256] = float("-inf")
+    query_p, dbf, cbox, qb_p = nn_pairs_cuda.prepare(query, db, mask, pay,
+                                                     qb)
+    args = (query_p, dbf, nn_pairs_cuda._query_boxes(query_p, 256), cbox,
+            nn_pairs_cuda._group_bounds(qb_p, 256), d, 256)
+    before = cuda_build.LAUNCHES["nn_pairs"]
+    got = nn_pairs_cuda.nn_pairs(*args)
+    assert cuda_build.LAUNCHES["nn_pairs"] == before + 1
+    want = nn_pairs_cuda.nn_pairs_plain(*args)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    for item in (1, 3, 6, 32):
+        emul = nn_pairs_cuda.pairs_items(*args, item=item)[:3]
+        for q in (1, 2, 4):
+            largs, out, _keep = nn_pairs_cuda._nn_pairs_args(
+                *args, item=item, q_per_thread=q)
+            assert cuda_build.launcher("nn_pairs")(*largs) == 0
+            torch.cuda.synchronize()
+            for a, w, e in zip(out, want, emul):
+                assert torch.equal(a, w) and torch.equal(a, e)
+    lo = 256 if bounds == "empty-and-full" else 0
+    hit = torch.isfinite(brute.dist_sq[:, lo:])
+    assert torch.equal(got[1][:, lo:n], brute.index[:, lo:])
+    assert torch.equal(nn_cuda._trim_sentinel(got[0][:, lo:n]),
+                       brute.dist_sq[:, lo:])
+    want_pay = torch.take_along_dim(pay, brute.index[..., None].long(),
+                                    dim=1)[:, lo:]
+    assert torch.equal(got[2][:, lo:n][hit], want_pay[hit])
+    assert bool(torch.isinf(got[0][1]).all()) and not bool(got[1][1].any())
+    if lo:
+        assert bool(torch.isinf(got[0][:, :lo]).all())
+
+
 @pytest.mark.parametrize("grouped", [False, True])
 @pytest.mark.parametrize("q", [1, 2, 4])
 @pytest.mark.parametrize("item", [1, 2, 3, 8])
@@ -481,9 +548,12 @@ def _plain_inner_iterations(src, dst, smask, dmask, t0, cfg):
 @pytest.mark.parametrize("kernel", ["icp2d_frame_pairs", "icp2d_frame"])
 def test_frame_kernels_match_plain_at_1536_points(dev, big_pairs, kernel):
     """Kernel 10 at chip_smoke.py's 64 pairs of 1,536 points, and kernel 3
-    on their pair 5 alone: rot and t within 1e-5 (chip_smoke.FRAME_TOL) of
-    the plain version with equal outer iteration counts per pair, and on
-    pair 5 equal inner iteration counts."""
+    on their pair 5 alone, held to chip_smoke.frame_gate: equal outer
+    iteration counts per pair, rot and t within 1e-5 (FRAME_TOL) of the
+    plain version, or, at a float32 nearest-neighbour near-tie (pair 5,
+    ROADMAP.md section 3), a result that is an exact fixed point of the
+    plain outer step and within 1e-5 of the plain loop with that tie
+    taken the other way; on pair 5 equal inner iteration counts."""
     import chip_smoke
 
     sp, dp, sm, dm = big_pairs
@@ -498,13 +568,12 @@ def test_frame_kernels_match_plain_at_1536_points(dev, big_pairs, kernel):
         args = (sp[pair], dp[pair], sm[pair], dm[pair], t0, cfg)
         row = 0
     out = align2d_cuda.icp2d_frame_raw(*args).reshape(-1, 8)
-    rot_p, t_p, its_p = align2d_cuda.icp2d_frame_plain(*args)
+    plain = align2d_cuda.icp2d_frame_plain(*args)
     torch.cuda.synchronize()
-    assert torch.equal(out[:, 6].to(torch.int32), its_p.reshape(-1))
-    torch.testing.assert_close(out[:, :4], rot_p.reshape(-1, 4),
-                               atol=SOLVER_TOL, rtol=0)
-    torch.testing.assert_close(out[:, 4:6], t_p.reshape(-1, 2),
-                               atol=SOLVER_TOL, rtol=0)
+    assert torch.equal(out[:, 6].to(torch.int32), plain[2].reshape(-1))
+    _, failed = chip_smoke.frame_gate(args, out[:, :4].reshape(-1, 2, 2),
+                                      out[:, 4:6], out[:, 6], plain, kernel)
+    assert failed == []
     one = RigidTransform2.identity(device=dev)
     assert int(out[row, 7]) == _plain_inner_iterations(
         sp[pair], dp[pair], sm[pair], dm[pair], one, cfg)
@@ -1158,6 +1227,42 @@ def test_gn_stats_kernels_match_plain(dev, batched, n):
         assert torch.equal(out[12:14], want[12:14])
     if n == "all-masked":
         assert not bool(got.any())
+
+
+@pytest.mark.parametrize("b,n", [(211, 768), (11, 28160), (7, 1001)])
+def test_gn_stats_batched_routes_match_plain(dev, b, n):
+    """Kernel 13 on every route, at 211 pairs of 768 points, 11 of 28,160
+    and 7 of 1,001 (no thread count divides it): one block a pair at
+    every thread count of 64-1,024 that holds the pair, and clusters of
+    1-16 blocks a pair that the card can place.  Each sum and the error
+    within 1e-5 of its Cauchy-Schwarz bound, the count exact, the sigmas
+    bitwise the plain version's (exact medians and MADs of the same
+    residuals); an all-masked pair all zeros, and an odd count."""
+    src, dst, mask, t = _gn_problem(dev, (b,), n=n, seed=n)
+    mask[0] = False
+    mask[1, :] = False
+    mask[1, :101] = True
+    want = align2d_cuda.gn_stats_batched_plain(src, dst, mask, t.rot, t.t,
+                                               1.345)
+    got = align2d_cuda.gn_stats_batched(src, dst, mask, t.rot, t.t, 1.345)
+    routes = [(0, t) for t in range(64, 1025, 64)
+              if -(-n // t) <= 8 and (-(-n // t) <= 4 or t <= 512)]
+    routes += [(c, None) for c in (1, 2, 4, 8, 16)
+               if align2d_cuda._gn_resident(n, c) >= 1]
+    assert routes
+    outs = [got]
+    for c, threads in routes:
+        args, out, _keep = align2d_cuda._gn_batched_args(
+            src, dst, mask, t.rot, t.t, 1.345, cluster=c, threads=threads)
+        assert cuda_build.launcher("gn_stats_batched")(*args) == 0
+        torch.cuda.synchronize()
+        outs.append(out)
+    for out in outs:
+        rel, dn, sig_rel = align2d_cuda.gn_stats_errors(out, want)
+        assert rel <= 1e-5 and dn == 0 and sig_rel == 0.0
+        assert torch.equal(out[:, 12:14], want[:, 12:14])
+        assert torch.equal(out[0], torch.zeros(16, device=dev))
+        assert float(out[1, 11]) == 101.0
 
 
 def test_irls_cuh_kernels_agree_after_the_stats_refactor(dev):

@@ -223,6 +223,29 @@ def test_gn_stats_wrappers_refuse_other_devices_and_shapes():
         assert name in cuda_build.LAUNCHES
 
 
+def test_gn_batched_route_rule():
+    """Kernel 13's route (``align2d_cuda.gn_batched_route``): one block a
+    pair (0) up to GN_BATCHED_BLOCK_MAX_POINTS points, its block about
+    GN_BATCHED_POINTS points a thread, at most 512 threads and 8 points a
+    thread; above, kernel 7's cluster rule (here on a card that holds 132
+    blocks, one an SM)."""
+    resident = lambda c: 132 // c  # noqa: E731
+    route, lim = (align2d_cuda.gn_batched_route,
+                  align2d_cuda.GN_BATCHED_BLOCK_MAX_POINTS)
+    assert route(211, 768, resident) == 0 and route(1, lim, resident) == 0
+    assert route(11, 28160, resident) == 8
+    for b, n in ((1, lim + 1), (11, 28160), (40, 28160), (200, 28160)):
+        assert route(b, n, resident) == align2d_cuda.batched_cluster(
+            b, n, resident, 0)
+    for n in (1, 100, 101, 768, 1000, 3072, lim):
+        t = align2d_cuda.gn_batched_threads(n)
+        per = -(-n // t)
+        assert t % 32 == 0 and 64 <= t <= 512 and per <= 8
+        assert per <= align2d_cuda.GN_BATCHED_POINTS or t == 512
+    assert align2d_cuda.gn_batched_threads(768) == \
+        32 * -(-768 // (32 * align2d_cuda.GN_BATCHED_POINTS))
+
+
 @pytest.mark.parametrize("kernel", ["gn_stats", "p2l_stats"])
 def test_stats_cluster_rule_and_slices(kernel):
     """Kernels 12 and 14's cluster sizes (``align2d_cuda.gn_cluster``,

@@ -356,20 +356,79 @@ def test_plain_frame_loop_tracks_float64_and_jax_on_the_near_tie_pair(
     assert int(jst.outer_iters) == outer
 
 
-def test_jax_frame_kernel_takes_the_other_side_of_the_near_tie(
-        near_tie_pair):
+@pytest.fixture(scope="module")
+def jax_frame_result(near_tie_pair):
     """The JAX package's own whole-frame kernel (_icp2d_frame_kernel, in
-    interpret mode) on the same pair lands farther than FRAME_TOL from
-    the float64 plain loop, as the port's frame kernels do on the card:
-    in float32, with its rounding of the transform, one point's nearest
-    neighbour at the sixth outer iteration is the other side of a near
-    tie (chip_smoke.frame_trace), and the loop ends at another fixed
-    point.  Not a fault of the port (ROADMAP.md section 3)."""
-    src, dst, mask, cfg, runs = near_tie_pair
-    jcfg = JaxConfig(nn_backend="xla", align_backend="xla",
-                     frame_backend="interpret", det_rel_eps=cfg.det_rel_eps)
-    jt = j_icp.icp2d(jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask),
-                     jnp.asarray(mask), JT.identity(dtype=jnp.float32), jcfg)
-    jax_t = np.concatenate([np.array(jt.rot).reshape(4), np.array(jt.t)])
+    interpret mode) on the near-tie pair: (rot and t as 6 floats, outer
+    iterations)."""
+    from icp_rust_tpu.ops import align2d_pallas
+
+    src, dst, mask, cfg, _ = near_tie_pair
+    t0 = JT.identity(dtype=jnp.float32)
+    rot, t, outer = align2d_pallas.icp2d_frame_pallas(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask),
+        jnp.asarray(mask), t0.rot, t0.t, huber_k=cfg.huber_k,
+        det_rel_eps=cfg.det_rel_eps, tol_d2=cfg.inner_delta_sq_tol,
+        inner_max_iter=cfg.inner_max_iter, outer_iters=cfg.outer_iters,
+        point_scale=1.0, interpret=True)
+    return (np.concatenate([np.array(rot).reshape(4), np.array(t)]),
+            int(outer))
+
+
+def test_jax_frame_kernel_takes_the_other_side_of_the_near_tie(
+        near_tie_pair, jax_frame_result):
+    """The JAX package's own whole-frame kernel on the same pair lands
+    farther than FRAME_TOL from the float64 plain loop, as the port's
+    frame kernels do on the card: in float32, with its rounding of the
+    transform, one point's nearest neighbour at the sixth outer iteration
+    is the other side of a near tie (chip_smoke.frame_trace), and the
+    loop ends at another fixed point.  Not a fault of the port (ROADMAP.md
+    section 3)."""
+    _, _, _, _, runs = near_tie_pair
+    jax_t, _ = jax_frame_result
     assert np.abs(jax_t - runs[torch.float64][0]).max() > \
         _chip_smoke().FRAME_TOL
+
+
+def test_frame_gate_on_the_near_tie_pair(near_tie_pair, jax_frame_result,
+                                         capsys):
+    """chip_smoke.frame_gate, kernels 10 and 3's gate: a pair outside
+    FRAME_TOL passes only with the plain version's outer iteration count,
+    a result that is an exact fixed point of the plain outer step, and a
+    result within FRAME_TOL of the plain loop with one float32
+    nearest-neighbour near tie taken the other way.  It accepts the plain
+    loop's own result and the JAX frame kernel's (row 467's tie at the
+    seventh outer iteration, as chip_smoke.frame_trace found on the card),
+    and refuses a result moved by 1e-4 m or 1e-3 m, or with another outer
+    count."""
+    cs = _chip_smoke()
+    src, dst, mask, cfg, runs = near_tie_pair
+    got, outer = runs[torch.float32]
+    s, d, k = (torch.as_tensor(x)[None] for x in (src, dst, mask))
+    args = (s, d, k, k, TT.identity((1,)), cfg)
+    plain = (torch.as_tensor(got[:4]).reshape(1, 2, 2),
+             torch.as_tensor(got[4:])[None], torch.tensor([outer]))
+
+    def gate(six, its=outer):
+        rot = torch.as_tensor(six[:4], dtype=torch.float32).reshape(1, 2, 2)
+        t = torch.as_tensor(six[4:], dtype=torch.float32)[None]
+        return cs.frame_gate(args, rot, t, torch.tensor([its]), plain,
+                             "near-tie pair")
+
+    assert gate(got) == (0.0, [])
+    for move in (1e-4, 1e-3):
+        moved = got + np.array([0, 0, 0, 0, move, 0], np.float32)
+        err, failed = gate(moved)
+        assert err > cs.FRAME_TOL and failed == [0]
+    assert gate(got, outer + 1)[1] == [0]
+    jax_t, jax_outer = jax_frame_result
+    capsys.readouterr()
+    err, failed = gate(jax_t, jax_outer)
+    said = capsys.readouterr().out
+    with capsys.disabled():
+        print(f"\n# the JAX frame kernel's result on the near-tie pair: "
+              f"{err:.3e} from the plain loop, {jax_outer} outer iterations "
+              f"(plain {outer}); the gate "
+              f"{'refuses' if failed else 'accepts'} it: {said.strip()}")
+    assert err > cs.FRAME_TOL and failed == []
+    assert "row 467's nearest neighbour at outer iteration 7" in said

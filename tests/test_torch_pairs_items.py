@@ -1,6 +1,9 @@
 """The schedules of the pair kernels' redesigns, emulated on tensors on the
-CPU: kernel 9 (``nn_pairs_list``: each subtile's survivor-list walk cut
-into work items over blocks, merged lexicographically) and kernel 10
+CPU: kernel 8 (``nn_pairs``: each pair's chunks cut into work items over
+blocks, each walking the chunks that pass its subtiles' seed prune test,
+merged lexicographically), kernel 9 (``nn_pairs_list``: each subtile's
+survivor-list walk cut into work items over blocks, merged
+lexicographically) and kernel 10
 (``icp2d_frame_pairs``: each pair's 1-NN sweep cut over a cluster's blocks
 and each block's threads, limited to the rows up to the last valid ones).
 
@@ -86,6 +89,60 @@ def test_pairs_list_items_are_the_ascending_walk(case, item, grouped):
     hit = torch.isfinite(brute.dist_sq)
     pay = torch.take_along_dim(db, brute.index[..., None].long(), dim=1)
     assert torch.equal(got[2][:, lo:n][hit], pay[hit])
+
+
+@pytest.mark.parametrize("item", [1, 2, 3, 6])
+@pytest.mark.parametrize("case", ["half-masked", "ties", "empty-and-full"])
+def test_pairs_items_are_the_pruned_ascending_sweep(case, item):
+    """Kernel 8's work items with its seed prune (subtiles of 128 queries,
+    tight bounds over a half-masked db with one pair fully masked, exact
+    ties, -inf and +inf subtiles): bitwise equal to the plain version and,
+    on the valid queries, to brute force; the work items that stage a
+    chunk counted per query group of 128 x Q queries."""
+    q, db, dm, args = _pairs(case)
+    query_p, dbf, _, _, d_dim, q_sub, qb_p, cbox = args
+    kargs = (query_p, dbf, nn_pairs_cuda._query_boxes(query_p, q_sub), cbox,
+             nn_pairs_cuda._group_bounds(qb_p, q_sub), d_dim, q_sub)
+    want = nn_pairs_cuda.nn_pairs_plain(*kargs)
+    walk = nn_pairs_cuda._box_lower_bound(kargs[2], cbox, d_dim) \
+        <= kargs[4][..., None]
+    n_ch = dbf.shape[2] // 128
+    for qpt in (1, 2, 4):
+        got = nn_pairs_cuda.pairs_items(*kargs, item=item, q_per_thread=qpt)
+        for a, b in zip(got[:3], want):
+            assert torch.equal(a, b)
+        assert got[3] <= walk.shape[0] * -(-query_p.shape[1] // (128 * qpt)) \
+            * -(-n_ch // item)
+        assert (got[3] == 0) == (not bool(walk.any()))
+    lo = 128 if case == "empty-and-full" else 0
+    n = q.shape[1]
+    if lo:
+        assert bool(torch.isinf(want[0][:, :lo]).all())
+        assert not bool(want[1][:, :lo].any() or want[2][:, :lo].any())
+    brute = nn_torch(q[:, lo:], db, dm)
+    assert torch.equal(want[1][:, lo:n], brute.index)
+    assert torch.equal(_trim_sentinel(want[0][:, lo:n]), brute.dist_sq)
+    hit = torch.isfinite(brute.dist_sq)
+    pay = torch.take_along_dim(db, brute.index[..., None].long(), dim=1)
+    assert torch.equal(want[2][:, lo:n][hit], pay[hit])
+
+
+def test_pairs_item_chunks_rule():
+    """Kernel 8's work items (``pairs_item_chunks``): the largest that
+    gives PAIRS_BLOCKS blocks, the whole db where the query groups alone
+    do (as at the batched path's cold call), one chunk where none does."""
+    rule = nn_pairs_cuda.pairs_item_chunks
+    blocks = nn_pairs_cuda.PAIRS_BLOCKS
+    assert rule(209, 768, 768) == 6
+    for b, qp, m_pad in ((209, 768, 768), (4, 768, 4096), (1, 256, 128),
+                         (10 ** 4, 768, 768), (40, 768, 768)):
+        groups = b * -(-qp // (128 * nn_pairs_cuda.PAIRS_Q))
+        item = rule(b, qp, m_pad)
+        n_items = -(-(m_pad // 128) // item)
+        assert 1 <= item <= m_pad // 128
+        assert item == 1 or groups * n_items >= blocks
+        assert item == m_pad // 128 \
+            or groups * -(-(m_pad // 128) // (item + 1)) < blocks
 
 
 def test_list_schedule_keeps_a_warp_a_block():
