@@ -32,9 +32,9 @@ non-zero:
    clusters of 1, 2, 4, 8 and 16 blocks (each bitwise equal), and by its
    wrapper.
 4. The main path: ``run_odometry_fused`` over 96 synthetic 28,800-point
-   frames, run twice (the second run is the timed one); ATE against
-   ground truth < 0.05 m, and the plain path on the card over the first 8
-   frames within 1 mm of the kernel path.
+   frames, run twice (bitwise equal, path and stats; the second run is
+   the timed one); ATE against ground truth < 0.05 m, and the plain path
+   on the card over the first 8 frames within 1 mm of the kernel path.
 5. A 2D sequence of 640-point scans padded to 768 through ``icp2d``,
    whose whole-frame kernel serves every frame; ATE < 0.05 m and within
    1 mm of the plain path.
@@ -179,6 +179,40 @@ The last two kernels and the scan-to-submap path:
     last call (captured): bitwise equal to its plain version and its
     schedule's emulation, timed as in phase 14.
 
+The modules users drive the paths through:
+
+21. The per-frame runners on the main path's 96 frames:
+    ``run_odometry_device`` with a ``MetricsLogger``: its path bitwise
+    phase 4's fused path, its 95 rows' outer iterations, Huber errors
+    and mean NN distances equal to the fused run's stats, nn_list and
+    irls_loop launches each equal to the total outer iterations; killed
+    after frame 40 with checkpoints every 10 frames and resumed over all
+    96: bitwise the uninterrupted path.  The same for
+    ``run_odometry_p2l`` against phase 13's fused run (nn_list and
+    p2l_loop launches).  Frames/s of a second run with metrics, printed
+    beside phases 4 and 13's fused runners'.
+22. The batched path's 210 synthetic 2D scans written as ``NNN.txt``
+    files: the native loader (``native/loader``, built by g++) bitwise
+    the python loader padded and cast to float32; then ``cli.main``
+    in-process on its default device: ``odometry2d`` without ``--f32``
+    refused with guidance, ``odometry2d --f32 --compare-oracle`` (one
+    icp2d_frame launch per frame, the native C++ oracle, ATE vs oracle <
+    0.05 m),
+    ``odometry2d --f32 --metrics --checkpoint --every 50`` (one JSONL row
+    per frame, the NN + IRLS route, path end within 1 mm of the kernel-3
+    run's) and ``slam --f32`` (nn_pairs, nn_pairs_list and
+    irls_loop_batched launch; graph error after <= before).
+    ``odometry3d`` and ``slam3d`` read HDF5 through h5py and are reported
+    as not run where it is absent.
+23. ``utils/profiling.trace`` around ``annotate("odometry")`` and the
+    main path's first 4 frames: the trace names the range and the nn_list
+    and irls_loop kernels; ``utils/debug.checked(run_odometry_fused)``
+    passes; ``debug_mode()`` raises on 0 / 0.  Then
+    ``graph_schur.optimize_schur`` on phase 15's float64 pose graph (96
+    poses, its closures) within 1e-8 of ``pose_graph.optimize(solve=
+    "dense")``, both timed by the host clock beside the residual and
+    Jacobian evaluations they share.
+
 The launch counts of each path are zeroed just before it and read just
 after.  Prints one ``{"kernels": [...]}`` line, one entry per kernel (the
 fourteen): the contract's keys for its first timed shape and path
@@ -229,35 +263,48 @@ tiny size with the kernels' plain versions.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import glob
+import importlib.util
+import io as io_std
 import json
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
 import numpy as np
 import torch
 
+from icp_rust_tpu_torch import cli
 from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
 from icp_rust_tpu_torch.models import icp2d as m_icp
 from icp_rust_tpu_torch.models import icp_p2l as m_p2l
+from icp_rust_tpu_torch.models import pose_graph as pg
 from icp_rust_tpu_torch.models import slam as m_slam
 from icp_rust_tpu_torch.models import submap as m_submap
+from icp_rust_tpu_torch.models.graph_schur import optimize_schur
 from icp_rust_tpu_torch.models.odometry import ate_rmse, \
-    run_odometry_fused, run_odometry_p2l_fused
+    run_odometry_device, run_odometry_fused, run_odometry_p2l, \
+    run_odometry_p2l_fused
 from icp_rust_tpu_torch.models.slam import run_slam2d, run_slam3d
 from icp_rust_tpu_torch.models.submap import run_submap_odometry
+from icp_rust_tpu_torch.native import loader as native_loader
 from icp_rust_tpu_torch.ops import align2d, align2d_cuda, align3d, \
     align3d_cuda, cuda_build, nn_cuda, nn_pairs_cuda, nn_sweep_cuda, robust
 from icp_rust_tpu_torch.ops.nn import nearest_neighbor_matched, nn_torch
 from icp_rust_tpu_torch.ops.normals import estimate_normals_voxel
 from icp_rust_tpu_torch.parallel.sharded import batched_icp2d
-from icp_rust_tpu_torch.utils import io
+from icp_rust_tpu_torch.utils import debug, io, profiling
+from icp_rust_tpu_torch.utils.checkpoint import SequenceCheckpointer
+from icp_rust_tpu_torch.utils.metrics import MetricsLogger
 
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
@@ -757,16 +804,20 @@ def phase_main(device="cuda", n_frames: int = 96, stride: int = 1,
     up and once timed."""
     pts, mask, gt = frames3d(n_frames, stride)
     cfg = _config(nn_dst_tile=tile)
-    _, _, first_sec, _ = _run_path(pts, mask, cfg, device, True)
+    path1, stats1, first_sec, _ = _run_path(pts, mask, cfg, device, True)
     path, stats, sec, launches = _run_path(pts, mask, cfg, device, True)
+    if not (np.array_equal(path, path1) and all(
+            torch.equal(a, b) for a, b in zip(stats, stats1))):
+        raise RuntimeError("main path: two runs differ")
     ate = ate_rmse(path, gt)
     outer = stats.outer_iters.cpu().numpy()
     fps = (n_frames - 1) / sec
     print(f"# main path: {n_frames} frames of {pts.shape[1]} points, "
           f"{sec:.4f} s, {fps:.2f} frames/s (host clock; first run "
-          f"{first_sec:.4f} s), ATE vs ground truth {ate:.6f} m; outer "
-          f"iterations per frame mean {outer.mean():.3f} min {outer.min()} "
-          f"max {outer.max()}; launches {launches}")
+          f"{first_sec:.4f} s), bitwise equal to the first run; ATE vs "
+          f"ground truth {ate:.6f} m; outer iterations per frame mean "
+          f"{outer.mean():.3f} min {outer.min()} max {outer.max()}; "
+          f"launches {launches}")
     if not ate < ATE_GATE_M:
         raise RuntimeError(f"main path ATE {ate} >= {ATE_GATE_M}")
     plain_cfg = cfg.with_(nn_backend="torch", align_backend="torch")
@@ -781,7 +832,7 @@ def phase_main(device="cuda", n_frames: int = 96, stride: int = 1,
     if not d < PLAIN_GATE_M:
         raise RuntimeError(f"kernel vs plain trajectory {d} m")
     return dict(launches=launches, ate=ate, fps=fps, seconds=sec,
-                outer_mean=float(outer.mean()))
+                outer_mean=float(outer.mean()), path=path, stats=stats)
 
 
 def phase_2d(device="cuda", n_frames: int = 8, n_points: int = 640,
@@ -2002,7 +2053,8 @@ def phase_p2l(device="cuda", n_frames: int = 96, stride: int = 1,
     if not d < PLAIN_GATE_M:
         raise RuntimeError(f"p2l kernel vs plain trajectory {d} m")
     return dict(launches=launches, ate=ate, z_max=z_max, fps=fps,
-                seconds=sec, outer_mean=float(outer.mean()))
+                seconds=sec, outer_mean=float(outer.mean()), path=path,
+                stats=stats)
 
 
 def profile_p2l(device="cuda", n_frames: int = 16):
@@ -2358,7 +2410,12 @@ def phase_slam3d(device="cuda", n_frames: int = 96, stride: int = 1,
     gt = (traj[:, :2] - traj[0, :2]) @ np.array([[c, -s], [s, c]])
     cfg = _config()
     kw = dict(normals_voxel_size=voxel)
-    first, first_sec, _ = _run_slam(run_slam3d, frames, cfg, device, **kw)
+    graphs, unpatch = _capture_calls(m_slam.pg, "optimize")
+    try:
+        first, first_sec, _ = _run_slam(run_slam3d, frames, cfg, device,
+                                        **kw)
+    finally:
+        unpatch()
     res, sec, launches = _run_slam(run_slam3d, frames, cfg, device, **kw)
     picked = m_slam._candidates(res.odometry_path, 1.0, 8, 16)
     ate = ate_rmse(res.optimized_path[:, :2], gt)
@@ -2401,7 +2458,8 @@ def phase_slam3d(device="cuda", n_frames: int = 96, stride: int = 1,
             and p_res.n_loop_closures == k_res.n_loop_closures):
         raise RuntimeError(f"slam3d kernel vs plain path {d} m")
     return dict(launches=launches, ate=ate, seconds=sec,
-                closures=res.n_loop_closures, candidates=len(picked))
+                closures=res.n_loop_closures, candidates=len(picked),
+                graph=graphs[0][0])
 
 
 def room_sequence(n_poses: int = 28, n_points: int = 3072,
@@ -3051,6 +3109,272 @@ def profile_submap(device="cuda", n_frames: int = 96):
         print(f"# profile submap kernel {e.self_device_time_total / 1e3:9.3f}"
               f" ms {e.count:6d} calls  {e.key[:90]}")
     print(avgs.table(sort_by="self_device_time_total", row_limit=20))
+
+
+def _run_runner(fn, pts, mask, cfg, device, **kw):
+    """One per-frame runner call with a MetricsLogger and the launch counts
+    zeroed just before it; returns (path, the logger's records, seconds,
+    launches)."""
+    log = MetricsLogger(None)
+    _sync(device)
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    _, path = fn(pts, mask, cfg, metrics=log, device=device, **kw)
+    _sync(device)
+    return path, log.records, time.perf_counter() - t0, \
+        dict(cuda_build.LAUNCHES)
+
+
+def _runner_check(name, fn, pts, mask, cfg, device, fused, kernels,
+                  cut: int, every: int, **kw):
+    """A per-frame runner against its fused runner's run (``fused``: its
+    path and stats, from phase 4 or 13): with a MetricsLogger, its path
+    bitwise the fused one's, its rows' outer iterations, Huber errors and
+    mean NN distances equal to the fused stats, each of ``kernels``
+    launched once per outer iteration; then killed after frame ``cut`` -
+    1 with checkpoints every ``every`` frames and resumed over the whole
+    sequence: bitwise the uninterrupted path.  Frames/s from a second run
+    with metrics (host clock)."""
+    path, rows, _, launches = _run_runner(fn, pts, mask, cfg, device, **kw)
+    st = fused["stats"]
+    outer = st.outer_iters.cpu().numpy()
+    total = int(outer.sum())
+    same_rows = (len(rows) == len(outer) and all(
+        r.extra["outer_iters"] == int(outer[i])
+        and r.huber_error == float(st.huber_error[i])
+        and r.mean_nn_dist == float(st.mean_nn_dist[i])
+        for i, r in enumerate(rows)))
+    path2, _, sec, _ = _run_runner(fn, pts, mask, cfg, device, **kw)
+    fps = (pts.shape[0] - 1) / sec
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = SequenceCheckpointer(os.path.join(tmp, "ck.npz"), every)
+        fn(pts[:cut], mask[:cut], cfg, checkpoint=ck, device=device, **kw)
+        cursor = int(ck.restore()["frame_cursor"])
+        res_path, res_rows, _, _ = _run_runner(
+            fn, pts, mask, cfg, device, checkpoint=ck, resume=True, **kw)
+    print(f"# {name}: {pts.shape[0]} frames of {pts.shape[1]} points; "
+          f"second run with metrics {sec:.4f} s, {fps:.2f} frames/s (host "
+          f"clock), bitwise the first: {np.array_equal(path2, path)}; path "
+          f"bitwise the fused runner's: "
+          f"{np.array_equal(path, fused['path'])}; {len(rows)} rows equal "
+          f"to the fused stats: {same_rows}; {total} outer iterations; "
+          f"launches {launches}; killed after frame {cut - 1} (checkpoint "
+          f"at frame {cursor}), resumed over {len(res_rows)} frames: "
+          f"bitwise {np.array_equal(res_path, path)}")
+    if not np.array_equal(path, fused["path"]):
+        raise RuntimeError(f"{name}: path differs from the fused runner's")
+    if not np.array_equal(path2, path):
+        raise RuntimeError(f"{name}: two runs differ")
+    if not same_rows:
+        raise RuntimeError(f"{name}: metrics rows differ from the fused "
+                           "runner's stats")
+    if not (np.array_equal(res_path, path)
+            and len(res_rows) == pts.shape[0] - 1 - cursor):
+        raise RuntimeError(f"{name}: resumed path differs")
+    if torch.device(device).type == "cuda" and not (
+            total > 0 and all(launches[k] == total for k in kernels)):
+        raise RuntimeError(f"{name} launches {launches}, expected {total} "
+                           f"of {kernels}")
+    return dict(launches=launches, fps=fps)
+
+
+def phase_runners(device="cuda", main=None, p2l=None, n_frames: int = 96,
+                  stride: int = 1, tile: int = 2048, cut: int = 41,
+                  every: int = 10, voxel: float = P2L_VOXEL_M):
+    """The per-frame runners on the main path's frames:
+    ``run_odometry_device`` against phase 4's fused run and
+    ``run_odometry_p2l`` against phase 13's (``main``, ``p2l``: those
+    phases' results), with kill and resume."""
+    pts, mask, _ = frames3d(n_frames, stride)
+    cfg = _config(nn_dst_tile=tile)
+    device_run = _runner_check("odometry-device runner", run_odometry_device,
+                               pts, mask, cfg, device, main,
+                               ("nn_list", "irls_loop"), cut, every)
+    p2l_run = _runner_check("odometry-p2l runner", run_odometry_p2l, pts,
+                            mask, cfg, device, p2l, ("nn_list", "p2l_loop"),
+                            cut, every, normals_voxel_size=voxel)
+    return {"odometry-device": device_run, "odometry-p2l": p2l_run}
+
+
+def _cli(argv, device):
+    """``cli.main(argv)`` in-process with the launch counts zeroed just
+    before it; returns (its JSON summary, seconds, launches)."""
+    out = io_std.StringIO()
+    _sync(device)
+    cuda_build.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        cli.main(argv)
+    _sync(device)
+    sec = time.perf_counter() - t0
+    return json.loads(out.getvalue().strip().splitlines()[-1]), sec, \
+        dict(cuda_build.LAUNCHES)
+
+
+def phase_cli(device="cuda", n_scans: int = BATCH_SCANS,
+              pad: int = BATCH_PAD):
+    """The batched path's synthetic 2D scans written as NNN.txt files: the
+    native loader against the python one, then the CLI's odometry2d (the
+    whole-frame kernel, the native oracle), its metrics route and slam."""
+    pts, mask, _, _ = scans2d(n_scans, pad)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scans = os.path.join(tmp, "scans")
+        os.makedirs(scans)
+        for k, (p, m) in enumerate(zip(pts, mask)):
+            np.savetxt(os.path.join(scans, f"{k:03d}.txt"), p[m])
+        t0 = time.perf_counter()
+        got_pts, got_mask = native_loader.load_scan2d_padded(scans)
+        load_sec = time.perf_counter() - t0
+        want_pts, want_mask = io.pad_points(io.load_scan2d_sequence(scans))
+        same = (np.array_equal(got_pts, want_pts.astype(np.float32))
+                and np.array_equal(got_mask, want_mask))
+        print(f"# native loader: {got_pts.shape[0]} scans padded to "
+              f"{got_pts.shape[1]} in {load_sec:.4f} s (host clock, "
+              f"library build included), bitwise the python loader's: "
+              f"{same}")
+        if not same:
+            raise RuntimeError("native loader differs from the python one")
+        try:
+            cli.main(["odometry2d", "--scans", scans])
+            refused = ""
+        except SystemExit as e:
+            refused = str(e)
+        print(f"# cli odometry2d without --f32 on the default device: "
+              f"{refused or 'ran'}")
+        if "--f32" not in refused:
+            raise RuntimeError("cli: the float64 config was not refused on "
+                               "the card")
+        # On the card as a user calls it: --device left at its default.
+        base = ["--scans", scans, "--f32", "--point-scale", "1"] + (
+            [] if torch.device(device).type == "cuda"
+            else ["--device", device])
+        summary, sec, launches = _cli(["odometry2d", *base,
+                                       "--compare-oracle"], device)
+        n = summary["frames"]
+        print(f"# cli odometry2d: {n} frames, {sec:.4f} s with the oracle "
+              f"({summary['frames_per_s']:.2f} frames/s by its summary); "
+              f"oracle {summary['oracle']}, ATE vs oracle "
+              f"{summary['ate_rmse_vs_oracle']:.6e} m (gate {ATE_GATE_M}); "
+              f"launches {launches}")
+        if summary["oracle"] != "native_cpp":
+            raise RuntimeError("cli odometry2d: the native oracle did not "
+                               "run")
+        if not summary["ate_rmse_vs_oracle"] < ATE_GATE_M:
+            raise RuntimeError("cli odometry2d: ATE vs oracle "
+                               f"{summary['ate_rmse_vs_oracle']}")
+        on_card = torch.device(device).type == "cuda"
+        if on_card and launches["icp2d_frame"] != n:
+            raise RuntimeError(f"cli odometry2d launches {launches}, "
+                               f"expected {n} icp2d_frame")
+        runs["cli-odometry2d"] = dict(launches=launches, summary=summary)
+        rows = os.path.join(tmp, "run.jsonl")
+        m_summary, m_sec, m_launch = _cli(
+            ["odometry2d", *base, "--metrics", rows, "--checkpoint",
+             os.path.join(tmp, "ck.npz"), "--every", "50"], device)
+        with open(rows) as f:
+            n_rows = len(f.readlines())
+        d = float(np.linalg.norm(np.subtract(m_summary["path_end"],
+                                             summary["path_end"])))
+        print(f"# cli odometry2d --metrics: {n_rows} rows, {m_sec:.4f} s "
+              f"({m_summary['frames_per_s']:.2f} frames/s); path end vs "
+              f"the whole-frame kernel's {d:.3e} m (gate {PLAIN_GATE_M}); "
+              f"launches {m_launch}")
+        if n_rows != n or not d < PLAIN_GATE_M:
+            raise RuntimeError("cli odometry2d --metrics: rows or path end")
+        if on_card and m_launch["icp2d_frame"] != 0:
+            raise RuntimeError("cli odometry2d --metrics took kernel 3")
+        runs["cli-odometry2d-metrics"] = dict(launches=m_launch,
+                                              summary=m_summary)
+        s_summary, s_sec, s_launch = _cli(
+            ["slam", *base, "--loop-radius", "1.5", "--loop-gap", "20"],
+            device)
+    print(f"# cli slam: {s_summary['frames']} frames, {s_sec:.4f} s, "
+          f"{s_summary['loop_closures']} loop closures, graph error before "
+          f"{s_summary['graph_error_before']:.6e} after "
+          f"{s_summary['graph_error_after']:.6e}; launches {s_launch}")
+    if not s_summary["graph_error_after"] <= s_summary["graph_error_before"]:
+        raise RuntimeError("cli slam: the graph error grew")
+    if on_card and not all(s_launch[k] > 0 for k in (
+            "nn_pairs", "nn_pairs_list", "irls_loop_batched")):
+        raise RuntimeError(f"cli slam launches {s_launch}")
+    runs["cli-slam"] = dict(launches=s_launch, summary=s_summary)
+    h5 = importlib.util.find_spec("h5py") is not None
+    print(f"# cli odometry3d, slam3d: not run (they read HDF5 through "
+          f"h5py, {'present' if h5 else 'absent'} here; phases 4, 13, 15 "
+          f"and 21 drive their runners on the same frames)")
+    return runs
+
+
+def _trace_names(log_dir: str) -> set:
+    """Event names of the Chrome trace ``profiling.trace`` wrote."""
+    names = set()
+    for fname in glob.glob(os.path.join(log_dir, "*.pt.trace.json")):
+        with open(fname) as f:
+            names |= {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    return names
+
+
+def phase_hooks(device="cuda", graph=None, n_frames: int = 4,
+                stride: int = 1, tile: int = 2048, iters: int = 15):
+    """The profiling and debug hooks on the main path's first frames, and
+    the Schur graph solve against the dense one on ``graph`` (phase 15's
+    float64 pose graph)."""
+    pts, mask, _ = frames3d(n_frames, stride)
+    cfg = _config(nn_dst_tile=tile)
+    on_card = torch.device(device).type == "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            with profiling.annotate("odometry"):
+                run_odometry_fused(pts, mask, cfg, device=device)
+                _sync(device)
+        names = _trace_names(tmp)
+    want = ["odometry"] + (["nn_list", "irls"] if on_card else [])
+    found = {w: sorted(n for n in names if w in n)[:2] for w in want}
+    print(f"# trace: {len(names)} event names; {found}")
+    if not all(found.values()):
+        raise RuntimeError(f"trace lacks {[w for w in want if not found[w]]}")
+    checked = debug.checked(run_odometry_fused)(pts, mask, cfg,
+                                                device=device)
+    try:
+        with profiling.debug_mode():
+            torch.tensor(0.0, device=device) / 0
+    except FloatingPointError as err:
+        print(f"# debug: checked(run_odometry_fused) passed on "
+              f"{checked[1].shape[0]} frames; debug_mode raised: {err}")
+    else:
+        raise RuntimeError("debug_mode did not raise on 0 / 0")
+    kw = dict(iters=iters, huber_k=1.345, kernel="cauchy")
+    times = {}
+    for name, solve in (("dense", functools.partial(
+            pg.optimize, solve="dense", **kw)),
+                        ("schur", functools.partial(optimize_schur, **kw))):
+        for _ in range(2):   # the second timed
+            _sync(device)
+            t0 = time.perf_counter()
+            out = solve(graph)
+            _sync(device)
+            times[name] = (time.perf_counter() - t0, out)
+    # The residuals and Jacobians both solvers evaluate each iteration.
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pg.edge_residuals_and_jacobians(graph)
+    _sync(device)
+    jac_s = time.perf_counter() - t0
+    dense, schur = times["dense"][1], times["schur"][1]
+    err = max(float((schur.poses.t - dense.poses.t).abs().max()),
+              float((schur.poses.rot - dense.poses.rot).abs().max()))
+    print(f"# graph solve ({graph.poses.t.shape[0]} poses, "
+          f"{graph.edge_i.shape[0]} edges, {iters} GN iterations, float64 "
+          f"on {device}): dense {times['dense'][0]:.4f} s, schur "
+          f"{times['schur'][0]:.4f} s (host clock, second run), of which "
+          f"{iters} residual and Jacobian evaluations {jac_s:.4f} s; poses "
+          f"{err:.3e} apart (gate 1e-8)")
+    if not err <= 1e-8:
+        raise RuntimeError(f"schur vs dense poses {err}")
+    return dict(dense_s=times["dense"][0], schur_s=times["schur"][0],
+                jac_s=jac_s, err=err)
 
 
 def _capture_calls(module, name: str):
@@ -3849,6 +4173,9 @@ def main() -> int:
     records.append(sub["nn_list"])
     sub_2d = phase_submap_2d(device)
     records.append(phase_matched_submap_2d(device))
+    runners = phase_runners(device, main_run, p2l)
+    cli_runs = phase_cli(device)
+    hooks = phase_hooks(device, slam3["graph"])
     if profile_run:
         profile_main(device)
         profile_batched(device)
@@ -3887,7 +4214,9 @@ def main() -> int:
             "slam2d-wide": slam2["wide_launches"],
             "submap": sub["launches"],
             "submap-2d": sub_2d["fused"]["launches"],
-            "submap-2d-revoxelize": sub_2d["re-voxelize"]["launches"]}
+            "submap-2d-revoxelize": sub_2d["re-voxelize"]["launches"],
+            **{path: run["launches"]
+               for path, run in {**runners, **cli_runs}.items()}}
     for rec in records:
         if (rec["name"], rec["path"]) in launches:
             rec["launches"] = launches[(rec["name"], rec["path"])]
@@ -3920,6 +4249,17 @@ def main() -> int:
           f"{sub['dropped']}; 2D max errors "
           f"{sub_2d['fused']['err']:.6f} / {sub_2d['re-voxelize']['err']:.6f}"
           f" m")
+    dev_run, p2l_run = runners["odometry-device"], runners["odometry-p2l"]
+    print(f"# per-frame runners with metrics beside the fused ones (host "
+          f"clock, second runs): odometry-device {dev_run['fps']:.2f} "
+          f"frames/s (fused, phase 4: {main_run['fps']:.2f}), odometry-p2l "
+          f"{p2l_run['fps']:.2f} (fused, phase 13: {p2l['fps']:.2f}); "
+          f"cli odometry2d "
+          f"{cli_runs['cli-odometry2d']['summary']['frames_per_s']:.2f} "
+          f"frames/s, --metrics "
+          f"{cli_runs['cli-odometry2d-metrics']['summary']['frames_per_s']:.2f}"
+          f"; graph solve dense {hooks['dense_s']:.4f} s, schur "
+          f"{hooks['schur_s']:.4f} s (Jacobians {hooks['jac_s']:.4f} s)")
     print(json.dumps({"kernels": list(entries.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

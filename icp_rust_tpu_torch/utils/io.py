@@ -10,6 +10,9 @@
   same random stream as writing the HDF5 file and reading it back (wall
   world, per-frame scan, shuffle, 75 packets of 384 points in order,
   range filter), so its frames are bit-identical to that round trip.
+  ``synthesize_scans3d`` writes that file, ``load_scans3d_hdf5`` reads it
+  and ``ensure_scans3d`` does both as needed; they import ``h5py``
+  inside, so importing this module never needs it.
 """
 
 from __future__ import annotations
@@ -120,3 +123,71 @@ def synthesize_frames3d(n_frames: int = 8, seed: int = 0,
             pts = pts[np.linalg.norm(pts, axis=1) > RANGE_FILTER]
         frames.append(pts)
     return frames, traj
+
+
+def synthesize_scans3d(path: str, n_frames: int = 8,
+                       seed: int = 0) -> np.ndarray:
+    """Write the synthetic sequence as an HDF5 file in the reference
+    reader's schema and return the ground-truth (x, y, theta) trajectory.
+
+    Schema (examples/scan3d.rs:34-61): one (24, 16, 3) float64 dataset per
+    packet, 75 consecutive packets to a frame, named so that the file's
+    alphabetical order is the packet order.  The frames are
+    ``synthesize_frames3d``'s before the range filter (the same random
+    stream).  Needs ``h5py``, imported here only."""
+    import h5py
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    frames, traj = synthesize_frames3d(n_frames, seed=seed,
+                                       apply_range_filter=False)
+    with h5py.File(path, "w") as f:
+        k = 0
+        for pts in frames:
+            for p in range(PACKETS_PER_FRAME):
+                pkt = pts[p * N_POINTS_IN_PACKET:(p + 1) * N_POINTS_IN_PACKET]
+                f.create_dataset(f"{k:06d}", data=pkt.reshape(24, 16, 3))
+                k += 1
+        f.attrs["ground_truth_xytheta"] = traj
+    return traj
+
+
+def ensure_scans3d(path: str, n_frames: int,
+                   seed: int = 0) -> Tuple[List[np.ndarray], np.ndarray]:
+    """Load the HDF5 sequence at ``path``, synthesizing it first when it is
+    absent or holds fewer than ``n_frames`` frames (a shorter file would
+    shrink the workload); returns (frames[:n_frames], traj[:n_frames]).
+    A longer file's prefix is not a shorter synthesis: the random streams
+    differ.  Needs ``h5py``."""
+    import h5py
+
+    def n_avail() -> int:
+        with h5py.File(path, "r") as f:
+            return len(f.attrs["ground_truth_xytheta"])
+
+    if not os.path.exists(path) or n_avail() < n_frames:
+        synthesize_scans3d(path, n_frames=n_frames, seed=seed)
+    with h5py.File(path, "r") as f:
+        traj = np.asarray(f.attrs["ground_truth_xytheta"])
+    frames = load_scans3d_hdf5(path)
+    return frames[:n_frames], traj[:n_frames]
+
+
+def load_scans3d_hdf5(path: str,
+                      apply_range_filter: bool = True) -> List[np.ndarray]:
+    """Read frames as the reference example does: 75 packets of (24, 16,
+    3) each -> (28,800, 3), then drop ||p|| <= 0.2
+    (examples/scan3d.rs:51-69, 104-119).  Needs ``h5py``."""
+    import h5py
+
+    frames = []
+    with h5py.File(path, "r") as f:
+        names = sorted(f.keys())
+        for start in range(0, len(names) - PACKETS_PER_FRAME + 1,
+                           PACKETS_PER_FRAME):
+            pts = np.concatenate(
+                [np.asarray(f[names[start + i]]).reshape(-1, 3)
+                 for i in range(PACKETS_PER_FRAME)], axis=0)
+            if apply_range_filter:
+                pts = pts[np.linalg.norm(pts, axis=1) > RANGE_FILTER]
+            frames.append(pts)
+    return frames

@@ -29,7 +29,9 @@ at a float32 nearest-neighbour near-tie, at an exact fixed point of its
 outer step within 1e-5 of the plain loop with that tie taken the other
 way (chip_smoke.frame_gate).  The voxel hash table on the
 card equals the CPU's: keys, counts and drops exact, point sums to
-float32 roundoff.  chip_smoke.py runs the same comparisons at the paths'
+float32 roundoff.  The per-frame odometry runners are bitwise the fused
+runners on the card, and a resumed run bitwise the uninterrupted one.
+chip_smoke.py runs the same comparisons at the paths'
 full sizes.
 """
 
@@ -1347,3 +1349,44 @@ def test_submap_on_the_card_repeats_and_tracks_the_plain_path(dev):
     _, plain = run_submap_odometry(
         pts, mask, cfg.with_(nn_backend="torch", align_backend="torch"), **kw)
     assert ate_rmse(path, plain) < 1e-3
+
+
+@pytest.mark.parametrize("kind", ["se2", "p2l"])
+def test_per_frame_runners_bitwise_the_fused_ones_and_resume(dev, kind,
+                                                             tmp_path):
+    """``run_odometry_device`` / ``run_odometry_p2l`` with metrics rows:
+    the fused runner's path bitwise, rows equal to its stats, each outer
+    iteration one launch of the NN and the solver kernel; a run killed
+    after frame 3 and resumed is bitwise the uninterrupted one."""
+    from icp_rust_tpu_torch.models.odometry import run_odometry_device, \
+        run_odometry_p2l
+    from icp_rust_tpu_torch.utils.checkpoint import SequenceCheckpointer
+    from icp_rust_tpu_torch.utils.metrics import MetricsLogger
+
+    frames, _ = io.synthesize_frames3d(6, seed=0)
+    pts, mask = io.pad_points([f[::4] for f in frames])
+    cfg = ICPConfig(nn_dst_tile=1024, det_rel_eps=1e-9)
+    if kind == "se2":
+        run, fused, solver, kw = (run_odometry_device, run_odometry_fused,
+                                  "irls_loop", {})
+    else:
+        run, fused, solver, kw = (run_odometry_p2l, run_odometry_p2l_fused,
+                                  "p2l_loop", {"normals_voxel_size": 0.45})
+    _, want, stats = fused(pts, mask, cfg, with_metrics=True, **kw)
+    log = MetricsLogger(None)
+    cuda_build.reset_launches()
+    _, path = run(pts, mask, cfg, metrics=log, **kw)
+    total = int(stats.outer_iters.sum())
+    assert cuda_build.LAUNCHES["nn_list"] == total
+    assert cuda_build.LAUNCHES[solver] == total
+    assert np.array_equal(path, want)
+    for i, rec in enumerate(log.records):
+        assert rec.extra["outer_iters"] == int(stats.outer_iters[i])
+        assert rec.huber_error == float(stats.huber_error[i])
+        assert rec.mean_nn_dist == float(stats.mean_nn_dist[i])
+    ck = SequenceCheckpointer(str(tmp_path / "ck.npz"), every=2)
+    run(pts[:4], mask[:4], cfg, metrics=MetricsLogger(None), checkpoint=ck,
+        **kw)
+    _, resumed = run(pts, mask, cfg, metrics=MetricsLogger(None),
+                     checkpoint=ck, resume=True, **kw)
+    assert np.array_equal(resumed, path)

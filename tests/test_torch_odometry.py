@@ -150,7 +150,21 @@ def chip_smoke():
     return mod
 
 
-def test_chip_smoke_phases_rehearse_on_cpu(chip_smoke, capsys):
+@pytest.fixture
+def one_torch_thread():
+    """One intra-op thread: the phases' tensors are tiny, and the suite
+    runs in several processes, whose thread pools would oversubscribe the
+    cores."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_chip_smoke_phases_rehearse_on_cpu(chip_smoke, capsys,
+                                           one_torch_thread):
     """Each phase of chip_smoke.py at a tiny size on the CPU, where every
     wrapper takes its kernel's plain version."""
     recs = [
@@ -169,3 +183,46 @@ def test_chip_smoke_phases_rehearse_on_cpu(chip_smoke, capsys):
     assert two_d["ate"] < chip_smoke.ATE_GATE_M
     out = capsys.readouterr().out
     assert "bitwise equal to plain and brute force" in out
+    assert "bitwise equal to the first run" in out
+
+    # Phases 21-23: the per-frame runners against the fused ones (phase
+    # 4's run above; the p2l fused run here, at the same size), the CLI
+    # with the native oracle and loader, the hooks and the Schur solve.
+    size = dict(n_frames=3, stride=24, tile=256)
+    pts, mask, _ = chip_smoke.frames3d(3, 24)
+    _, path, stats = odometry.run_odometry_p2l_fused(
+        pts, mask, chip_smoke._config(nn_dst_tile=256), 0.6,
+        with_metrics=True, device="cpu")
+    p2l = dict(path=path, stats=stats)
+    runs = chip_smoke.phase_runners("cpu", main, p2l, cut=2, every=1,
+                                    voxel=0.6, **size)
+    assert set(runs) == {"odometry-device", "odometry-p2l"}
+    cli_runs = chip_smoke.phase_cli("cpu", n_scans=8, pad=128)
+    assert set(cli_runs) == {"cli-odometry2d", "cli-odometry2d-metrics",
+                             "cli-slam"}
+    assert cli_runs["cli-odometry2d"]["summary"]["oracle"] == "native_cpp"
+    graph = _loop_graph()
+    hooks = chip_smoke.phase_hooks("cpu", graph, n_frames=3, stride=24,
+                                   tile=256, iters=2)
+    assert hooks["err"] <= 1e-8
+    out = capsys.readouterr().out
+    for line in ("odometry-device runner", "odometry-p2l runner",
+                 "native loader", "cli odometry2d --metrics", "cli slam",
+                 "debug_mode raised", "graph solve"):
+        assert line in out, line
+
+
+def _loop_graph(n=12):
+    """A float64 SE(3) odometry chain with one loop closure."""
+    import torch
+
+    from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
+    from icp_rust_tpu_torch.models import pose_graph as pg
+
+    rng = np.random.default_rng(7)
+    step = np.array([0.3, 0.0, 0.0, 0.0, 0.0, 2 * np.pi / n])
+    chain = RigidTransform3.from_twist(torch.as_tensor(
+        step + rng.normal(0, 0.01, (n - 1, 6))))
+    z = RigidTransform3.from_twist(torch.as_tensor(step * 2))
+    return pg.odometry_chain_graph(
+        chain, extra_edges=[(0, 2, z, 10.0 * np.eye(6))])

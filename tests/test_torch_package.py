@@ -22,7 +22,8 @@ from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
 from icp_rust_tpu_torch.models import icp2d as m_icp
 from icp_rust_tpu_torch.models.icp_p2l import icp_point_to_plane
-from icp_rust_tpu_torch.models.odometry import run_odometry_fused, \
+from icp_rust_tpu_torch.models.odometry import run_odometry, \
+    run_odometry_device, run_odometry_fused, run_odometry_p2l, \
     run_odometry_p2l_fused
 from icp_rust_tpu_torch.models.slam import run_slam2d, run_slam3d
 from icp_rust_tpu_torch.models.submap import run_submap_odometry
@@ -85,6 +86,11 @@ def test_importing_the_port_loads_no_jax():
         "import icp_rust_tpu_torch.utils.checkpoint\n"
         "import icp_rust_tpu_torch.models.submap, icp_rust_tpu_torch.ops.voxel\n"
         "import icp_rust_tpu_torch.ops.voxel_hash, icp_rust_tpu_torch.utils.metrics\n"
+        "import icp_rust_tpu_torch.cli, icp_rust_tpu_torch.models.graph_schur\n"
+        "import icp_rust_tpu_torch.utils.debug, icp_rust_tpu_torch.utils.profiling\n"
+        "import icp_rust_tpu_torch.utils.oracle_np, icp_rust_tpu_torch.native.oracle\n"
+        "import icp_rust_tpu_torch.native.loader, icp_rust_tpu_torch.examples.scan2d\n"
+        "import icp_rust_tpu_torch.examples.scan3d\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'icp_rust_tpu' or m.startswith('icp_rust_tpu.')]\n"
         "print(bad)\n"
@@ -108,7 +114,9 @@ def _pair3d(n=256):
 
 @pytest.mark.parametrize("entry", ["icp2d", "icp3d_planar", "odometry",
                                    "icp_point_to_plane", "odometry_p2l",
-                                   "slam2d", "slam3d", "submap"])
+                                   "slam2d", "slam3d", "submap",
+                                   "run_odometry", "odometry_device",
+                                   "odometry_p2l_device"])
 def test_entry_points_raise_without_a_card(entry):
     _no_card()
     pts, mask = _pair3d()
@@ -129,6 +137,12 @@ def test_entry_points_raise_without_a_card(entry):
             run_slam3d([pts, pts])
         elif entry == "submap":
             run_submap_odometry(np.stack([pts, pts]), np.stack([mask, mask]))
+        elif entry == "run_odometry":
+            run_odometry([pts, pts])
+        elif entry == "odometry_device":
+            run_odometry_device(np.stack([pts, pts]), np.stack([mask, mask]))
+        elif entry == "odometry_p2l_device":
+            run_odometry_p2l(np.stack([pts, pts]), np.stack([mask, mask]))
         else:
             run_odometry_fused(np.stack([pts, pts]), np.stack([mask, mask]))
 
@@ -204,3 +218,66 @@ def test_float64_never_reaches_the_card():
     with pytest.raises(ValueError, match="float64"):
         run_odometry_fused(np.stack([pts, pts]), np.stack([mask, mask]),
                            REFERENCE_CONFIG)
+
+
+def _scan_dir(tmp_path, n=3):
+    rng = np.random.default_rng(0)
+    for k in range(n):
+        np.savetxt(tmp_path / f"{k:03d}.txt", rng.uniform(-3, 3, (64, 2)))
+    return str(tmp_path)
+
+
+@pytest.mark.parametrize("argv", [
+    ["odometry2d", "--f32"], ["odometry2d", "--f32", "--device", "cuda"],
+    ["slam", "--f32"]])
+def test_cli_and_examples_raise_without_a_card(tmp_path, argv):
+    """The CLI's float32 runs and the examples default to the card."""
+    _no_card()
+    from icp_rust_tpu_torch import cli
+    from icp_rust_tpu_torch.examples import scan2d, scan3d
+
+    scans = _scan_dir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([*argv, "--scans", scans])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scan2d.main(["--scans", scans])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        scan3d.main(["--frames", "2"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["odometry2d", "--scans", "."], ["odometry3d", "--hdf5", "x.hdf5"],
+    ["slam", "--scans", "."], ["slam3d", "--hdf5", "x.hdf5"]])
+def test_cli_without_device_refuses_float64_on_the_card(argv):
+    """Every command runs on the card unless given ``--device cpu``, and
+    there takes float32 only: without ``--f32`` it exits with guidance
+    before it reads a scan."""
+    _no_card()
+    from icp_rust_tpu_torch import cli
+
+    with pytest.raises(SystemExit, match="--device cpu"):
+        cli.main(argv)
+
+
+def test_cli_needs_neither_h5py_nor_matplotlib():
+    """``import icp_rust_tpu_torch.cli`` (and the modules it drives) with
+    h5py and matplotlib unimportable; the plot helper then skips."""
+    code = (
+        "import sys\n"
+        "sys.modules['h5py'] = None\n"
+        "sys.modules['matplotlib'] = None\n"
+        "import numpy as np\n"
+        "import icp_rust_tpu_torch.cli as cli\n"
+        "import icp_rust_tpu_torch.utils.io, icp_rust_tpu_torch.examples.scan2d\n"
+        "import icp_rust_tpu_torch.models.odometry, icp_rust_tpu_torch.models.slam\n"
+        "cli._plot(np.zeros((2, 2)), 'never.png')\n"
+        "try:\n"
+        "    icp_rust_tpu_torch.utils.io.load_scans3d_hdf5('x.hdf5')\n"
+        "except ImportError:\n"
+        "    print('h5py needed only to read HDF5')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "skipping plot" in proc.stderr
+    assert "h5py needed only to read HDF5" in proc.stdout
