@@ -213,6 +213,36 @@ The modules users drive the paths through:
     "dense")``, both timed by the host clock beside the residual and
     Jacobian evaluations they share.
 
+``parallel/`` on torch.distributed:
+
+24. Four gloo ranks share the card (NCCL refuses two ranks on one card;
+    gloo reduces and gathers card tensors itself, the ring's send/recv go
+    through host buffers), each passing the global arrays: pairs (frame
+    0, frame k), k = 1-4, of the 96 frames, warm-started from the main
+    path's estimate for frame k - 1, through ``dp_sp_icp3d_planar`` and
+    ``dp_sp_icp_p2l`` on a (2, 2) mesh (kernel 4 in the ring), and
+    ``dp_sp_icp_p2l`` on (4, 1), a pair a rank; the xy of
+    frames 0 and 1 through ``sharded_icp2d`` on (1, 4) (kernel 6); the
+    ring alone, frame 1 against frame 0 and with a batch axis (kernels 6,
+    5 and 4); ``batched_icp2d`` on dp = 4 over the batched path's first
+    208 pairs, 52 a rank, lockstep (kernels 8, 9, 7) and on the
+    pair-frame route (kernel 10); ``optimize_distributed`` and the
+    segment-sharded ``optimize_schur`` on phase 15's float64 graph.
+    Gates: the drivers' xy and rotation within 1 mm of the single-device
+    ``icp3d_planar`` / ``icp2d`` (2e-3 of ``icp_point_to_plane``, and
+    in z too on (4, 1); on (2, 2) its z, weakly constrained here and
+    moved by per-shard normals, to a max |z| at most 0.015 m beyond the
+    single-device driver's) and the ATE gate; the
+    ring bitwise the search over the whole cloud; each rank's batched
+    slice bitwise its single-device call and the whole within 1e-5 of
+    the full call; the graph solves within 1e-5 / 1e-6 of the local CG
+    and 1e-10 of the local Schur solve.  Then one NCCL rank on the card
+    (``dp_sp_icp3d_planar`` on pair 1, within 1 mm of the four ranks')
+    and ``dryrun_multichip(4, "cuda")``.  Each sub-run prints its host
+    seconds and the collectives it issued a rank; four processes
+    time-sharing one card give no scaling figure.  Its paths' launches
+    are summed over the ranks.
+
 The launch counts of each path are zeroed just before it and read just
 after.  Prints one ``{"kernels": [...]}`` line, one entry per kernel (the
 fourteen): the contract's keys for its first timed shape and path
@@ -281,7 +311,7 @@ import warnings
 import numpy as np
 import torch
 
-from icp_rust_tpu_torch import cli
+from icp_rust_tpu_torch import cli, convert
 from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
@@ -3377,6 +3407,418 @@ def phase_hooks(device="cuda", graph=None, n_frames: int = 4,
                 jac_s=jac_s, err=err)
 
 
+SHARDED_RANKS = 4
+SHARDED_PAIRS = 4
+SHARDED_BATCH = 208
+# Gates of phase 24: the JAX package's test_pose_graph tolerances of the
+# edge-sharded graph solve against the local CG (t, rot); the sharded
+# Schur solve against the local one; the sharded p2l driver's xy and
+# rotation against the single-device one (boundary-voxel normals differ,
+# tests/test_parallel3d), and its z too with the point axis unsharded.
+# Sharded over points its z, which these scenes constrain weakly, moves
+# with the per-shard normals: its max |z| against the planar truth may
+# exceed the single-device driver's by at most the margin (on the H100,
+# 0.028320 m against 0.017541 m: 0.0108 m beyond it; PERF.md §6).
+DIST_GRAPH_TOL = (1e-5, 1e-6)
+SCHUR_SHARDED_TOL = 1e-10
+P2L_SHARDED_GATE = 2e-3
+P2L_SHARDED_Z_MARGIN_M = 0.015
+SHARDED_GRAPH_KW = dict(iters=15, huber_k=1.345, kernel="cauchy")
+SHARDED_CG_ITERS = 100
+# The kernels each sharded path must launch (summed over the ranks).
+SHARDED_KERNELS = {
+    "sharded-3d": ("nn_matched",), "sharded-p2l": ("nn_matched",),
+    "sharded-p2l-sp1": ("nn_matched",),
+    "sharded-2d": ("nn_pruned",),
+    "sharded-ring": ("nn_pruned", "nn_sweep", "nn_matched"),
+    "sharded-batched": ("nn_pairs", "nn_pairs_list", "irls_loop_batched"),
+    "sharded-batched-pairs": ("icp2d_frame_pairs",)}
+
+
+def _graph_arrays(graph) -> tuple:
+    return tuple(x.detach().cpu().numpy() for x in (
+        graph.poses.rot, graph.poses.t, graph.edge_i, graph.edge_j,
+        graph.meas.rot, graph.meas.t, graph.info, graph.edge_mask))
+
+
+def _lift3(t: RigidTransform2) -> RigidTransform3:
+    """SE(2) transforms (B,) as SE(3) ones about z."""
+    rot = torch.zeros((*t.rot.shape[:-2], 3, 3), dtype=t.rot.dtype)
+    rot[..., :2, :2], rot[..., 2, 2] = t.rot, 1.0
+    return RigidTransform3(rot, torch.cat(
+        [t.t, torch.zeros_like(t.t[..., :1])], dim=-1))
+
+
+def _positions(t) -> np.ndarray:
+    """Where each transform puts its frame: the xy of its inverse's
+    translation (the odometry path's convention)."""
+    rot, tt = t.rot.detach().cpu().double(), t.t.detach().cpu().double()
+    return (-torch.einsum("...ji,...j->...i", rot, tt))[..., :2].numpy()
+
+
+def _z_error(t) -> float:
+    """The largest |z| of where the SE(3) transforms put their frames
+    (the z of their inverses' translations)."""
+    rot, tt = t.rot.detach().cpu().double(), t.t.detach().cpu().double()
+    return float((torch.einsum("...ji,...j->...i", rot, tt))[..., 2]
+                 .abs().max())
+
+
+def _max_diff(a, b) -> float:
+    """The larger of the translations' and the rotations' largest
+    difference over the pairs."""
+    return max(float((a.t.cpu().double() - b.t.cpu().double()).abs().max()),
+               float((a.rot.cpu().double()
+                      - b.rot.cpu().double()).abs().max()))
+
+
+def _sharded_rank(inp: dict, device_type: str, tile: int,
+                  voxel: float) -> dict:
+    """Phase 24's sub-runs on one rank of its gloo world; every rank
+    passes the global arrays of ``inp``.  Each sub-run is timed by the
+    host clock from a barrier, with the launch counts zeroed just before
+    it and read just after; the checks against single-device calls on
+    this rank's own slice run after that."""
+    import torch.distributed as dist
+
+    from icp_rust_tpu_torch.parallel import collectives, dist_graph, mesh, \
+        ring_nn, sharded
+    from icp_rust_tpu_torch.parallel.dryrun import _to_host
+
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+    cfg = _config(nn_dst_tile=tile)
+    grid = mesh.make_mesh(("dp", "sp"), (2, 2), device_type)
+    row = mesh.make_mesh(("dp", "sp"), (1, SHARDED_RANKS), device_type)
+    col = mesh.make_mesh(("dp", "sp"), (SHARDED_RANKS, 1), device_type)
+    out = {"transport": collectives.transport(grid.get_group("sp"))}
+
+    def timed(path, fn):
+        _sync(dev)
+        dist.barrier()
+        cuda_build.reset_launches()
+        collectives.CALLS.clear()
+        t0 = time.perf_counter()
+        value = fn()
+        _sync(dev)
+        out[path] = dict(seconds=time.perf_counter() - t0,
+                         launches=dict(cuda_build.LAUNCHES),
+                         collectives=dict(collectives.CALLS),
+                         value=_to_host(value))
+        return value
+
+    src, dst, sm, dm = (torch.as_tensor(inp[k])
+                        for k in ("src", "dst", "src_mask", "dst_mask"))
+    warm = RigidTransform2(torch.as_tensor(inp["warm_rot"]),
+                           torch.as_tensor(inp["warm_t"]))
+    timed("sharded-3d", lambda: sharded.dp_sp_icp3d_planar(
+        src, dst, sm, dm, warm, cfg, grid))
+    timed("sharded-p2l", lambda: sharded.dp_sp_icp_p2l(
+        src, dst, sm, dm, _lift3(warm), cfg, grid,
+        normals_voxel_size=voxel))
+    # The same pairs with the point axis unsharded (a pair a rank): each
+    # destination's normals on one grid, as the single-device driver's.
+    timed("sharded-p2l-sp1", lambda: sharded.dp_sp_icp_p2l(
+        src, dst, sm, dm, _lift3(warm), cfg, col,
+        normals_voxel_size=voxel))
+    timed("sharded-2d", lambda: sharded.sharded_icp2d(
+        src[0, :, :2], dst[0, :, :2], sm[0], dm[0],
+        RigidTransform2.identity(), cfg, row))
+
+    # The ring alone on the point axis of ``row``: frame 1's queries
+    # (this rank's block) against frame 0 (sharded), and, with a batch
+    # axis, frames 1 and 2 against frames 0 and 1.
+    sp = mesh.axis(row, "sp")
+    q = dst[:2].to(dev)
+    db = torch.cat([src[:1], dst[:1]]).to(dev)
+    dbm = torch.cat([sm[:1], dm[:1]]).to(dev)
+    q_l, db_l, dbm_l = (mesh.block(x, sp, 1) for x in (q, db, dbm))
+
+    def ring():
+        res = []
+        for b in (0, slice(0, 2)):
+            res.append(ring_nn.ring_nearest_neighbor(
+                q_l[b], db_l[b], dbm_l[b], sp.group, tile=tile))
+            res.append(ring_nn.ring_nearest_neighbor_matched(
+                q_l[b], db_l[b], dbm_l[b], sp.group, tile=tile))
+        return res
+    got = timed("sharded-ring", ring)
+    bitwise = True
+    for k, b in enumerate((0, slice(0, 2))):
+        want = nn_sweep_cuda.search(q_l[b], db[b], dbm[b], db[b],
+                                    db_tile=tile)
+        plain, (matched, pay) = got[2 * k], got[2 * k + 1]
+        bitwise &= all(torch.equal(x, y) for x, y in (
+            (plain.index, want[0]), (plain.dist_sq, want[1]),
+            (matched.index, want[0]), (matched.dist_sq, want[1]),
+            (pay, want[2])))
+    out["sharded-ring"]["bitwise"] = bitwise
+
+    bsrc, bdst, bsm, bdm = (torch.as_tensor(inp[k]) for k in (
+        "bsrc", "bdst", "bsm", "bdm"))
+    t0 = RigidTransform2.identity((bsrc.shape[0],))
+    dp = mesh.axis(col, "dp")
+    for path, c in (("sharded-batched", cfg),
+                    ("sharded-batched-pairs", cfg.with_(
+                        frame_backend="pairs"))):
+        full = timed(path, lambda c=c: sharded.batched_icp2d(
+            bsrc, bdst, bsm, bdm, t0, c, mesh=col))
+        mine = [mesh.block(x, dp, 0).to(dev) for x in (bsrc, bdst, bsm,
+                                                       bdm)]
+        own = sharded.batched_icp2d(
+            mine[0], mine[1], mine[2], mine[3],
+            RigidTransform2.identity((mine[0].shape[0],), device=dev), c,
+            device=dev)
+        out[path]["bitwise"] = (
+            torch.equal(mesh.block(full.rot, dp, 0), own.rot)
+            and torch.equal(mesh.block(full.t, dp, 0), own.t))
+
+    graph = pg.graph_to(convert.pose_graph_from_numpy(*inp["graph"]), dev)
+    timed("sharded-graph", lambda: (
+        dist_graph.optimize_distributed(
+            graph, col, cg_iters=SHARDED_CG_ITERS, **SHARDED_GRAPH_KW).poses,
+        optimize_schur(graph, mesh=col, **SHARDED_GRAPH_KW).poses))
+    return out
+
+
+def _nccl_rank(inp: dict, tile: int) -> dict:
+    """Phase 24 (b): ``dp_sp_icp3d_planar`` on pair 1 in a one-rank NCCL
+    world on the card."""
+    from icp_rust_tpu_torch.parallel import collectives, mesh, sharded
+
+    m = mesh.make_mesh(("dp", "sp"), (1, 1), "cuda")
+    src, dst, sm, dm = (torch.as_tensor(inp[k][:1])
+                        for k in ("src", "dst", "src_mask", "dst_mask"))
+    t0 = time.perf_counter()
+    t = sharded.dp_sp_icp3d_planar(src, dst, sm, dm,
+                                   RigidTransform2.identity((1,)),
+                                   _config(nn_dst_tile=tile), m)
+    torch.cuda.synchronize()
+    return dict(transport=collectives.transport(m.get_group("sp")),
+                device=str(t.t.device), seconds=time.perf_counter() - t0,
+                value=t)
+
+
+def sharded_inputs(graph, n_frames: int = SHARDED_PAIRS + 1,
+                   stride: int = 1, tile: int = 2048,
+                   n_scans: int = BATCH_SCANS, pad: int = BATCH_PAD,
+                   n_batch: int = SHARDED_BATCH, device="cuda"):
+    """Phase 24's global arrays (numpy): pairs (frame 0, frame k), k = 1..
+    n_frames - 1, warm-started from the main path's estimate for frame
+    k - 1 (a ``run_odometry_fused`` over the first n_frames - 1 frames,
+    bitwise phase 4's first estimates: each frame's call sees only the
+    frames before it); the first ``n_batch`` batched pairs; ``graph``'s
+    arrays.  Also the ground-truth positions of frames 1.. ."""
+    pts, mask, gt = frames3d(n_frames, stride)
+    pts = pts.astype(np.float32)
+    est, _ = run_odometry_fused(pts[:-1], mask[:-1], _config(
+        nn_dst_tile=tile), device=device)
+    k = n_frames - 1
+    warm_rot = np.concatenate([np.eye(2, dtype=np.float32)[None],
+                               est.rot[:k - 1].cpu().numpy()])
+    warm_t = np.concatenate([np.zeros((1, 2), np.float32),
+                             est.t[:k - 1].cpu().numpy()])
+    scans = scans2d(n_scans, pad)
+    bpts, bmask = scans[0].astype(np.float32), scans[1]
+    return dict(src=np.repeat(pts[:1], k, 0), dst=pts[1:],
+                src_mask=np.repeat(mask[:1], k, 0), dst_mask=mask[1:],
+                warm_rot=warm_rot, warm_t=warm_t,
+                bsrc=bpts[:n_batch], bdst=bpts[1:n_batch + 1],
+                bsm=bmask[:n_batch], bdm=bmask[1:n_batch + 1],
+                graph=_graph_arrays(graph), gt=gt[:k])
+
+
+def phase_sharded(device="cuda", smi: str = "", inputs=None,
+                  tile: int = 2048, voxel: float = P2L_VOXEL_M,
+                  p2l_gate: float = P2L_SHARDED_GATE,
+                  p2l_z_margin: float = P2L_SHARDED_Z_MARGIN_M,
+                  timeout_s: float = 600.0):
+    """Phase 24: ``parallel/`` on torch.distributed.  (a) Four gloo ranks
+    on one device (NCCL refuses two ranks on one card): the sharded
+    drivers, the ring NN, ``batched_icp2d`` with a mesh and the sharded
+    graph solves, each against its single-device counterpart here; (b) on
+    the card, a one-rank NCCL world; (c) ``dryrun_multichip``.  ``inputs``: ``sharded_inputs``' arrays.
+    Returns each path's launches summed over the ranks."""
+    from icp_rust_tpu_torch.parallel import dryrun
+
+    dev = torch.device(device)
+    kind = "cuda" if dev.type == "cuda" else "cpu"
+    cfg = _config(nn_dst_tile=tile)
+    inp = inputs
+    t0 = time.perf_counter()
+    ranks = dryrun.spawn(_sharded_rank, SHARDED_RANKS, "gloo", kind,
+                         timeout_s, (inp, kind, tile, voxel),
+                         threads=1 if kind == "cpu" else None)
+    world_s = time.perf_counter() - t0
+    res = [r.value for r in ranks]
+    paths = [p for p in res[0] if p.startswith("sharded-")]
+    runs = {p: {name: sum(r[p]["launches"][name] for r in res)
+                for name in cuda_build.SOURCES} for p in paths}
+    secs = {p: max(r[p]["seconds"] for r in res) for p in paths}
+    colls = {p: res[0][p]["collectives"] for p in paths}
+    for p in paths:
+        for r in res[1:]:
+            if p != "sharded-ring" and not _same_value(r[p]["value"],
+                                                       res[0][p]["value"]):
+                raise RuntimeError(f"{p}: ranks disagree")
+    val = {p: res[0][p]["value"] for p in paths}
+
+    # Single-device counterparts, on this device.
+    src, dst, sm, dm = (torch.as_tensor(inp[k]) for k in (
+        "src", "dst", "src_mask", "dst_mask"))
+    warm = RigidTransform2(torch.as_tensor(inp["warm_rot"]),
+                           torch.as_tensor(inp["warm_t"]))
+    pairs = src.shape[0]
+    single = {}
+    single["sharded-3d"] = [m_icp.icp3d_planar(
+        src[k], dst[k], sm[k], dm[k], RigidTransform2(warm.rot[k],
+                                                      warm.t[k]),
+        cfg, device=device) for k in range(pairs)]
+    lifted = _lift3(warm)
+    single["sharded-p2l"] = [m_p2l.icp_point_to_plane(
+        src[k], dst[k], sm[k], dm[k], RigidTransform3(lifted.rot[k],
+                                                      lifted.t[k]),
+        cfg, normals_voxel_size=voxel, device=device)
+        for k in range(pairs)]
+    single["sharded-2d"] = [m_icp.icp2d(
+        src[0, :, :2], dst[0, :, :2], sm[0], dm[0],
+        RigidTransform2.identity(), cfg, device=device)]
+    for p, gate in (("sharded-3d", PLAIN_GATE_M),
+                    ("sharded-p2l", p2l_gate),
+                    ("sharded-p2l-sp1", p2l_gate),
+                    ("sharded-2d", PLAIN_GATE_M)):
+        one = single[p.removesuffix("-sp1")]
+        both = type(one[0])(torch.stack([o.rot.cpu() for o in one]),
+                            torch.stack([o.t.cpu() for o in one]))
+        got = val[p]
+        if got.t.ndim == 1:
+            got = type(got)(got.rot[None], got.t[None])
+        d = _max_diff(type(got)(got.rot, got.t[..., :2]),
+                      type(both)(both.rot, both.t[..., :2]))
+        err = np.linalg.norm(_positions(got) - inp["gt"][:len(one)],
+                             axis=-1)
+        ate = float(np.sqrt(np.mean(err ** 2)))
+        ok = d < gate and ate < ATE_GATE_M
+        z_note = ""
+        if got.t.shape[-1] == 3:
+            # z: the truth is planar (z 0), so each driver's largest |z|
+            # is its z error.  Unsharded points (sp1) share the
+            # single-device driver's normals and are held to ``gate`` in
+            # z too; per-shard normals (sp 2) to ``p2l_z_margin`` beyond
+            # the single-device driver's |z|.
+            dz = float((got.t[..., 2] - both.t[..., 2]).abs().max())
+            z_got, z_one = _z_error(got), _z_error(both)
+            z_gate = (gate if p.endswith("-sp1") else z_one + p2l_z_margin)
+            z_val = dz if p.endswith("-sp1") else z_got
+            z_note = (f", z {dz:.3e}; max |z| vs the planar truth: sharded "
+                      f"{z_got:.6f} m, single-device {z_one:.6f} m (gate: "
+                      + ("z within the xy gate" if p.endswith("-sp1") else
+                         f"sharded |z| < {z_gate:.6f} m") + ")")
+            ok = ok and z_val < z_gate
+        print(f"# {p}: {len(one)} pair(s), {secs[p]:.3f} s (host clock, "
+              f"slowest rank), collectives a rank {colls[p]}; vs the "
+              f"single-device driver: xy and rotation {d:.3e} (gate "
+              f"{gate:g}){z_note}; ATE(-xy) vs ground truth {ate:.6f} m "
+              f"(gate {ATE_GATE_M}); launches over the ranks "
+              f"{_nonzero(runs[p])}; {smi}")
+        if not ok:
+            raise RuntimeError(f"{p}: xy/rotation {d} from the "
+                               f"single-device driver, ATE {ate}{z_note}")
+    ring_ok = all(r["sharded-ring"]["bitwise"] for r in res)
+    print(f"# sharded-ring: frame 1 against frame 0 (and frames 1-2 "
+          f"against 0-1 with a batch axis) on {SHARDED_RANKS} ranks, plain "
+          f"and matched, {secs['sharded-ring']:.3f} s, collectives a rank "
+          f"{colls['sharded-ring']}; bitwise equal to "
+          f"search over the whole cloud on every rank: {ring_ok}; launches "
+          f"{_nonzero(runs['sharded-ring'])}; {smi}")
+    if not ring_ok:
+        raise RuntimeError("sharded-ring: not bitwise the whole-cloud search")
+    bsrc, bdst, bsm, bdm = (torch.as_tensor(inp[k]) for k in (
+        "bsrc", "bdst", "bsm", "bdm"))
+    for p, c in (("sharded-batched", cfg),
+                 ("sharded-batched-pairs", cfg.with_(frame_backend="pairs"))):
+        full = batched_icp2d(bsrc, bdst, bsm, bdm, RigidTransform2.identity(
+            (bsrc.shape[0],)), c, device=device)
+        d = _max_diff(val[p], full)
+        own = all(r[p]["bitwise"] for r in res)
+        print(f"# {p}: {bsrc.shape[0]} pairs, {bsrc.shape[0] // SHARDED_RANKS}"
+              f" a rank, {secs[p]:.3f} s, collectives a rank {colls[p]}; "
+              f"each rank bitwise its slice's "
+              f"single-device call: {own}; vs the full single-device call "
+              f"{d:.3e} (gate {IRLS_TOL}); launches {_nonzero(runs[p])}; "
+              f"{smi}")
+        if not (own and d <= IRLS_TOL):
+            raise RuntimeError(f"{p}: slices bitwise {own}, {d} from the "
+                               "full call")
+    graph = pg.graph_to(convert.pose_graph_from_numpy(*inp["graph"]), dev)
+    cg = pg.optimize(graph, solve="cg", cg_iters=SHARDED_CG_ITERS,
+                     **SHARDED_GRAPH_KW).poses
+    local = optimize_schur(graph, **SHARDED_GRAPH_KW).poses
+    dist_p, schur_p = val["sharded-graph"]
+    per_coll = 1e3 * secs["sharded-graph"] / max(
+        1, sum(colls["sharded-graph"].values()))
+    d_t = float((dist_p.t - cg.t.cpu()).abs().max())
+    d_r = float((dist_p.rot - cg.rot.cpu()).abs().max())
+    d_s = max(float((schur_p.t - local.t.cpu()).abs().max()),
+              float((schur_p.rot - local.rot.cpu()).abs().max()))
+    print(f"# sharded-graph: {graph.poses.t.shape[0]} poses, "
+          f"{graph.edge_i.shape[0]} edges, float64, {SHARDED_RANKS} edge / "
+          f"segment shards, {secs['sharded-graph']:.3f} s for both solves, "
+          f"collectives a rank {colls['sharded-graph']} ({per_coll:.3f} ms "
+          f"a collective, derived: the seconds over their count); "
+          f"optimize_distributed vs optimize(solve='cg') t {d_t:.3e} rot "
+          f"{d_r:.3e} (gates {DIST_GRAPH_TOL}); sharded vs local Schur "
+          f"{d_s:.3e} (gate {SCHUR_SHARDED_TOL}); {smi}")
+    if not (d_t <= DIST_GRAPH_TOL[0] and d_r <= DIST_GRAPH_TOL[1]
+            and d_s <= SCHUR_SHARDED_TOL):
+        raise RuntimeError(f"sharded-graph: {d_t}, {d_r}, {d_s}")
+    for p, names in SHARDED_KERNELS.items():
+        if dev.type == "cuda" and not all(runs[p][n] > 0 for n in names):
+            raise RuntimeError(f"{p} launches {runs[p]}, expected {names}")
+
+    # (b) One NCCL rank on the card (gloo on the CPU).
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        one = dryrun.spawn(_nccl_rank, 1, "nccl", "cuda", timeout_s,
+                           (inp, tile))[0].value
+        d = _max_diff(one["value"], type(val["sharded-3d"])(
+            val["sharded-3d"].rot[:1], val["sharded-3d"].t[:1]))
+        print(f"# sharded-nccl: one NCCL rank, mesh (1, 1), pair 1 on "
+              f"{one['device']}: {one['seconds']:.3f} s ({one['transport']}"
+              f"); vs (a)'s pair 1 {d:.3e} (gate {PLAIN_GATE_M}); the world "
+              f"{time.perf_counter() - t0:.1f} s; {smi}")
+        if not (d < PLAIN_GATE_M and one["device"].startswith("cuda")):
+            raise RuntimeError(f"sharded-nccl: {d} from (a), on "
+                               f"{one['device']}")
+
+    # (c) The dry run.
+    t0 = time.perf_counter()
+    dry = dryrun.dryrun_multichip(SHARDED_RANKS, kind, timeout_s)
+    worst = max(max(r.value.values()) for r in dry)
+    print(f"# dryrun_multichip({SHARDED_RANKS}, {kind!r}): "
+          f"{len(dry[0].value)} checks passed on every rank (largest "
+          f"difference {worst:.3e}), {time.perf_counter() - t0:.1f} s; "
+          f"{smi}")
+    print(f"# phase 24: the {SHARDED_RANKS}-rank world {world_s:.1f} s "
+          f"({res[0]['transport']}); four processes time-share one card "
+          f"through host-staged gloo, so no scaling figure")
+    return runs
+
+
+def _nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def _same_value(a, b) -> bool:
+    """Two ranks' results (transforms, tuples of them, or lists) equal."""
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_value(x, y)
+                                        for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return torch.equal(a, b)
+    return torch.equal(a.rot, b.rot) and torch.equal(a.t, b.t)
+
+
 def _capture_calls(module, name: str):
     """Patch ``module.name`` to keep a copy of every call's positional
     arguments (tensors cloned).  Returns (the list that receives them, a
@@ -4176,6 +4618,8 @@ def main() -> int:
     runners = phase_runners(device, main_run, p2l)
     cli_runs = phase_cli(device)
     hooks = phase_hooks(device, slam3["graph"])
+    sharded_runs = phase_sharded(device, smi=smi, inputs=sharded_inputs(
+        slam3["graph"], device=device))
     if profile_run:
         profile_main(device)
         profile_batched(device)
@@ -4216,7 +4660,8 @@ def main() -> int:
             "submap-2d": sub_2d["fused"]["launches"],
             "submap-2d-revoxelize": sub_2d["re-voxelize"]["launches"],
             **{path: run["launches"]
-               for path, run in {**runners, **cli_runs}.items()}}
+               for path, run in {**runners, **cli_runs}.items()},
+            **sharded_runs}
     for rec in records:
         if (rec["name"], rec["path"]) in launches:
             rec["launches"] = launches[(rec["name"], rec["path"])]

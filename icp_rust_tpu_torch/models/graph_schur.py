@@ -27,6 +27,12 @@ chain's normal equations have condition ~O(P^2), so use float64 graphs
 on the values of the edge lists and is computed on the host once per
 graph (``_structure``).  ``run_slam2d``/``run_slam3d`` use the dense
 solve, as in the JAX package.
+
+With a ``mesh`` the segments shard over its ``seg_axis``: each rank
+eliminates its contiguous block of segments (padded with empty ones to a
+multiple of the axis size), the skeleton system's ``hs``/``bs`` and the
+back-substituted ``delta`` are all-reduced, and the small skeleton solve
+runs replicated: the distributed Schur-complement reduction.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 from icp_rust_tpu_torch.models import pose_graph as pg
+from icp_rust_tpu_torch.ops.collectives import psum
 
 
 def _structure(graph: pg.PoseGraph, seg_cap: int = 64):
@@ -121,24 +128,56 @@ def _where(mask, a, b):
     return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)
 
 
-def _solve_delta(graph: pg.PoseGraph, r, ji, jj, w, st) -> torch.Tensor:
-    """Exact H delta = -b via chain elimination; returns delta (P, dof)."""
+# Per-segment layout arrays and what a padded (empty) segment holds:
+# nothing it contributes survives (valid, has and segv are False, its
+# writes go to the slack row p).
+_SEG_FIELDS = ("seg_pose", "valid", "u_mask", "seg_a", "seg_last_edge",
+               "has_int", "ia", "ib", "inner_pose", "last_pose", "segv")
+
+
+def _segments(st, shard=None):
+    """The segment arrays, all of them or, with ``shard`` (rank, size),
+    this rank's contiguous block after padding to a multiple of size."""
+    seg = {k: st[k] for k in _SEG_FIELDS if k != "segv"}
+    seg["segv"] = np.ones(st["nseg"], bool)
+    if shard is None:
+        return seg
+    rank, size = shard
+    pad = -(-st["nseg"] // size) * size - st["nseg"]
+    fill = {"seg_pose": 1, "inner_pose": st["p"], "last_pose": st["p"]}
+    out = {}
+    for k, x in seg.items():
+        x = np.concatenate([x, np.full((pad, *x.shape[1:]), fill.get(k, 0),
+                                       x.dtype)])
+        k_loc = x.shape[0] // size
+        out[k] = x[rank * k_loc:(rank + 1) * k_loc]
+    return out
+
+
+def _solve_delta(graph: pg.PoseGraph, r, ji, jj, w, st, seg=None,
+                 group=None) -> torch.Tensor:
+    """Exact H delta = -b via chain elimination; returns delta (P, dof).
+    ``seg``: the segments this call eliminates (``_segments``; default
+    all); with a ``group`` each rank holds its block of them and the
+    skeleton system and delta are all-reduced over the group."""
     dof = r.shape[-1]
     dev, dtype = r.device, r.dtype
     a_ii, a_jj, a_ij, b_i, b_j = _edge_blocks(graph, r, ji, jj, w)
     p, ns = st["p"], len(st["skel"])
+    seg = _segments(st) if seg is None else seg
 
     def idx(name):
-        return torch.as_tensor(st[name], device=dev, dtype=torch.int64)
+        src = seg if name in seg else st
+        return torch.as_tensor(src[name], device=dev, dtype=torch.int64)
 
     def flag(name):
-        return torch.as_tensor(st[name], device=dev)
+        return torch.as_tensor(seg[name], device=dev)
 
     eye = torch.eye(dof, dtype=dtype, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
     sp, valid, u_mask = idx("seg_pose"), flag("valid"), flag("u_mask")
     seg_a, seg_e, has = idx("seg_a"), idx("seg_last_edge"), flag("has_int")
-    ia, ib = idx("ia"), idx("ib")
+    ia, ib, segv = idx("ia"), idx("ib"), flag("segv")
 
     # Interior pose k has diagonal D = a_jj[k-1] + a_ii[k]; coupling to
     # pose k+1 is U = a_ij[k].  All (nseg, L, ...) by gathers.
@@ -181,28 +220,34 @@ def _solve_delta(graph: pg.PoseGraph, r, ji, jj, w, st) -> torch.Tensor:
     pr = pm_inv @ rcpl
     pb = _mv(pm_inv, b_m)
     cmt, rt = c_m.transpose(-1, -2), rcpl.transpose(-1, -2)
-    c_ll = a_ii[seg_a] + hll - cmt @ pc
-    c_rr = a_jj[seg_e] - rt @ pr
-    c_lr = _where(has, -cmt @ pr, a_ij[seg_a])
-    c_rl = _where(has, -rt @ pc, a_ij[seg_a].transpose(-1, -2))
-    v_l = -b_i[seg_a] + bl - _mv(cmt, pb)
-    v_r = -b_j[seg_e] - _mv(rt, pb)
+    # A padded segment (segv False) contributes nothing.
+    c_ll = _where(segv, a_ii[seg_a] + hll - cmt @ pc, zero)
+    c_rr = _where(segv, a_jj[seg_e] - rt @ pr, zero)
+    c_lr = _where(segv, _where(has, -cmt @ pr, a_ij[seg_a]), zero)
+    c_rl = _where(segv, _where(has, -rt @ pc,
+                               a_ij[seg_a].transpose(-1, -2)), zero)
+    v_l = _where(segv, -b_i[seg_a] + bl - _mv(cmt, pb), zero)
+    v_r = _where(segv, -b_j[seg_e] - _mv(rt, pb), zero)
 
     hs = torch.zeros((ns, dof, ns, dof), dtype=dtype, device=dev)
     bs = torch.zeros((ns, dof), dtype=dtype, device=dev)
     blocks = [(ia, ia, c_ll), (ib, ib, c_rr), (ia, ib, c_lr), (ib, ia, c_rl)]
     rows = [(ia, v_l), (ib, v_r)]
-    if len(st["loop_e"]):
-        # Loop-closure edges: both endpoints are skeleton nodes.
-        le, lia, lib = idx("loop_e"), idx("loop_ia"), idx("loop_ib")
-        blocks += [(lia, lia, a_ii[le]), (lib, lib, a_jj[le]),
-                   (lia, lib, a_ij[le]),
-                   (lib, lia, a_ij[le].transpose(-1, -2))]
-        rows += [(lia, -b_i[le]), (lib, -b_j[le])]
     for i, j, blk in blocks:
         hs.index_put_(pg._block_index(i, j, dof), blk, accumulate=True)
     for i, v in rows:
         bs.index_add_(0, i, v)
+    hs, bs = psum(hs, group), psum(bs, group)
+    if len(st["loop_e"]):
+        # Loop-closure edges: both endpoints are skeleton nodes (the same
+        # on every rank).
+        le, lia, lib = idx("loop_e"), idx("loop_ia"), idx("loop_ib")
+        for i, j, blk in [(lia, lia, a_ii[le]), (lib, lib, a_jj[le]),
+                          (lia, lib, a_ij[le]),
+                          (lib, lia, a_ij[le].transpose(-1, -2))]:
+            hs.index_put_(pg._block_index(i, j, dof), blk, accumulate=True)
+        bs.index_add_(0, lia, -b_i[le])
+        bs.index_add_(0, lib, -b_j[le])
     # Hard gauge: delta_0 = 0 by deleting pose 0's rows and columns
     # (skel[0] is pose 0); a soft 1e8 prior would wreck the skeleton
     # system's conditioning.
@@ -230,14 +275,15 @@ def _solve_delta(graph: pg.PoseGraph, r, ji, jj, w, st) -> torch.Tensor:
         inner = idx("inner_pose")[:, :-1]
         delta[inner.reshape(-1)] = torch.stack(x_inner, 1).reshape(-1, dof)
     delta[idx("last_pose")] = x_last
+    delta = psum(delta, group)
     delta[idx("skel")] = x_s
     return delta[:p]
 
 
 def optimize_schur(graph: pg.PoseGraph, iters: int = 20,
                    huber_k: float | None = None, kernel: str = "huber",
-                   delta_tol: float = 1e-10,
-                   mesh=None) -> pg.PoseGraph:
+                   delta_tol: float = 1e-10, mesh=None,
+                   seg_axis: str = "dp") -> pg.PoseGraph:
     """Gauss-Newton with the chain-elimination Schur solve per iteration,
     on the graph's device.
 
@@ -246,20 +292,26 @@ def optimize_schur(graph: pg.PoseGraph, iters: int = 20,
     positions plus a dense solve of the small loop-closure skeleton.  All
     ``iters`` steps run, the step zeroed once converged, as in
     ``pose_graph.optimize``.  The graph must have
-    ``pose_graph.odometry_chain_graph``'s layout (ValueError otherwise)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "segment sharding over several cards (the JAX package's mesh "
-            "argument) waits for the torch.distributed port; pass "
-            "mesh=None")
+    ``pose_graph.odometry_chain_graph``'s layout (ValueError otherwise).
+    With a ``mesh`` (a ``DeviceMesh``; TypeError otherwise) the segments
+    shard over ``seg_axis`` and the solve runs on the mesh's device; every
+    rank passes the whole graph and gets the same result."""
     st = _structure(graph)
+    seg, group = None, None
+    if mesh is not None:
+        from icp_rust_tpu_torch.parallel.mesh import axis, check_mesh, \
+            mesh_device
+
+        ax = axis(check_mesh(mesh), seg_axis)
+        graph = pg.graph_to(graph, mesh_device(mesh))
+        seg, group = _segments(st, (ax.rank, ax.size)), ax.group
     tcls, dof = pg._group(graph.poses)
     g = graph
     done = torch.zeros((), dtype=torch.bool, device=graph.poses.t.device)
     for _ in range(iters):
         r, ji, jj = pg.edge_residuals_and_jacobians(g)
         w = pg._edge_weights(r, g.info, g.edge_mask, huber_k, kernel)
-        delta = _solve_delta(g, r, ji, jj, w, st)
+        delta = _solve_delta(g, r, ji, jj, w, st, seg, group)
         delta = torch.where(done, torch.zeros_like(delta), delta)
         stepped = tcls.from_twist(delta)
         g = g._replace(poses=stepped.compose(g.poses))

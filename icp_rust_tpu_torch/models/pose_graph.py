@@ -55,6 +55,14 @@ class PoseGraph(NamedTuple):
     edge_mask: Tensor       # (E,) bool
 
 
+def graph_to(graph: PoseGraph, device) -> PoseGraph:
+    """The graph with every tensor on ``device``."""
+    return PoseGraph(
+        poses=graph.poses.to(device), edge_i=graph.edge_i.to(device),
+        edge_j=graph.edge_j.to(device), meas=graph.meas.to(device),
+        info=graph.info.to(device), edge_mask=graph.edge_mask.to(device))
+
+
 def _group(poses):
     """(transform class, twist dof) from the pose point dimension."""
     dim = poses.t.shape[-1]
@@ -203,11 +211,14 @@ def _gauge_prior(p: int, dof: int, dtype, device, weight: float = 1e8):
     return d
 
 
-def _pcg(matvec, b: Tensor, precond, maxiter: int,
-         tol: float = 1e-5) -> Tensor:
+def _pcg(matvec, b: Tensor, precond, maxiter: int, tol: float = 1e-5,
+         exit_early: bool = False) -> Tensor:
     """Preconditioned CG from x0 = 0 with ``jax.scipy.sparse.linalg.cg``'s
     rule: iterate while ||r||² > tol² ||b||² and k < maxiter.  All
-    ``maxiter`` steps run; a converged state is carried unchanged."""
+    ``maxiter`` steps run; a converged state is carried unchanged.  With
+    ``exit_early`` the loop stops at the first converged step instead (a
+    host read per step; the same result, since a converged state never
+    changes again)."""
     x = torch.zeros_like(b)
     r = b - matvec(x)
     z = precond(r)
@@ -216,6 +227,8 @@ def _pcg(matvec, b: Tensor, precond, maxiter: int,
     atol2 = tol * tol * torch.dot(b, b)
     for _ in range(maxiter):
         active = torch.dot(r, r) > atol2
+        if exit_early and not bool(active):
+            break
         ap = matvec(p)
         alpha = gamma / torch.dot(p, ap)
         x_new = x + alpha * p

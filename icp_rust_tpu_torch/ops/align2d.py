@@ -22,6 +22,13 @@ Counterpart of the solver core of reference src/lib.rs:
 ``irls_loop_batched`` kernel, when config.align_backend resolves to
 "cuda" (for "auto": float32); else it runs the plain loop
 ``irls_loop_torch`` here, which is also both kernels' plain version.
+
+With a ``group`` (a ``torch.distributed`` process group over which the
+point axis is sharded, the JAX package's ``axis_name``) the sums complete
+across its ranks: JtJ, Jtr, the errors and the count are all-reduced, and
+sigma comes from the all-gathered residuals and mask, so every rank
+computes the same exact median.  ``estimate_transform`` then takes the
+plain loop: the kernels cannot all-reduce in the middle of their loop.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from torch import Tensor
 from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.ops import huber, linalg, robust
+from icp_rust_tpu_torch.ops.collectives import all_gather_tiled, psum
 
 
 def residuals(transform: RigidTransform2, src: Tensor, dst: Tensor) -> Tensor:
@@ -42,18 +50,19 @@ def residuals(transform: RigidTransform2, src: Tensor, dst: Tensor) -> Tensor:
 
 
 def error(transform: RigidTransform2, src: Tensor, dst: Tensor,
-          mask: Tensor) -> Tensor:
+          mask: Tensor, group=None) -> Tensor:
     """Masked sum of squared residual norms. Ref src/lib.rs:38-43."""
     r = residuals(transform, src, dst)
-    return torch.sum(torch.sum(r * r, dim=-1) * mask.to(r.dtype), dim=-1)
+    return psum(torch.sum(torch.sum(r * r, dim=-1) * mask.to(r.dtype),
+                           dim=-1), group)
 
 
 def huber_error(transform: RigidTransform2, src: Tensor, dst: Tensor,
-                mask: Tensor, huber_k: float) -> Tensor:
+                mask: Tensor, huber_k: float, group=None) -> Tensor:
     """Masked sum of rho(|r|^2, k). Ref src/lib.rs:45-50."""
     r = residuals(transform, src, dst)
-    return torch.sum(huber.rho(torch.sum(r * r, dim=-1), huber_k)
-                     * mask.to(r.dtype), dim=-1)
+    return psum(torch.sum(huber.rho(torch.sum(r * r, dim=-1), huber_k)
+                           * mask.to(r.dtype), dim=-1), group)
 
 
 def jacobian(rot: Tensor, src: Tensor) -> Tensor:
@@ -65,9 +74,9 @@ def jacobian(rot: Tensor, src: Tensor) -> Tensor:
     return torch.cat([rot_cols, rot_arm[..., :, None]], dim=-1)
 
 
-def _count_gate(mask: Tensor) -> Tensor:
+def _count_gate(mask: Tensor, group=None) -> Tensor:
     """check_input_size: n > 0 and n >= dim(=2). Ref src/lib.rs:186-189."""
-    return torch.sum(mask, dim=-1) >= 2
+    return psum(torch.sum(mask, dim=-1), group) >= 2
 
 
 class GNUpdate(NamedTuple):
@@ -100,13 +109,18 @@ def gauss_newton_update(transform: RigidTransform2, src: Tensor,
 
 def weighted_gauss_newton_update(transform: RigidTransform2, src: Tensor,
                                  dst: Tensor, mask: Tensor, huber_k: float,
-                                 det_rel_eps: float = 0.0) -> GNUpdate:
+                                 det_rel_eps: float = 0.0,
+                                 group=None) -> GNUpdate:
     """Robust IRLS GN step. Ref src/lib.rs:218-261: per point and residual
     dimension j, weight drho(r_ij^2, k) scaled by 1/sigma_j (the dimension
     is skipped where sigma_j == 0)."""
     maskf = mask.to(src.dtype)
     r = residuals(transform, src, dst)
-    sigma, stats_valid = robust.calc_stddevs(r, mask)
+    # sigma is an order statistic of the whole point axis: with a group,
+    # gather the residuals so every rank computes the same one.
+    sigma, stats_valid = robust.calc_stddevs(
+        all_gather_tiled(r, group, dim=-2),
+        all_gather_tiled(mask, group, dim=-1))
     dim_ok = sigma != 0.0
     g = torch.where(dim_ok, 1.0 / torch.where(dim_ok, sigma,
                                               torch.ones_like(sigma)),
@@ -118,8 +132,9 @@ def weighted_gauss_newton_update(transform: RigidTransform2, src: Tensor,
     jtj = torch.einsum("...ni,...nik,...nil->...kl", u, j, j)
     err = torch.sum(huber.rho(torch.sum(r * r, dim=-1), huber_k) * maskf,
                     dim=-1)
+    jtr, jtj, err = psum(jtr, group), psum(jtj, group), psum(err, group)
     x, ok_solve = linalg.solve3x3(jtj, jtr, det_rel_eps)
-    ok = ok_solve & _count_gate(mask) & stats_valid
+    ok = ok_solve & _count_gate(mask, group) & stats_valid
     delta = torch.where(ok[..., None], -x, torch.zeros_like(x))
     return GNUpdate(delta, ok, err)
 
@@ -155,12 +170,14 @@ def _delta_sq_physical(delta: Tensor, point_scale: float) -> Tensor:
 
 def irls_loop_torch(src: Tensor, dst: Tensor, mask: Tensor, huber_k: float,
                     det_rel_eps: float, tol_d2: float, max_iter: int,
-                    point_scale: float):
+                    point_scale: float, group=None):
     """The inner loop with FIXED correspondences, from identity, in plain
     torch.  src/dst (..., N, 2) in solver units, mask (..., N), huber_k in
     solver units.  Batch lanes freeze when done and the loop exits when
     all are.  Returns (rot, t, iterations): per lane, int32, the
-    iterations it ran, its stopping one included."""
+    iterations it ran, its stopping one included.  With a ``group`` the
+    point axis is sharded over it: every update is the same on all its
+    ranks, so the loop's exit test (a host read) stays in step."""
     dtype = src.dtype
     batch = src.shape[:-2]
     t = RigidTransform2.identity(batch, dtype, src.device)
@@ -172,7 +189,7 @@ def irls_loop_torch(src: Tensor, dst: Tensor, mask: Tensor, huber_k: float,
     while it < max_iter and not bool(torch.all(done)):
         lane_it = lane_it + (~done).to(torch.int32)
         upd = weighted_gauss_newton_update(t, src, dst, mask, huber_k,
-                                           det_rel_eps)
+                                           det_rel_eps, group)
         stop = ~upd.ok
         stop = stop | (_delta_sq_physical(upd.delta, point_scale) < tol_d2)
         stop = stop | (upd.err > prev_err)
@@ -199,14 +216,19 @@ def use_cuda_align(src: Tensor, backend: str) -> bool:
 
 
 def estimate_transform(src: Tensor, dst: Tensor, mask: Tensor,
-                       config: ICPConfig) -> RigidTransform2:
+                       config: ICPConfig, group=None) -> RigidTransform2:
     """Inner alignment loop with FIXED correspondences. Ref
     src/lib.rs:59-84.  src/dst (N, 2), or (B, N, 2) for B pairs, in solver
-    units; starts from identity and left-composes Exp(delta)."""
+    units; starts from identity and left-composes Exp(delta).  With a
+    ``group`` the point axis is sharded over its ranks and the plain loop
+    runs, its sums completed across them (the result is the same on every
+    rank)."""
     huber_k = config.huber_k / config.point_scale
     args = (huber_k, config.det_rel_eps, config.inner_delta_sq_tol,
             config.inner_max_iter, config.point_scale)
-    if use_cuda_align(src, config.align_backend):
+    if group is not None:
+        rot, t, _ = irls_loop_torch(src, dst, mask, *args, group=group)
+    elif use_cuda_align(src, config.align_backend):
         from icp_rust_tpu_torch.ops import align2d_cuda
 
         if src.ndim == 2:

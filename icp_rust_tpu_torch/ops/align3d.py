@@ -18,7 +18,10 @@ dr/dv = n and dr/dw = p x n.
 ``p2l_loop`` kernel (``ops/align3d_cuda.py``) when ``use_cuda_p2l``
 resolves to the kernel route; else the plain loop here, whose 6x6 solve is
 an LU solve with ``_solve6``'s residual gate, as the JAX package's XLA
-path is.
+path is.  With a ``group`` (the point axis sharded over its ranks, the
+JAX package's ``axis_name``) sigma comes from the all-gathered residuals
+and mask, JtJ, Jtr, the error and the count are all-reduced, and the
+plain loop runs.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
 from icp_rust_tpu_torch.ops import huber, robust
 from icp_rust_tpu_torch.ops.align2d import use_cuda_align
+from icp_rust_tpu_torch.ops.collectives import all_gather_tiled, psum
 
 
 class GNUpdate6(NamedTuple):
@@ -76,11 +80,13 @@ def _solve6(jtj: Tensor, jtr: Tensor, n_ok: Tensor):
 
 def weighted_gn_update_p2l(transform: RigidTransform3, src: Tensor,
                            dst: Tensor, normals: Tensor, mask: Tensor,
-                           huber_k: float) -> GNUpdate6:
+                           huber_k: float, group=None) -> GNUpdate6:
     """One robust point-to-plane GN step (plain PyTorch)."""
     maskf = mask.to(src.dtype)
     r = plane_residuals(transform, src, dst, normals)  # (..., N)
-    sigma, stats_valid = robust.masked_stddev(r, mask)
+    sigma, stats_valid = robust.masked_stddev(
+        all_gather_tiled(r, group, dim=-1),
+        all_gather_tiled(mask, group, dim=-1))
     dim_ok = sigma != 0.0
     g = torch.where(dim_ok, 1.0 / torch.where(dim_ok, sigma,
                                               torch.ones_like(sigma)),
@@ -93,7 +99,8 @@ def weighted_gn_update_p2l(transform: RigidTransform3, src: Tensor,
     jtr = torch.einsum("...n,...nk,...n->...k", u, j, r)
     jtj = torch.einsum("...n,...nk,...nl->...kl", u, j, j)
     err = torch.sum(huber.rho(r * r, huber_k) * maskf, dim=-1)
-    n_ok = torch.sum(mask, dim=-1) >= 6
+    jtr, jtj, err = psum(jtr, group), psum(jtj, group), psum(err, group)
+    n_ok = psum(torch.sum(mask, dim=-1), group) >= 6
     x, solve_ok = _solve6(jtj, jtr, n_ok)
     ok = solve_ok & stats_valid & dim_ok
     delta = torch.where(ok[..., None], -x, torch.zeros_like(x))
@@ -127,8 +134,11 @@ def use_cuda_p2l(src: Tensor, backend: str) -> bool:
                                              or src.ndim == 2)
 
 
-def _loop_torch(src, dst, normals, mask, huber_k: float, config: ICPConfig):
-    """The plain inner loop from identity, batch lanes freezing when done."""
+def _loop_torch(src, dst, normals, mask, huber_k: float, config: ICPConfig,
+                group=None):
+    """The plain inner loop from identity, batch lanes freezing when done;
+    with a ``group`` every update, so the exit test, is the same on all its
+    ranks."""
     dtype = src.dtype
     batch = src.shape[:-2]
     t = RigidTransform3.identity(batch, dtype, src.device)
@@ -138,7 +148,8 @@ def _loop_torch(src, dst, normals, mask, huber_k: float, config: ICPConfig):
     s2 = config.point_scale ** 2
     it = 0
     while it < config.inner_max_iter and not bool(torch.all(done)):
-        upd = weighted_gn_update_p2l(t, src, dst, normals, mask, huber_k)
+        upd = weighted_gn_update_p2l(t, src, dst, normals, mask, huber_k,
+                                     group)
         # Physical-units threshold: the translation components rescale.
         d2_phys = (torch.sum(upd.delta[..., :3] ** 2, dim=-1) * s2
                    + torch.sum(upd.delta[..., 3:] ** 2, dim=-1))
@@ -156,12 +167,16 @@ def _loop_torch(src, dst, normals, mask, huber_k: float, config: ICPConfig):
 
 
 def estimate_transform_p2l(src: Tensor, dst: Tensor, normals: Tensor,
-                           mask: Tensor, config: ICPConfig) -> RigidTransform3:
+                           mask: Tensor, config: ICPConfig,
+                           group=None) -> RigidTransform3:
     """Inner IRLS loop with FIXED correspondences (reference loop
     structure, src/lib.rs:59-84, on SE(3)), from identity.  src/dst/normals
     (N, 3) in solver units, mask (N,).  The kernel route is unbatched, as
-    the TPU's is; the plain loop also takes batch axes."""
+    the TPU's is; the plain loop also takes batch axes.  With a ``group``
+    the point axis is sharded over its ranks and the plain loop runs."""
     huber_k = config.huber_k / config.point_scale
+    if group is not None:
+        return _loop_torch(src, dst, normals, mask, huber_k, config, group)
     if use_cuda_p2l(src, config.align_backend):
         if src.ndim != 2:
             raise NotImplementedError(

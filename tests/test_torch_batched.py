@@ -368,7 +368,9 @@ def test_batched_icp2d_entry_point_and_shared_db():
             **CPU)
         assert torch.equal(shared.rot, tiled.rot)
         assert torch.equal(shared.t, tiled.t)
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    # A mesh is a torch.distributed DeviceMesh (tests/test_torch_parallel
+    # runs one); anything else is refused by its type.
+    with pytest.raises(TypeError, match="DeviceMesh, got object"):
         batched_icp2d(sp, dp, sm, dm, t0, KERNEL_CFG, mesh=object(), **CPU)
 
 

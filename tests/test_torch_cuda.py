@@ -31,8 +31,10 @@ way (chip_smoke.frame_gate).  The voxel hash table on the
 card equals the CPU's: keys, counts and drops exact, point sums to
 float32 roundoff.  The per-frame odometry runners are bitwise the fused
 runners on the card, and a resumed run bitwise the uninterrupted one.
-chip_smoke.py runs the same comparisons at the paths'
-full sizes.
+On four gloo ranks sharing the card, the ring NN is bitwise the search
+over the whole cloud, and dp_sp_icp3d_planar on one 28,800-point pair is
+within 1 mm of icp3d_planar.  chip_smoke.py runs the same comparisons at
+the paths' full sizes.
 """
 
 import numpy as np
@@ -1390,3 +1392,40 @@ def test_per_frame_runners_bitwise_the_fused_ones_and_resume(dev, kind,
     _, resumed = run(pts, mask, cfg, metrics=MetricsLogger(None),
                      checkpoint=ck, resume=True, **kw)
     assert np.array_equal(resumed, path)
+
+
+def _card_world(fn, *args):
+    """``fn(*args)`` on 4 gloo ranks sharing the card (NCCL refuses two
+    ranks on one card); the ranks' results."""
+    from icp_rust_tpu_torch.parallel import dryrun
+
+    return [r.value for r in dryrun.spawn(fn, 4, "gloo", "cuda", 300, args)]
+
+
+def test_ring_nn_on_four_ranks_is_bitwise_the_whole_cloud_search(dev):
+    """parallel/ring_nn on 4 gloo ranks on the card: each rank's queries
+    (its block of frame 1) against frame 0 sharded 4 ways, bitwise the
+    search over the whole of frame 0 (indices, distances, payload)."""
+    import torch_parallel_cases as cases
+
+    pts, mask = cases.frame_pair()
+    assert all(_card_world(cases.ring_on_card, pts, mask))
+
+
+def test_dp_sp_icp3d_planar_on_four_ranks_tracks_icp3d_planar(dev):
+    """parallel/sharded.dp_sp_icp3d_planar on one 28,800-point pair, its
+    clouds sharded over 4 gloo ranks on the card, within 1 mm of the
+    single-device icp3d_planar (another NN route and sum order; the same
+    fixed point to well under a millimetre)."""
+    import torch_parallel_cases as cases
+    from icp_rust_tpu_torch.models.icp2d import icp3d_planar
+
+    pts, mask = cases.frame_pair()
+    got = _card_world(cases.dp_sp_pair_on_card, pts, mask)
+    want = icp3d_planar(pts[0], pts[1], mask[0], mask[1],
+                        RigidTransform2.identity(),
+                        ICPConfig(det_rel_eps=1e-9, nn_dst_tile=2048),
+                        device=dev)
+    for rot, t in got:
+        assert np.abs(t - want.t.cpu().numpy()).max() < 1e-3
+        assert np.abs(rot - want.rot.cpu().numpy()).max() < 1e-3

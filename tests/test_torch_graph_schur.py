@@ -141,5 +141,5 @@ def test_schur_rejects_non_chain_graph_and_a_mesh():
     with pytest.raises(ValueError):
         j_schur(_graph2d()._replace(
             edge_i=_graph2d().edge_i.at[3].set(7)), iters=2)
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(TypeError, match="DeviceMesh, got object"):
         optimize_schur(graph, iters=2, mesh=object())

@@ -91,6 +91,10 @@ def test_importing_the_port_loads_no_jax():
         "import icp_rust_tpu_torch.utils.oracle_np, icp_rust_tpu_torch.native.oracle\n"
         "import icp_rust_tpu_torch.native.loader, icp_rust_tpu_torch.examples.scan2d\n"
         "import icp_rust_tpu_torch.examples.scan3d\n"
+        "import icp_rust_tpu_torch.parallel.mesh, icp_rust_tpu_torch.parallel.collectives\n"
+        "import icp_rust_tpu_torch.ops.collectives\n"
+        "import icp_rust_tpu_torch.parallel.ring_nn, icp_rust_tpu_torch.parallel.sharded\n"
+        "import icp_rust_tpu_torch.parallel.dist_graph, icp_rust_tpu_torch.parallel.dryrun\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'icp_rust_tpu' or m.startswith('icp_rust_tpu.')]\n"
         "print(bad)\n"
@@ -145,6 +149,78 @@ def test_entry_points_raise_without_a_card(entry):
             run_odometry_p2l(np.stack([pts, pts]), np.stack([mask, mask]))
         else:
             run_odometry_fused(np.stack([pts, pts]), np.stack([mask, mask]))
+
+
+@pytest.fixture
+def cuda_mesh_without_card(tmp_path):
+    """A one-rank mesh that says "cuda" on a machine without a card: a
+    one-rank gloo world in this process and a CPU mesh whose device type
+    is set to "cuda" (make_mesh itself refuses to build one)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    _no_card()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rv",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("dp", "sp"))
+        mesh._device_type = "cuda"
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("entry", [
+    "sharded_estimate_transform", "sharded_icp2d", "dp_sp_icp2d",
+    "dp_sp_icp3d_planar", "dp_sp_icp_p2l", "batched_icp2d",
+    "optimize_distributed", "optimize_schur"])
+def test_sharded_entry_points_raise_without_a_card(entry,
+                                                   cuda_mesh_without_card):
+    from icp_rust_tpu_torch.models import pose_graph as pg
+    from icp_rust_tpu_torch.models.graph_schur import optimize_schur
+    from icp_rust_tpu_torch.parallel import dist_graph, sharded
+
+    mesh = cuda_mesh_without_card
+    pts, mask = _pair3d(64)
+    cfg = ICPConfig()
+    b3, bm = np.stack([pts, pts]), np.stack([mask, mask])
+    t2 = RigidTransform2.identity((2,))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "sharded_estimate_transform":
+            sharded.sharded_estimate_transform(pts[:, :2], pts[:, :2], mask,
+                                               cfg, mesh)
+        elif entry == "sharded_icp2d":
+            sharded.sharded_icp2d(pts[:, :2], pts[:, :2], mask, mask,
+                                  RigidTransform2.identity(), cfg, mesh)
+        elif entry in ("dp_sp_icp2d", "batched_icp2d"):
+            getattr(sharded, entry)(b3[..., :2], b3[..., :2], bm, bm, t2,
+                                    cfg, mesh=mesh)
+        elif entry == "dp_sp_icp3d_planar":
+            sharded.dp_sp_icp3d_planar(b3, b3, bm, bm, t2, cfg, mesh)
+        elif entry == "dp_sp_icp_p2l":
+            sharded.dp_sp_icp_p2l(b3, b3, bm, bm,
+                                  RigidTransform3.identity((2,)), cfg, mesh)
+        else:
+            graph = pg.odometry_chain_graph(RigidTransform2.from_twist(
+                torch.tensor([[1.0, 0.0, 0.1]] * 4, dtype=torch.float64)))
+            if entry == "optimize_distributed":
+                dist_graph.optimize_distributed(graph, mesh, iters=1)
+            else:
+                optimize_schur(graph, iters=1, mesh=mesh)
+
+
+def test_make_mesh_and_spawn_raise_without_a_card():
+    """``make_mesh``, ``spawn``, ``dryrun_programs`` and
+    ``dryrun_multichip`` with their default device type, and a world of
+    ranks asked for on the card."""
+    _no_card()
+    from icp_rust_tpu_torch.parallel import dryrun, make_mesh
+
+    for call in (make_mesh, dryrun.dryrun_multichip, dryrun.dryrun_programs,
+                 lambda: dryrun.spawn(print, 1),
+                 lambda: dryrun.dryrun_multichip(4, "cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_entry_point_runs_on_cpu_when_asked():
