@@ -243,6 +243,43 @@ The modules users drive the paths through:
     time-sharing one card give no scaling figure.  Its paths' launches
     are summed over the ranks.
 
+The last of the JAX package (batched point-to-plane ICP, nn_method="mxu",
+the grid hash):
+
+25. Batched ``icp_point_to_plane``, twice each (the second call timed,
+    pairs/s by the host clock, synchronised): (a) the 95 consecutive pairs
+    (k, k + 1) of the 96 frames at full width from identity, voxel normals
+    at 0.3 m (kernel 4 at D 3 / P 4, once an outer iteration, and the
+    plain batched inner loop, the JAX package's route for a batch); (b)
+    the 27 consecutive pairs of phase 16's room frames (3,072 points,
+    voxel 0.4 m) from their true relative poses perturbed by a seeded
+    twist of 2 cm and 0.5 degrees (kernel 8 on the cold iteration, kernel
+    9 on every warm one).  Gates for both: each pair's translation error
+    against ground truth < 0.05 m; each pair within 1 mm of the
+    single-pair call on it (in (a) 1 cm in z, P2L_BATCH_Z_M) and, for the
+    first 8, within 1 mm in every DoF of the batched plain route (no
+    launch); the launches.  Prints outer iterations and max |t_z|.  (a)'s
+    cold kernel 4 call, captured, is held bitwise against its plain
+    version and brute force on all 95 pairs, and timed by its launcher
+    alone at every schedule.  Every kernel 8 and 9 call of (b)'s first
+    run, captured, is held bitwise against its plain version, its
+    schedule's emulation, brute force and at every schedule, and the cold
+    call and the first warm call are timed by their launchers alone (the
+    4-lane payload; the results whose winner carries the invalid-plane
+    sentinel c are counted).
+26. ``run_odometry_fused`` with nn_method="mxu" (the cross term a float32
+    matmul on the plain sweep; the IRLS loop stays on kernel 2) over the
+    first 16 of the 96 frames at full width, twice: ATE < 0.05 m,
+    frames/s, outer iterations; then one captured NN call against the
+    direct kernel route: the share of equal indices, the largest distance
+    gap.
+27. ``ops/gridhash`` on frames 0 (db) and 1 (queries) at full width, r
+    0.25 m, cap 32, 2^16 slots (one of ``benchmarks/profile_gridhash.py``'s
+    settings): overflow_frac printed; the found set equal to brute force's
+    in-radius set (kernel 5 with a batch axis); every result that differs
+    from brute force's explained by a dropped point; fields and results
+    bitwise the same call's on the CPU; build and query ms.
+
 The launch counts of each path are zeroed just before it and read just
 after.  Prints one ``{"kernels": [...]}`` line, one entry per kernel (the
 fourteen): the contract's keys for its first timed shape and path
@@ -260,8 +297,9 @@ builds the kernels and only times kernels 12, 14, 13, 3, 8, 9 and 10 by
 their launchers alone at every shape their paths give them (kernels 12
 and 14 at 28,800, 3,072 and 1,000 points, kernel 13 at 211 x 768 and at
 SLAM 2D wide's 11 x 28,160 and its first 1,536-4,096 points, kernel 8 at
-the batched path's cold call, kernel 9 on every call of the batched path
-and of SLAM 2D, kernel 10 at 209 x 768, 64 x 1,536 and B = 1), at every
+the batched path's cold call and phase 25(b)'s (D 3 / P 4), kernel 9 on
+every call of the batched path, of SLAM 2D and of phase 25(b), kernel 10
+at 209 x 768, 64 x 1,536 and B = 1), at every
 cluster size, route, schedule or setting the tree has, each call held
 against its plain version, with the two frame kernels' splits of an
 outer iteration into its sweep, IRLS loop and tail per pair
@@ -282,10 +320,11 @@ against the plain loop on its own inputs) and exits non-zero.
 adds torch.profiler traces of the main path's first 16 frames, of the
 batched path, of the p2l path's first 16 frames (with the voxel normals'
 share), of run_slam3d over the 96 frames (with a host-clock split into
-its ICP calls, its mean-NN-distance calls and its graph solve) and of the
+its ICP calls, its mean-NN-distance calls and its graph solve), of the
 submap path over the 96 frames (with a host-clock split into its ICP
-calls, hash inserts and Morton resorts): device time by kernel and the
-device's idle share, and the profiler's tables.
+calls, hash inserts and Morton resorts) and of phase 25(a)'s batched p2l
+call: device time by kernel and the device's idle share, and the
+profiler's tables.
 
 The phases take ``device`` and sizes, so a CPU test rehearses them at a
 tiny size with the kernels' plain versions.
@@ -295,6 +334,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import glob
 import importlib.util
@@ -328,7 +368,9 @@ from icp_rust_tpu_torch.models.slam import run_slam2d, run_slam3d
 from icp_rust_tpu_torch.models.submap import run_submap_odometry
 from icp_rust_tpu_torch.native import loader as native_loader
 from icp_rust_tpu_torch.ops import align2d, align2d_cuda, align3d, \
-    align3d_cuda, cuda_build, nn_cuda, nn_pairs_cuda, nn_sweep_cuda, robust
+    align3d_cuda, cuda_build, gridhash, nn_cuda, nn_pairs_cuda, \
+    nn_sweep_cuda, robust
+from icp_rust_tpu_torch.ops import nn as m_nn
 from icp_rust_tpu_torch.ops.nn import nearest_neighbor_matched, nn_torch
 from icp_rust_tpu_torch.ops.normals import estimate_normals_voxel
 from icp_rust_tpu_torch.parallel.sharded import batched_icp2d
@@ -404,6 +446,24 @@ SUBMAP_NN_CALL = 16
 # The wall world of the JAX package's tests/test_submap.py and its gate.
 SUBMAP_2D_KW = dict(voxel_size=0.03, capacity=4096)
 SUBMAP_2D_GATE_M = 0.02
+# Batched p2l (phase 25): the batched plain route's pairs (nn_torch holds
+# a (B, Q, tile) distance block, ~22 GB at B = 95 and 28,800 points), and
+# the room pairs' warm starts: true poses perturbed by a seeded twist of
+# these translation and rotation norms.
+P2L_BATCH_PLAIN = 8
+# Phase 25(a)'s z against the single-pair calls (the plain route keeps
+# PLAIN_GATE_M in z).  The synthetic world is vertical walls: every normal
+# is horizontal, so the data barely constrain z.  On an H100 the same
+# plain inner loop on one pair and on the batch differed by 2.4e-3 m in z
+# at 2 of 95 pairs, by 1.5e-4 m in xy and 1.1e-4 in rotation; that the
+# cause is float32 summation order is inferred, not shown by a float64
+# run.  xy and rotation keep PLAIN_GATE_M; z keeps this, and the
+# ground-truth gate.
+P2L_BATCH_Z_M = 1e-2
+ROOM_TWIST_M = 0.02
+ROOM_TWIST_RAD = float(np.deg2rad(0.5))
+# nn_method="mxu" (phase 26): the main path's first frames.
+MXU_FRAMES = 16
 
 
 def _sync(device):
@@ -936,12 +996,18 @@ def scans2d(n_scans: int = BATCH_SCANS, pad: int = BATCH_PAD, seed: int = 6):
         k = int(rng.integers(BATCH_COUNTS[0], BATCH_COUNTS[1] + 1))
         xy.append(f[rng.choice(len(f), min(k, pad), replace=False), :2])
     pts, mask = io.pad_points(xy, pad_to=pad)
+    return (pts, mask, *_pair_truth(traj))
+
+
+def _pair_truth(traj):
+    """The ground-truth planar transform of each consecutive pair of an
+    (x, y, theta) trajectory, frame k onto frame k + 1: (angle, t xy)."""
     th = traj[:, 2]
     c, s = np.cos(th[1:]), np.sin(th[1:])
     d = traj[:-1, :2] - traj[1:, :2]
     gt_t = np.stack([c * d[:, 0] + s * d[:, 1], -s * d[:, 0] + c * d[:, 1]],
                     axis=-1)
-    return pts, mask, th[:-1] - th[1:], gt_t
+    return th[:-1] - th[1:], gt_t
 
 
 def _batch(device, n_scans: int = BATCH_SCANS, pad: int = BATCH_PAD,
@@ -2492,12 +2558,25 @@ def phase_slam3d(device="cuda", n_frames: int = 96, stride: int = 1,
                 graph=graphs[0][0])
 
 
+def room_poses(n_poses: int = 28):
+    """The sensor poses of ``room_sequence``: a closing loop with full
+    6-DoF motion."""
+    poses = []
+    for k in range(n_poses):
+        a = 2 * np.pi * k / (n_poses - 1)
+        poses.append(RigidTransform3.from_twist(torch.tensor(
+            [np.cos(a), np.sin(a), 0.05 * np.sin(2 * a), 0.02 * np.sin(a),
+             0.02 * np.cos(a), a], dtype=torch.float32)))
+    return poses
+
+
 def room_sequence(n_poses: int = 28, n_points: int = 3072,
                   scene_n: int = 6000, seed: int = 0):
     """A planar room (floor, two walls, a ramp) seen from a closing loop
     with full 6-DoF motion, ``n_points`` points per frame (the scene of
     the JAX package's tests/test_slam3d.py, made here with numpy and the
-    port's geometry): (frames, ground-truth positions in pose 0's frame)."""
+    port's geometry): (frames, ground-truth positions in pose 0's frame);
+    frame k is the scene seen from ``room_poses(n_poses)[k]``."""
     rng = np.random.default_rng(seed)
     lo_hi = (([-3, -3, 0], [3, 3, 0], scene_n // 2),
              ([-3, -3, 0], [3, -3, 2], scene_n // 4),
@@ -2506,12 +2585,7 @@ def room_sequence(n_poses: int = 28, n_points: int = 3072,
     parts = [rng.uniform(lo, hi, (k, 3)) for lo, hi, k in lo_hi]
     parts[3][:, 2] = 0.5 * (parts[3][:, 0] - 1.0)
     scene = np.concatenate(parts).astype(np.float32)
-    poses = []
-    for k in range(n_poses):
-        a = 2 * np.pi * k / (n_poses - 1)
-        poses.append(RigidTransform3.from_twist(torch.tensor(
-            [np.cos(a), np.sin(a), 0.05 * np.sin(2 * a), 0.02 * np.sin(a),
-             0.02 * np.cos(a), a], dtype=torch.float32)))
+    poses = room_poses(n_poses)
     frames = []
     for p in poses:
         pts = p.inverse().apply_points(torch.as_tensor(scene)).numpy() \
@@ -3819,16 +3893,17 @@ def _same_value(a, b) -> bool:
     return torch.equal(a.rot, b.rot) and torch.equal(a.t, b.t)
 
 
-def _capture_calls(module, name: str):
+def _capture_calls(module, name: str, limit: int | None = None):
     """Patch ``module.name`` to keep a copy of every call's positional
-    arguments (tensors cloned).  Returns (the list that receives them, a
-    function that undoes the patch)."""
+    arguments (tensors cloned), or of the first ``limit`` calls'.  Returns
+    (the list that receives them, a function that undoes the patch)."""
     real = getattr(module, name)
     calls = []
 
     def spy(*args, **kw):
-        calls.append(tuple(a.clone() if torch.is_tensor(a) else a
-                           for a in args))
+        if limit is None or len(calls) < limit:
+            calls.append(tuple(a.clone() if torch.is_tensor(a) else a
+                               for a in args))
         return real(*args, **kw)
 
     setattr(module, name, spy)
@@ -4398,14 +4473,13 @@ def pairs_cold_inputs(device, scans):
     return args8, args9
 
 
-def _pairs_cold_times(device, scans, reps: int = 20):
-    """Kernel 8 at the cold batched call by its launcher alone, bitwise
+def _pairs_cold_times(device, args8, args9=None, reps: int = 20):
+    """Kernel 8 on a cold call ``args8`` by its launcher alone, bitwise
     equal to its plain version, at its wrapper's schedule and, where the
     tree has them, at every schedule of ``_pairs_schedules``; beside
-    kernel 9 on the same case and kernel 8's issue floor (its (query,
-    point) pairs at NN_INSTR_PER_PAIR instructions and the card's float32
-    instruction rate)."""
-    args8, args9 = pairs_cold_inputs(device, scans)
+    kernel 9 on the same case (``args9``, when given) and kernel 8's issue
+    floor (its (query, point) pairs at NN_INSTR_PER_PAIR instructions and
+    the card's float32 instruction rate)."""
     res = nn_pairs_cuda._nn_pairs_args(*args8)
     ms = launcher_ms("nn_pairs", res[0], device, reps=reps)
     _sync(device)
@@ -4413,9 +4487,12 @@ def _pairs_cold_times(device, scans, reps: int = 20):
     _equal_or_raise(out, nn_pairs_cuda.nn_pairs_plain(*args8),
                     "nn_pairs cold")
     schedules, key = _pairs_schedules(args8, out, device, reps)
-    largs9, _out9, keep9 = nn_pairs_cuda._nn_pairs_list_args(*args9)[:3]
-    ms9 = launcher_ms("nn_pairs_list", largs9, device, reps=reps)
-    del res, keep9
+    ms9 = None
+    if args9 is not None:
+        largs9, _out9, keep9 = nn_pairs_cuda._nn_pairs_list_args(*args9)[:3]
+        ms9 = launcher_ms("nn_pairs_list", largs9, device, reps=reps)
+        del keep9
+    del res
     query_p, _, qbox, cbox, gb, d_dim, q_sub = args8
     walked = int((nn_pairs_cuda._box_lower_bound(qbox, cbox, d_dim)
                   <= gb[..., None]).sum())
@@ -4476,13 +4553,26 @@ def kernel_times(device="cuda", reps: int = 20):
               f"(clusters {rec['cluster_ms']})")
     times["icp2d_frame_split"] = frame_split(device, reps=reps)
     scans = scans2d()
-    rec = times["nn_pairs"] = _pairs_cold_times(device, scans, reps)
+    rec = times["nn_pairs"] = _pairs_cold_times(
+        device, *pairs_cold_inputs(device, scans), reps=reps)
     print(f"# times nn_pairs cold: launcher alone {rec['ms']} ms at "
           f"schedule {rec['schedule']} (by schedule {rec['schedules_ms']}), "
           f"bitwise equal to plain; nn_pairs_list on the same case "
           f"{rec['list_cold_ms']} ms; issue floor {rec['issue_floor_ms']} "
           f"ms for {rec['pairs']} (query, point) pairs")
-    for path, calls in pairs_list_inputs(device, scans).items():
+    list_inputs = pairs_list_inputs(device, scans)
+    if 4 in getattr(nn_pairs_cuda, "_PAYLOADS", ()):
+        # The batched p2l room pairs (phase 25(b)): D 3, the 4-lane payload.
+        p2l_calls = p2l_pairs_inputs(device)
+        rec = times["nn_pairs_p2l"] = _pairs_cold_times(
+            device, p2l_calls["nn_pairs"][0], reps=reps)
+        print(f"# times nn_pairs batched-p2l-room cold (D 3, P 4): launcher "
+              f"alone {rec['ms']} ms at schedule {rec['schedule']} (by "
+              f"schedule {rec['schedules_ms']}), bitwise equal to plain; "
+              f"issue floor {rec['issue_floor_ms']} ms for {rec['pairs']} "
+              f"(query, point) pairs")
+        list_inputs["batched-p2l-room"] = p2l_calls["nn_pairs_list"]
+    for path, calls in list_inputs.items():
         rec = times["nn_pairs_list"][path] = _pairs_list_times(calls, device,
                                                                 reps)
         print(f"# times nn_pairs_list {path}: {rec['calls']} calls, "
@@ -4515,6 +4605,498 @@ def kernel_times(device="cuda", reps: int = 20):
               "near tie taken the other way at an exact fixed point of its "
               "outer step), equal outer iterations")
     return times
+
+
+# ----------------------------------------------------------------------
+# Phases 25-27: batched point-to-plane ICP, nn_method="mxu", the grid hash.
+
+
+def _pair_diff3(a: RigidTransform3, b: RigidTransform3):
+    """Per pair: (the larger of |t_a - t_b| in xy and |R_a - R_b| (max
+    entry), |t_a - t_b| in z)."""
+    dxy = torch.linalg.norm(a.t[..., :2] - b.t[..., :2], dim=-1)
+    dr = torch.amax(torch.abs(a.rot - b.rot), dim=(-2, -1))
+    return torch.maximum(dxy, dr), torch.abs(a.t[..., 2] - b.t[..., 2])
+
+
+def _pick(t: RigidTransform3, k) -> RigidTransform3:
+    return RigidTransform3(t.rot[k], t.t[k])
+
+
+def _run_p2l_batched(src, smask, dst, dmask, t0, cfg, device, voxel):
+    """One timed batched ``icp_point_to_plane`` call with stats, the launch
+    counts zeroed just before it; returns (transforms, stats, seconds,
+    launches)."""
+    _sync(device)
+    cuda_build.reset_launches()
+    start = time.perf_counter()
+    t, stats = m_p2l.icp_point_to_plane(src, dst, smask, dmask, t0, cfg,
+                                        normals_voxel_size=voxel,
+                                        return_stats=True, device=device)
+    _sync(device)
+    return t, stats, time.perf_counter() - start, dict(cuda_build.LAUNCHES)
+
+
+def _p2l_batched_case(name, batch, t0, gt, cfg, device, voxel,
+                      plain_pairs: int, routes: dict, capture=(),
+                      z_tol: float = PLAIN_GATE_M):
+    """The batched p2l gates on pairs ``batch`` = (src, smask, dst, dmask)
+    (B, N, 3) from warm starts ``t0`` against ground truth ``gt``
+    (RigidTransform3, (B,)): a warm-up call (capturing the calls named in
+    ``capture`` = ((module, name, limit), ...) as ``_capture_calls``
+    does), a timed one; each pair's translation error < ATE_GATE_M; each
+    within PLAIN_GATE_M in xy and rotation, and ``z_tol`` in z, of the
+    single-pair call on it; the first ``plain_pairs`` within PLAIN_GATE_M
+    in every DoF of the batched plain route (no launch); on the card the
+    launches of ``routes`` = {kernel: "K" | "K-1" | 1}, K the outer
+    iterations, and none of any other kernel.  Returns the run's
+    record."""
+    src, smask, dst, dmask = batch
+    n_pairs = src.shape[0]
+    captured, undo = {}, []
+    for module, fn, limit in capture:
+        captured[fn], u = _capture_calls(module, fn, limit)
+        undo.append(u)
+    try:
+        _, _, first_sec, _ = _run_p2l_batched(src, smask, dst, dmask, t0,
+                                              cfg, device, voxel)
+    finally:
+        for u in undo:
+            u()
+    out, stats, sec, launches = _run_p2l_batched(src, smask, dst, dmask, t0,
+                                                 cfg, device, voxel)
+    k = int(stats.outer_iters[0])
+    e_t = torch.linalg.norm(out.t - gt.t, dim=-1).double().cpu().numpy()
+    e_r = torch.amax(torch.abs(out.rot - gt.rot), dim=(-2, -1)).cpu().numpy()
+    z_max = float(torch.max(torch.abs(out.t[:, 2])))
+    pps = n_pairs / sec
+    print(f"# {name}: {n_pairs} pairs of {src.shape[1]} points "
+          f"({int(smask.sum(1).min())}-{int(smask.sum(1).max())} valid), "
+          f"{sec:.4f} s, {pps:.2f} pairs/s (host clock, synchronised; "
+          f"first run {first_sec:.4f} s); error vs ground truth per pair: "
+          f"t max {e_t.max():.6f} m median {np.median(e_t):.6f} m, rot max "
+          f"{e_r.max():.3e}; max |t_z| {z_max:.6f} m; outer iterations {k}; "
+          f"launches {_nonzero(launches)}")
+    if not e_t.max() < ATE_GATE_M:
+        raise RuntimeError(f"{name}: translation error {e_t.max()} >= "
+                           f"{ATE_GATE_M}")
+    if torch.device(device).type == "cuda":
+        want = {n: 0 for n in launches}
+        want.update({n: {"K": k, "K-1": k - 1}.get(c, c)
+                     for n, c in routes.items()})
+        if launches != want:
+            raise RuntimeError(f"{name}: launches {launches}, expected "
+                               f"{_nonzero(want)}")
+    single = []
+    for i in range(n_pairs):
+        single.append(m_p2l.icp_point_to_plane(
+            src[i], dst[i], smask[i], dmask[i], _pick(t0, i), cfg,
+            normals_voxel_size=voxel, device=device))
+    single = RigidTransform3(torch.stack([t.rot for t in single]),
+                             torch.stack([t.t for t in single]))
+    d_single = [float(torch.max(d)) for d in _pair_diff3(out, single)]
+    p = plain_pairs
+    plain_cfg = cfg.with_(nn_backend="torch", align_backend="torch")
+    p_out, _, p_sec, p_launch = _run_p2l_batched(
+        src[:p], smask[:p], dst[:p], dmask[:p], _pick(t0, slice(0, p)),
+        plain_cfg, device, voxel)
+    d_plain = [float(torch.max(d))
+               for d in _pair_diff3(_pick(out, slice(0, p)), p_out)]
+    print(f"# {name}: max per-pair difference (xy and rotation; z) from "
+          f"{n_pairs} single-pair calls {d_single[0]:.3e}; {d_single[1]:.3e} "
+          f"m (gates {PLAIN_GATE_M}; {z_tol} m), from the batched plain "
+          f"route on the first {p} pairs ({p_sec:.3f} s) {d_plain[0]:.3e}; "
+          f"{d_plain[1]:.3e} m (gates {PLAIN_GATE_M}; {PLAIN_GATE_M} m)")
+    if any(p_launch.values()):
+        raise RuntimeError(f"{name}: the plain route launched {p_launch}")
+    for (d, dz), what, gate_z in ((d_single, "single-pair calls", z_tol),
+                                  (d_plain, "the plain route", PLAIN_GATE_M)):
+        if not (d < PLAIN_GATE_M and dz < gate_z):
+            raise RuntimeError(f"{name}: batched vs {what} {d}, z {dz}")
+    return dict(launches=launches, pairs_per_s=pps, seconds=sec, outer=k,
+                max_t_err=float(e_t.max()), z_max=z_max, captured=captured)
+
+
+def p2l_batched_inputs(device, n_frames: int = 96, stride: int = 1):
+    """Phase 25(a)'s pairs: (frame k, frame k + 1) of the synthetic
+    sequence, padded as the main path pads them, and their ground truth
+    (RigidTransform3, (B,))."""
+    frames, traj = io.synthesize_frames3d(n_frames, seed=0)
+    frames = [f[::stride] for f in frames]
+    pts, mask = io.pad_points(frames, pad_to=PAD_TO if stride == 1 else None)
+    p = torch.as_tensor(pts, dtype=torch.float32, device=device)
+    k = torch.as_tensor(mask, device=device)
+    th, t_xy = _pair_truth(traj)
+    c, s = torch.tensor(np.cos(th)), torch.tensor(np.sin(th))
+    rot = torch.zeros((len(th), 3, 3), dtype=torch.float64)
+    rot[:, 0, 0], rot[:, 0, 1], rot[:, 1, 0], rot[:, 1, 1] = c, -s, s, c
+    rot[:, 2, 2] = 1.0
+    t = torch.zeros((len(th), 3), dtype=torch.float64)
+    t[:, :2] = torch.as_tensor(t_xy)
+    gt = RigidTransform3(rot.float().to(device), t.float().to(device))
+    return (p[:-1], k[:-1], p[1:], k[1:]), gt
+
+
+def p2l_room_inputs(device, n_poses: int = 28, n_points: int = 3072,
+                    scene_n: int = 6000, seed: int = 5):
+    """Phase 25(b)'s pairs: (frame k, frame k + 1) of ``room_sequence``
+    (SLAM 3D small's frames), their true relative poses, and warm starts:
+    each true pose perturbed by a seeded twist of ROOM_TWIST_M and
+    ROOM_TWIST_RAD (norms of its translation and rotation parts)."""
+    frames, _ = room_sequence(n_poses, n_points, scene_n)
+    poses = room_poses(n_poses)
+    p = torch.as_tensor(np.stack(frames), dtype=torch.float32, device=device)
+    k = torch.ones(p.shape[:2], dtype=torch.bool, device=device)
+    rel = [poses[i + 1].inverse().compose(poses[i])
+           for i in range(n_poses - 1)]
+    gt = RigidTransform3(torch.stack([r.rot for r in rel]).to(device),
+                         torch.stack([r.t for r in rel]).to(device))
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n_poses - 1, 3))
+    w = rng.normal(size=(n_poses - 1, 3))
+    v *= ROOM_TWIST_M / np.linalg.norm(v, axis=1, keepdims=True)
+    w *= ROOM_TWIST_RAD / np.linalg.norm(w, axis=1, keepdims=True)
+    twist = torch.as_tensor(np.concatenate([v, w], axis=1),
+                            dtype=torch.float32, device=device)
+    t0 = RigidTransform3.from_twist(twist).compose(gt)
+    return (p[:-1], k[:-1], p[1:], k[1:]), gt, t0
+
+
+def _pairs_p2l_hold(kind: str, args, device):
+    """One captured kernel 8 ("static") or 9 ("list") call at D 3 / P 4:
+    bitwise equal to its plain version, to its schedule's emulation, at
+    every schedule, and to a brute-force sweep of the packed db on every
+    query its subtile walks.  Returns (the call's result, its schedules'
+    launcher-alone ms, the (query, point) pairs it sweeps, the queries
+    whose winner carries the invalid-plane sentinel c)."""
+    query_p, dbf = args[0], args[1]
+    d_dim = args[4] if kind == "list" else args[5]
+    q_sub = args[5] if kind == "list" else args[6]
+    if kind == "static":
+        fn, plain = nn_pairs_cuda.nn_pairs, nn_pairs_cuda.nn_pairs_plain
+        emul = nn_pairs_cuda.pairs_items(*args)
+        rows = (args[4] > float("-inf")).repeat_interleave(q_sub, dim=1)
+        walked = int((nn_pairs_cuda._box_lower_bound(args[2], args[3], d_dim)
+                      <= args[4][..., None]).sum())
+        pairs = walked * q_sub * 128
+    else:
+        fn = nn_pairs_cuda.nn_pairs_list
+        plain = nn_pairs_cuda.nn_pairs_list_plain
+        item = nn_pairs_cuda.list_schedule(q_sub, args[2].shape[-1])[0]
+        emul = nn_pairs_cuda.pairs_list_items(*args, item=item)
+        rows = args[6] > float("-inf")
+        pairs = nn_pairs_cuda.group_walks(*args)
+    got = fn(*args)
+    _sync(device)
+    what = f"nn_pairs {kind} (D {d_dim}, P {dbf.shape[1] - d_dim})"
+    _equal_or_raise(got, plain(*args), what)
+    _equal_or_raise(got, emul[:3], f"{what} (the items' emulation)")
+    schedules = (_pairs_schedules if kind == "static"
+                 else _list_schedules)(args, got, device)[0]
+    db = dbf[:, :d_dim].transpose(1, 2)
+    valid = db[..., 0] < nn_cuda._SENTINEL / 2
+    brute = nn_torch(query_p, db, valid, tile=db.shape[1])
+    pay = torch.take_along_dim(dbf[:, d_dim:].transpose(1, 2),
+                               brute.index[..., None].long(), dim=1)
+    dist = nn_cuda._trim_sentinel(got[0])
+    hit = rows & torch.isfinite(brute.dist_sq)
+    if not (torch.equal(got[1][rows], brute.index[rows])
+            and torch.equal(dist[rows], brute.dist_sq[rows])
+            and torch.equal(got[2][hit], pay[hit])):
+        raise RuntimeError(f"{what}: differs from brute force")
+    sentinel = int((got[2][..., -1][hit] == m_p2l._C_INVALID).sum())
+    return got, schedules, pairs, sentinel
+
+
+def _matched_p2l_hold(args, n_query: int, device):
+    """Phase 25(a)'s cold kernel 4 call (captured; D 3 / P 4, every pair
+    at full width): bitwise equal to its plain version and to a
+    brute-force sweep of the packed db (idx, trimmed dist, the winner's
+    payload) on every pair.  ``n_query``: each pair's query rows before
+    padding.  Returns its kernels-line record at path batched-p2l
+    (``_sweep_record``)."""
+    query_p, dbf_cm, d_dim = args
+    what = f"nn_matched batched-p2l (D {d_dim}, P {dbf_cm.shape[-2] - d_dim})"
+    got = nn_sweep_cuda.nn_matched(*args)
+    _sync(device)
+    _equal_or_raise(got, nn_sweep_cuda.nn_matched_plain(*args), what)
+    db = dbf_cm[..., :d_dim, :].transpose(-1, -2)
+    valid = db[..., 0] < nn_cuda._SENTINEL / 2
+    # A narrow tile: one (B, Q, tile) block of the 95 pairs is ~2.8 GB.
+    brute = nn_torch(query_p, db, valid, tile=256)
+    pay = torch.take_along_dim(dbf_cm[..., d_dim:, :].transpose(-1, -2),
+                               brute.index[..., None].long(), dim=-2)
+    hit = torch.isfinite(brute.dist_sq)
+    if not (torch.equal(got[1], brute.index)
+            and torch.equal(nn_cuda._trim_sentinel(got[0]), brute.dist_sq)
+            and torch.equal(got[2][hit], pay[hit])):
+        raise RuntimeError(f"{what}: differs from brute force")
+    sentinel = int((got[2][..., -1][hit] == m_p2l._C_INVALID).sum())
+    del brute, pay, hit
+    print(f"# {what}: the cold call, {query_p.shape[0]} pairs x "
+          f"{query_p.shape[-2]} query rows x {dbf_cm.shape[-1]} db rows "
+          f"({int(valid.sum())} valid), bitwise equal to plain and brute "
+          f"force on every pair; {sentinel} results carry the invalid-plane "
+          f"sentinel c, unchanged")
+    case = dict(kind="nn_matched", fn=nn_sweep_cuda.nn_matched,
+                plain=nn_sweep_cuda.nn_matched_plain, args=args, n=n_query,
+                valid=float(valid.sum()), out=got)
+    return _sweep_record(case, "batched-p2l", device, 0.0)
+
+
+def _pairs_p2l_record(kind, args, pairs, errs, device):
+    """Kernel 8 or 9's kernels-line record at a captured D 3 / P 4 call:
+    the launcher alone, the wrapper, the plain version, the bound."""
+    name = "nn_pairs" if kind == "static" else "nn_pairs_list"
+    fn = nn_pairs_cuda.nn_pairs if kind == "static" \
+        else nn_pairs_cuda.nn_pairs_list
+    plain = nn_pairs_cuda.nn_pairs_plain if kind == "static" \
+        else nn_pairs_cuda.nn_pairs_list_plain
+    wrapper = time_ms(lambda: fn(*args), device, reps=20)
+    ms, extra = wrapper, {}
+    if torch.device(device).type == "cuda":
+        res = (nn_pairs_cuda._nn_pairs_args if kind == "static"
+               else nn_pairs_cuda._nn_pairs_list_args)(*args)
+        ms = launcher_ms(name, res[0], device)
+        extra = dict(wrapper_ms=wrapper)
+        del res
+    plain_ms = time_ms(lambda: plain(*args), device, reps=3)
+    query_p, dbf = args[0], args[1]
+    d_dim = dbf.shape[1] - 4
+    tables = sum(x.numel() * 4 for x in args[2:] if torch.is_tensor(x))
+    n_bytes = (query_p.numel() * 4 + dbf.numel() * 4 + tables
+               + query_p.shape[0] * query_p.shape[1] * (4 + 4 + 4 * 4))
+    b, by = bound_ms(n_bytes, pairs * NN_OPS_PER_PAIR_3D)
+    extra["issue_floor_ms"] = \
+        pairs * NN_INSTR_PER_PAIR[d_dim] / PEAK_F32_INSTR_PER_S * 1e3
+    extra["payload"] = 4
+    line = 1234 if kind == "static" else 1432
+    return dict(name=name, route="cuda", path="batched-p2l-room",
+                source=f"icp_rust_tpu_torch/csrc/{name}.cu",
+                replaces=f"icp_rust_tpu/ops/nn_pallas.py:{line}",
+                launches=0, max_abs_err=errs, ms=ms, plain_ms=plain_ms,
+                bound_ms=b, bound_by=by, library_ms=None, extra=extra)
+
+
+def phase_p2l_batched(device="cuda", n_frames: int = 96, stride: int = 1,
+                      plain_pairs: int = P2L_BATCH_PLAIN,
+                      voxel: float = P2L_VOXEL_M, n_poses: int = 28,
+                      n_points: int = 3072, scene_n: int = 6000,
+                      room_voxel: float = 0.4):
+    """Phase 25: batched ``icp_point_to_plane``.  (a) the 95 consecutive
+    pairs of the 96 frames at full width from identity (kernel 4 at D 3 /
+    P 4); (b) the 27 consecutive pairs of SLAM 3D small's room frames
+    (3,072 points, voxel 0.4 m) from perturbed true poses (kernels 8 and
+    9), whose captured kernel calls are held bitwise at every schedule.
+    (a)'s cold kernel 4 call is held bitwise on every pair.  Returns (the
+    two runs, kernel 4's record at (a)'s shapes and kernel 8 and 9's at
+    (b)'s, all at D 3 / P 4)."""
+    cfg = _config()
+    batch, gt = p2l_batched_inputs(device, n_frames, stride)
+    ident = RigidTransform3.identity((batch[0].shape[0],),
+                                     dtype=torch.float32, device=device)
+    wide = _p2l_batched_case("batched p2l", batch, ident, gt, cfg, device,
+                             voxel, plain_pairs, {"nn_matched": "K"},
+                             capture=((nn_sweep_cuda, "nn_matched", 1),),
+                             z_tol=P2L_BATCH_Z_M)
+    calls = wide.pop("captured")["nn_matched"]
+    if not calls:
+        raise RuntimeError("batched p2l: no nn_matched call")
+    records = [_matched_p2l_hold(calls[0], batch[0].shape[1], device)]
+    del calls
+    batch, gt, t0 = p2l_room_inputs(device, n_poses, n_points, scene_n)
+    room = _p2l_batched_case(
+        "batched p2l room", batch, t0, gt, cfg, device, room_voxel,
+        plain_pairs, {"nn_pairs": 1, "nn_pairs_list": "K-1"},
+        capture=((nn_pairs_cuda, "nn_pairs", None),
+                 (nn_pairs_cuda, "nn_pairs_list", None)))
+    for kind, fn in (("static", "nn_pairs"), ("list", "nn_pairs_list")):
+        calls = room["captured"][fn]
+        if not calls:
+            raise RuntimeError(f"batched p2l room: no {fn} call")
+        pairs, sent, sched = [], 0, {}
+        for args in calls:
+            _, by_sched, n_pairs, n_sent = _pairs_p2l_hold(kind, args, device)
+            pairs.append(n_pairs)
+            sent += n_sent
+            for key, ms in by_sched.items():
+                sched[key] = sched.get(key, 0.0) + ms
+        print(f"# batched p2l room {fn} (D 3, P 4): {len(calls)} captured "
+              f"calls bitwise equal to plain, the items' emulation and "
+              f"brute force, at every schedule (launcher-alone ms summed "
+              f"over the calls {sched}); {sum(pairs)} (query, point) "
+              f"pairs; {sent} results carry the invalid-plane sentinel c, "
+              f"unchanged")
+        # The cold call, and the first warm one (phase 6's shapes).
+        rec = _pairs_p2l_record(kind, calls[0], pairs[0], 0.0, device)
+        rec["extra"]["schedules_sum_ms"] = sched
+        rec["extra"]["calls"] = len(calls)
+        records.append(rec)
+    del room["captured"]
+    return dict(wide=wide, room=room), records
+
+
+def profile_p2l_batched(device="cuda", n_frames: int = 96):
+    """torch.profiler over one batched p2l call on phase 25(a)'s pairs
+    (after a warm-up run): device time by kernel and the device's idle
+    share against an unprofiled run's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch, _ = p2l_batched_inputs(device, n_frames)
+    t0 = RigidTransform3.identity((batch[0].shape[0],), dtype=torch.float32,
+                                  device=device)
+    cfg = _config()
+    _run_p2l_batched(*batch, t0, cfg, device, P2L_VOXEL_M)
+    _, _, wall, _ = _run_p2l_batched(*batch, t0, cfg, device, P2L_VOXEL_M)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _run_p2l_batched(*batch, t0, cfg, device, P2L_VOXEL_M)
+    avgs = prof.key_averages()
+    kern = sorted((e for e in avgs if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    print(f"# profile batched p2l: {n_frames - 1} pairs, unprofiled wall "
+          f"{wall * 1e3:.3f} ms; device busy {busy_ms:.3f} ms, idle share "
+          f"{1.0 - busy_ms / (wall * 1e3):.4f}")
+    for e in kern[:12]:
+        print(f"# profile batched p2l kernel "
+              f"{e.self_device_time_total / 1e3:9.3f} ms {e.count:6d} calls "
+              f" {e.key[:90]}")
+    print(avgs.table(sort_by="self_device_time_total", row_limit=20))
+
+
+def phase_mxu(device="cuda", n_frames: int = MXU_FRAMES, stride: int = 1,
+              call: int = 8):
+    """Phase 26: ``run_odometry_fused`` with nn_method="mxu" over the first
+    ``n_frames`` frames at full width, twice (the second run timed): ATE <
+    ATE_GATE_M; then the ``call``-th captured NN call against the direct
+    kernel route: the share of equal indices, the largest distance gap."""
+    pts, mask, gt = frames3d(n_frames, stride)
+    cfg = _config(nn_method="mxu")
+    calls, undo = _capture_calls(m_nn, "nn_torch")
+    try:
+        _run_path(pts, mask, cfg, device, True)
+    finally:
+        undo()
+    path, stats, sec, launches = _run_path(pts, mask, cfg, device, True)
+    ate = ate_rmse(path, gt[:n_frames - 1])
+    outer = stats.outer_iters.cpu().numpy()
+    fps = (n_frames - 1) / sec
+    query, db, dmask = calls[min(call, len(calls) - 1)][:3]
+    mxu = nn_torch(query, db, dmask, tile=cfg.nn_dst_tile, method="mxu")
+    direct = m_nn.nearest_neighbor(query, db, dmask, backend="cuda",
+                                   tile=cfg.nn_dst_tile)
+    _sync(device)
+    same = float(torch.mean((mxu.index == direct.index).double()))
+    fin = torch.isfinite(direct.dist_sq)
+    gap = float(torch.max(torch.abs(mxu.dist_sq[fin] - direct.dist_sq[fin])))
+    print(f"# mxu: {n_frames} frames of {pts.shape[1]} points, {sec:.4f} s, "
+          f"{fps:.2f} frames/s (host clock); ATE vs ground truth {ate:.6f} "
+          f"m; outer iterations per frame mean {outer.mean():.3f} total "
+          f"{int(outer.sum())}; launches {_nonzero(launches)}; NN call "
+          f"{min(call, len(calls) - 1)} of {len(calls)} against the direct "
+          f"kernel route: indices equal {same:.6f}, max distance gap "
+          f"{gap:.3e} m^2")
+    if not ate < ATE_GATE_M:
+        raise RuntimeError(f"mxu ATE {ate} >= {ATE_GATE_M}")
+    return dict(launches=launches, ate=ate, fps=fps, seconds=sec,
+                outer=int(outer.sum()), index_share=same, dist_gap=gap)
+
+
+def _grid_fields(grid):
+    return [getattr(grid, f.name) for f in dataclasses.fields(grid)]
+
+
+def phase_gridhash(device="cuda", stride: int = 1, radius: float = 0.25,
+                   bucket_cap: int = 32, table_size: int = 1 << 16,
+                   reps: int = 20):
+    """Phase 27: ``ops/gridhash`` on frames 0 (db) and 1 (queries) at full
+    width, one of ``benchmarks/profile_gridhash.py``'s settings: the
+    overflow fraction printed; the found set equal to brute force's
+    in-radius set (kernel 5); every result that differs from brute
+    force's explained by a dropped point (its true nearest neighbour lies
+    past ``bucket_cap`` in its bucket), none where the overflow is 0; the
+    grid's fields and results bitwise the same call's on the CPU; build
+    and query timed."""
+    pts, mask, _ = frames3d(2, stride)
+    p = torch.as_tensor(pts, dtype=torch.float32, device=device)
+    k = torch.as_tensor(mask, device=device)
+    db, dmask, query = p[0], k[0], p[1][k[1]]
+    kw = dict(table_size=table_size, bucket_cap=bucket_cap)
+    grid = gridhash.build_grid(db, dmask, radius, **kw)
+    res = gridhash.nn_gridhash(query, grid)
+    build_ms = time_ms(lambda: gridhash.build_grid(db, dmask, radius, **kw),
+                       device, reps=reps)
+    query_ms = time_ms(lambda: gridhash.nn_gridhash(query, grid), device,
+                       reps=reps)
+    cuda_build.reset_launches()
+    b_idx, b_dist, _ = nn_sweep_cuda.search(query[None], db[None],
+                                            dmask[None])
+    _sync(device)
+    launches = dict(cuda_build.LAUNCHES)
+    b_idx, b_dist = b_idx[0], b_dist[0]
+    overflow = float(grid.overflow_frac)
+    r2 = grid.cell_size * grid.cell_size
+    found = torch.isfinite(res.dist_sq)
+    if not torch.equal(found, b_dist < r2):
+        raise RuntimeError("gridhash: the found set differs from brute "
+                           "force's in-radius set")
+    differs = found & ((res.index != b_idx) | (res.dist_sq != b_dist))
+    # A differing result must have lost its true neighbour to the cap:
+    # that point's row lies at or past bucket_cap in its slot.
+    row_of = torch.empty_like(grid.index)
+    row_of[grid.index.long()] = torch.arange(len(grid.index),
+                                             dtype=torch.int32,
+                                             device=db.device)
+    true_nn = b_idx[differs].long()
+    slot = gridhash._hash_cells(gridhash._cells(db[true_nn],
+                                                grid.cell_size),
+                                grid.table_size).long()
+    pos = row_of[true_nn] - grid.starts[slot]
+    closer = res.dist_sq[differs] >= b_dist[differs]
+    n_diff = int(differs.sum())
+    if not (bool(torch.all(pos >= bucket_cap)) and bool(torch.all(closer))
+            and (overflow > 0 or n_diff == 0)):
+        raise RuntimeError("gridhash: a result differs from brute force "
+                           "without a dropped point")
+    cpu_grid = gridhash.build_grid(db.cpu(), dmask.cpu(), radius, **kw)
+    cpu_res = gridhash.nn_gridhash(query.cpu(), cpu_grid)
+    same_cpu = all(torch.equal(a.cpu(), b) if torch.is_tensor(a) else a == b
+                   for a, b in zip(_grid_fields(grid),
+                                   _grid_fields(cpu_grid)))
+    same_cpu &= torch.equal(res.index.cpu(), cpu_res.index) and torch.equal(
+        res.dist_sq.cpu(), cpu_res.dist_sq)
+    print(f"# gridhash: {db.shape[0]} db points ({int(dmask.sum())} valid), "
+          f"{query.shape[0]} queries, r {radius} m, cap {bucket_cap}, table "
+          f"{table_size}: overflow_frac {overflow:.6f} (max bucket "
+          f"{int(grid.counts.max())}); found {int(found.sum())}, equal to "
+          f"brute force's in-radius set (kernel 5, launches "
+          f"{_nonzero(launches)}); {n_diff} results differ from brute force, "
+          f"each past the cap in its bucket; fields and results bitwise the "
+          f"CPU's: {same_cpu}; build {build_ms:.4f} ms, query "
+          f"{query_ms:.4f} ms")
+    if not same_cpu:
+        raise RuntimeError("gridhash: the card's grid differs from the CPU's")
+    return dict(launches=launches, overflow=overflow, build_ms=build_ms,
+                query_ms=query_ms, differs=n_diff, found=int(found.sum()))
+
+
+def p2l_pairs_inputs(device):
+    """Kernels 8 and 9's arguments at D 3 / P 4: every call of one
+    batched p2l run on the room pairs (phase 25(b)), captured:
+    {"nn_pairs": [...], "nn_pairs_list": [...]}."""
+    batch, _, t0 = p2l_room_inputs(device)
+    out, undo = {}, []
+    for fn in ("nn_pairs", "nn_pairs_list"):
+        out[fn], u = _capture_calls(nn_pairs_cuda, fn)
+        undo.append(u)
+    try:
+        _run_p2l_batched(*batch, t0, _config(), device, 0.4)
+    finally:
+        for u in undo:
+            u()
+    return out
 
 
 def _kernel_instance(mangled: str) -> str:
@@ -4620,12 +5202,17 @@ def main() -> int:
     hooks = phase_hooks(device, slam3["graph"])
     sharded_runs = phase_sharded(device, smi=smi, inputs=sharded_inputs(
         slam3["graph"], device=device))
+    p2l_b, p2l_b_records = phase_p2l_batched(device)
+    records += p2l_b_records
+    mxu = phase_mxu(device)
+    grid = phase_gridhash(device)
     if profile_run:
         profile_main(device)
         profile_batched(device)
         profile_p2l(device)
         profile_slam3d(device)
         profile_submap(device)
+        profile_p2l_batched(device)
     launches = {
         ("nn_list", "main"): main_run["launches"]["nn_list"],
         ("irls_loop", "main"): main_run["launches"]["irls_loop"],
@@ -4648,6 +5235,12 @@ def main() -> int:
         ("nn_sweep", "slam2d-wide"): slam2["wide_launches"]["nn_sweep"],
         ("nn_matched", "slam2d-wide"): slam2["wide_launches"]["nn_matched"],
         ("nn_matched", "submap-2d"): sub_2d["fused"]["launches"]["nn_matched"],
+        ("nn_matched", "batched-p2l"):
+            p2l_b["wide"]["launches"]["nn_matched"],
+        ("nn_pairs", "batched-p2l-room"):
+            p2l_b["room"]["launches"]["nn_pairs"],
+        ("nn_pairs_list", "batched-p2l-room"):
+            p2l_b["room"]["launches"]["nn_pairs_list"],
     }
     runs = {"main": main_run["launches"], "2d": run_2d["launches"],
             "batched": batched["launches"],
@@ -4661,7 +5254,10 @@ def main() -> int:
             "submap-2d-revoxelize": sub_2d["re-voxelize"]["launches"],
             **{path: run["launches"]
                for path, run in {**runners, **cli_runs}.items()},
-            **sharded_runs}
+            **sharded_runs,
+            "batched-p2l": p2l_b["wide"]["launches"],
+            "batched-p2l-room": p2l_b["room"]["launches"],
+            "mxu": mxu["launches"], "gridhash-reference": grid["launches"]}
     for rec in records:
         if (rec["name"], rec["path"]) in launches:
             rec["launches"] = launches[(rec["name"], rec["path"])]
@@ -4705,6 +5301,15 @@ def main() -> int:
           f"{cli_runs['cli-odometry2d-metrics']['summary']['frames_per_s']:.2f}"
           f"; graph solve dense {hooks['dense_s']:.4f} s, schur "
           f"{hooks['schur_s']:.4f} s (Jacobians {hooks['jac_s']:.4f} s)")
+    wide, room = p2l_b["wide"], p2l_b["room"]
+    print(f"# batched p2l: {wide['pairs_per_s']:.2f} pairs/s, "
+          f"{wide['outer']} outer iterations, max |t_z| "
+          f"{wide['z_max']:.6f} m; room pairs {room['pairs_per_s']:.2f} "
+          f"pairs/s, {room['outer']} outer iterations; mxu {mxu['fps']:.2f} "
+          f"frames/s, ATE {mxu['ate']:.6f} m, indices equal to the direct "
+          f"route {mxu['index_share']:.6f}; gridhash build "
+          f"{grid['build_ms']:.4f} ms, query {grid['query_ms']:.4f} ms, "
+          f"overflow_frac {grid['overflow']:.6f} ({smi})")
     print(json.dumps({"kernels": list(entries.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

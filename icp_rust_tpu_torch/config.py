@@ -27,6 +27,8 @@ Engine fields (no reference counterpart):
   unbatched call and the pair-frame one (one block per pair, each pair to
   its own fixed point) for a batch; ``"off"`` disables both.  ``"auto"``
   never takes the pair-frame kernel, as on the TPU.
+- ``nn_method``: ``"direct"`` | ``"mxu"`` (``ops/nn.py``); the whole-frame
+  kernels ignore it, as on the TPU.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch
 
 BACKENDS = ("auto", "torch", "cuda")
 FRAME_BACKENDS = ("auto", "off", "pairs")
+NN_METHODS = ("direct", "mxu")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +63,9 @@ class ICPConfig:
     # Pad point clouds to multiples of this.
     pad_multiple: int = 128
     nn_backend: str = "auto"
-    # Distance evaluation: only "direct" (exact per-coordinate differences).
+    # Distance evaluation: "direct" (exact per-coordinate differences) |
+    # "mxu" (|q|^2 + |d|^2 - 2 q.d, the cross term a float32 matmul; on
+    # "auto" it takes the plain sweep, see ops/nn.py).
     nn_method: str = "direct"
     # Query tile of the survivor-list kernel and db tile of the plain sweep;
     # the db is padded to a multiple of nn_dst_tile.
@@ -83,8 +88,9 @@ class ICPConfig:
             raise ValueError(
                 f"frame_backend must be one of {FRAME_BACKENDS}, got "
                 f"{self.frame_backend!r}")
-        if self.nn_method != "direct":
-            raise ValueError("only nn_method='direct' is supported")
+        if self.nn_method not in NN_METHODS:
+            raise ValueError(f"nn_method must be one of {NN_METHODS}, got "
+                             f"{self.nn_method!r}")
 
     def with_(self, **kwargs) -> "ICPConfig":
         return dataclasses.replace(self, **kwargs)

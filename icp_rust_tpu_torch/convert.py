@@ -9,8 +9,9 @@ dtype taken by name; ``transform_from_numpy`` builds a
 ``pose_graph_from_numpy`` builds a ``models.pose_graph.PoseGraph`` from
 the arrays of the JAX package's ``PoseGraph``; ``voxel_hash_map_from_numpy``
 builds an ``ops.voxel_hash.VoxelHashMap`` (the scan-to-submap path's state)
-from the arrays of the JAX package's one.  None imports the JAX package:
-they take plain values.
+from the arrays of the JAX package's one; ``hash_grid_from_numpy`` builds
+an ``ops.gridhash.HashGrid`` from the fields of the JAX package's.  None
+imports the JAX package: they take plain values.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
 from icp_rust_tpu_torch.models.pose_graph import PoseGraph
+from icp_rust_tpu_torch.ops.gridhash import HashGrid
 from icp_rust_tpu_torch.ops.voxel_hash import VoxelHashMap
 
 # "pairs" forced the pair-grid NN kernels for a batched query; here the
@@ -126,3 +128,31 @@ def voxel_hash_map_from_numpy(key, psum, cnt, origin, device="cpu",
     return VoxelHashMap(
         key=torch.as_tensor(np.array(key, np.int32), device=device),
         psum=floats(psum), cnt=floats(cnt), origin=floats(origin))
+
+
+def hash_grid_from_numpy(points, index, starts, counts, cell_size,
+                         overflow_frac, table_size: int, bucket_cap: int,
+                         device="cpu", dtype=None) -> HashGrid:
+    """HashGrid from array-likes: points (M, D) sorted by slot, index (M,),
+    starts (T + 1,) and counts (T,) int32, cell_size and overflow_frac
+    scalars, and the ints table_size (T) and bucket_cap.  The float arrays
+    keep points' dtype unless ``dtype`` is given."""
+    points = np.asarray(points)
+    dt = dtype if dtype is not None else _dtype_by_name(points.dtype)
+    starts, counts = np.asarray(starts), np.asarray(counts)
+    if starts.shape != (table_size + 1,) or counts.shape != (table_size,):
+        raise ValueError(f"starts must be ({table_size + 1},) and counts "
+                         f"({table_size},), got {starts.shape}, "
+                         f"{counts.shape}")
+
+    def ints(x):
+        return torch.as_tensor(np.array(x, np.int32), device=device)
+
+    def floats(x):
+        return torch.as_tensor(np.array(x)).to(device=device, dtype=dt)
+
+    return HashGrid(points=floats(points), index=ints(index),
+                    starts=ints(starts), counts=ints(counts),
+                    cell_size=floats(cell_size),
+                    overflow_frac=floats(overflow_frac),
+                    table_size=int(table_size), bucket_cap=int(bucket_cap))

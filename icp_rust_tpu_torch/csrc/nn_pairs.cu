@@ -35,7 +35,9 @@
 // query (b, qp, d_dim), qp a multiple of q_sub; dbf_cm (b, d_dim + f_dim,
 // m_pad), m_pad a multiple of 128, 16-byte aligned; qbox (b, qp / q_sub,
 // 8); cbox (b, m_pad / 128, 8); qbound (b, qp / q_sub); outputs dist/idx
-// (b, qp) and pay (b, qp, f_dim).  q_sub a multiple of 128; blocks of 128
+// (b, qp) and pay (b, qp, f_dim), f_dim 2, 3 or 4 (4: the point-to-plane
+// payload [n, c = n . q], whose sentinel c on invalid rows is copied as
+// it is).  q_sub a multiple of 128; blocks of 128
 // threads with q_per_thread queries each (1, 2 or 4); work items of
 // `item` chunks.  part: scratch of b * ceil(qp / G) * n_items * 2 * G
 // floats, G = 128 * q_per_thread, n_items = ceil(m_pad / 128 / item)
@@ -51,7 +53,7 @@ extern "C" int nn_pairs_launch(const float* query, const float* dbf_cm,
                                void* stream) {
   using icp_items::kChunk;
   using icp_items::kThreads;
-  if ((f_dim != 2 && f_dim != 3) || item < 1 || m_pad % kChunk != 0
+  if (f_dim < 2 || f_dim > 4 || item < 1 || m_pad % kChunk != 0
       || b < 1 || qp < 1 || q_sub < kThreads || q_sub % kThreads != 0
       || qp % q_sub != 0) {
     return static_cast<int>(cudaErrorInvalidValue);

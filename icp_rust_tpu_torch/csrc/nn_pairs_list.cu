@@ -302,7 +302,9 @@ cudaError_t launch(const float* query, const float* dbf_cm, const int* lists,
 
 // query (B, qp, d_dim); dbf_cm (B, d_dim + f_dim, m_pad), m_pad a multiple
 // of 128, 16-byte aligned; lists (B, qp / q_sub, cap); cnt
-// (B, qp / q_sub); outputs dist/idx (B, qp) and pay (B, qp, f_dim).
+// (B, qp / q_sub); outputs dist/idx (B, qp) and pay (B, qp, f_dim), f_dim
+// 2, 3 or 4 (4: the point-to-plane payload [n, c = n . q], whose sentinel
+// c on invalid rows is copied as it is).
 // Blocks of q_sub / q_per_thread threads (q_per_thread 1, 2 or 4; a
 // multiple of 32, at most 1024); work items of `item` list entries.
 // part: scratch of B * (qp / q_sub) * ceil(cap / item) * 2 * q_sub
@@ -322,7 +324,7 @@ extern "C" int nn_pairs_list_launch(const float* query, const float* dbf_cm,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int threads = q_sub / q_per_thread;
-  if (f_dim < 2 || f_dim > 3 || item < 1 || cap < 1 || b < 1
+  if (f_dim < 2 || f_dim > 4 || item < 1 || cap < 1 || b < 1
       || m_pad % icp_items::kChunk != 0 || threads % 32 != 0
       || threads > 1024 || qp % q_sub != 0) {
     return static_cast<int>(cudaErrorInvalidValue);

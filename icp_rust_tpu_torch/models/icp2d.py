@@ -59,12 +59,13 @@ def _scaled(x: Tensor, config: ICPConfig) -> Tensor:
                             device=x.device)
 
 
-def _scale_transform(t: RigidTransform2, s: float) -> RigidTransform2:
-    return RigidTransform2(rot=t.rot, t=t.t / s) if s != 1.0 else t
+def _scale_transform(t, s: float):
+    """A RigidTransform2 or RigidTransform3 in solver units."""
+    return type(t)(rot=t.rot, t=t.t / s) if s != 1.0 else t
 
 
-def _unscale_transform(t: RigidTransform2, s: float) -> RigidTransform2:
-    return RigidTransform2(rot=t.rot, t=t.t * s) if s != 1.0 else t
+def _unscale_transform(t, s: float):
+    return type(t)(rot=t.rot, t=t.t * s) if s != 1.0 else t
 
 
 def _sort_enabled(src, dst, config: ICPConfig):
@@ -78,10 +79,10 @@ def _sort_enabled(src, dst, config: ICPConfig):
         return config.nn_sort
     if config.nn_sort != "auto":
         return None
-    if use_pairs_nn(src, dst, config.nn_backend):
+    if use_pairs_nn(src, dst, config.nn_backend, config.nn_method):
         return "morton" if dst.shape[-2] >= 3 * _PAIRS_CHUNK else None
     ok = (dst.shape[-2] >= 3 * config.nn_dst_tile
-          and use_cuda_nn(src, dst, config.nn_backend))
+          and use_cuda_nn(src, dst, config.nn_backend, config.nn_method))
     return "morton" if ok else None
 
 
@@ -220,45 +221,60 @@ def _stats_2d(src_t, matched, mask, config, dist_sq, it):
     )
 
 
-def _prepare(src, dst, src_mask, dst_mask, initial_transform,
-             config: ICPConfig, device):
-    """Move the inputs to the device and into solver units; broadcast a
-    shared db and an unbatched warm start to a batch's pair axis.  Two or
-    more batch axes are flattened into the one pair axis the loop takes.
-    Returns (src, dst, src_mask, dst_mask, t0, batch): ``batch`` is src's
-    batch shape, for ``_unflatten``."""
-    dt = config.compute_dtype
-    dev = resolve_device(device, dt)
-    src = torch.as_tensor(src).to(device=dev, dtype=dt)
-    dst = torch.as_tensor(dst).to(device=dev, dtype=dt)
+def _check_pair_shapes(src, dst):
     if src.ndim < 2 or dst.ndim not in (2, src.ndim):
         raise ValueError(
             "src must be (..., N, D), dst (M, D) or (..., M, D) with src's "
             f"rank; got {tuple(src.shape)}, {tuple(dst.shape)}")
+
+
+def _prepare(src, dst, src_mask, dst_mask, initial_transform,
+             config: ICPConfig, device, check=_check_pair_shapes,
+             dst_extra=None):
+    """Move the inputs to the device and into solver units; broadcast a
+    shared db and an unbatched warm start (RigidTransform2 or
+    RigidTransform3) to a batch's pair axis.  Two or more batch axes are
+    flattened into the one pair axis the loop takes.  ``check(src, dst)``
+    raises on shapes the caller does not take; ``dst_extra`` (..., M, K),
+    a per-db-point tensor in the compute dtype (p2l's normals), is moved
+    and flattened with dst.  Returns (src, dst, src_mask, dst_mask, t0,
+    batch, dst_extra): ``batch`` is src's batch shape, for
+    ``_unflatten``."""
+    dt = config.compute_dtype
+    dev = resolve_device(device, dt)
+    src = torch.as_tensor(src).to(device=dev, dtype=dt)
+    dst = torch.as_tensor(dst).to(device=dev, dtype=dt)
+    check(src, dst)
     src_mask = torch.as_tensor(src_mask).to(device=dev, dtype=torch.bool)
     dst_mask = torch.as_tensor(dst_mask).to(device=dev, dtype=torch.bool)
+    if dst_extra is not None:
+        dst_extra = torch.as_tensor(dst_extra).to(device=dev, dtype=dt)
     dst, dst_mask = _broadcast_db(src, dst, dst_mask)
     t0 = _scale_transform(
         initial_transform.astype(dt).to(dev), config.point_scale)
+    kind, d = type(t0), t0.t.shape[-1]
     batch = src.shape[:-2]
     if t0.t.shape[:-1] != batch:
-        t0 = RigidTransform2(t0.rot.expand(*batch, 2, 2),
-                             t0.t.expand(*batch, 2))
+        t0 = kind(t0.rot.expand(*batch, d, d), t0.t.expand(*batch, d))
     if len(batch) > 1:
         src, dst = src.flatten(0, -3), dst.flatten(0, -3)
         src_mask, dst_mask = src_mask.flatten(0, -2), dst_mask.flatten(0, -2)
-        t0 = RigidTransform2(t0.rot.reshape(-1, 2, 2), t0.t.reshape(-1, 2))
+        if dst_extra is not None:
+            dst_extra = dst_extra.flatten(0, -3)
+        t0 = kind(t0.rot.reshape(-1, d, d), t0.t.reshape(-1, d))
     return (_scaled(src, config), _scaled(dst, config), src_mask, dst_mask,
-            t0, batch)
+            t0, batch, dst_extra)
 
 
 def _unflatten(out, batch):
-    """Give a result of the flattened loop (a transform, or (transform,
-    ICPStats)) the caller's batch axes back."""
+    """Give a result of the flattened loop (a transform, RigidTransform2 or
+    RigidTransform3, or (transform, ICPStats)) the caller's batch axes
+    back."""
     if len(batch) <= 1:
         return out
     t, stats = out if isinstance(out, tuple) else (out, None)
-    t = RigidTransform2(t.rot.reshape(*batch, 2, 2), t.t.reshape(*batch, 2))
+    d = t.t.shape[-1]
+    t = type(t)(t.rot.reshape(*batch, d, d), t.t.reshape(*batch, d))
     if stats is None:
         return t
     return t, ICPStats(*[f.reshape(batch) for f in stats])
@@ -280,7 +296,8 @@ def _icp_loop(src, dst, src_mask, dst_mask, t0, config: ICPConfig,
     payload = dst[..., :2] if planar else None
     db_pack = build_db_pack(src, dst, dst_mask, payload=payload,
                             backend=config.nn_backend,
-                            tile=config.nn_dst_tile)
+                            tile=config.nn_dst_tile,
+                            method=config.nn_method)
     eps = torch.finfo(src.dtype).eps
 
     def make_outer(warm):
@@ -297,7 +314,7 @@ def _icp_loop(src, dst, src_mask, dst_mask, t0, config: ICPConfig,
                 src_t, dst, dst_mask, payload=payload,
                 backend=config.nn_backend, tile=config.nn_dst_tile,
                 q_tile=config.nn_query_tile, q_bound=qb, db_pack=db_pack,
-                warm=warm)
+                warm=warm, method=config.nn_method)
             matched_xy = matched[..., :2]
             dt = align2d.estimate_transform(xy, matched_xy, src_mask,
                                             config)
@@ -344,7 +361,7 @@ def icp2d(src, dst, src_mask, dst_mask,
     frame_kernel_max points run as one ``icp2d_frame`` launch when the
     solver resolves to the kernels, and a batch as one
     ``icp2d_frame_pairs`` launch with ``frame_backend="pairs"``."""
-    src, dst, src_mask, dst_mask, t0, batch = _prepare(
+    src, dst, src_mask, dst_mask, t0, batch, _ = _prepare(
         src, dst, src_mask, dst_mask, initial_transform, config, device)
     kind = _use_frame_kernel(src, dst, config, return_stats)
     if kind:
@@ -367,7 +384,7 @@ def icp3d_planar(src, dst, src_mask, dst_mask,
     src/dst: (N|M, 3), or (B, N|M, 3).  Parity: reference Icp3d::estimate
     (src/lib.rs:148-173).  ``src_presorted``: src already permuted by
     :func:`presort_src` (bitwise-identical hoist)."""
-    src, dst, src_mask, dst_mask, t0, batch = _prepare(
+    src, dst, src_mask, dst_mask, t0, batch, _ = _prepare(
         src, dst, src_mask, dst_mask, initial_transform, config, device)
     return _unflatten(_finish(*_icp_loop(src, dst, src_mask, dst_mask, t0,
                                          config, src_presorted,

@@ -9,13 +9,16 @@ robust inner loop, here against the destination's tangent planes (normals
 computed once per call, by voxel PCA by default).  The outer loop exits
 bit-exactly at its fixed point, as the 2D drivers' does.
 
-Per outer iteration on the kernel route: one survivor-list NN launch
-(``nn_list``, D = 3 with the 4-lane payload [n, c = n . q]) and one
-``p2l_loop`` launch.
+Per outer iteration on the kernel route, one pair: one survivor-list NN
+launch (``nn_list``, D = 3 with the 4-lane payload [n, c = n . q]) and one
+``p2l_loop`` launch.  A batch of pairs (the JAX driver's ``(..., N, 3)``):
+one pair-grid NN launch for dbs of at most 4,096 points (``nn_pairs`` on
+the cold iteration, ``nn_pairs_list`` on every warm one) or one
+``nn_matched`` launch above, and the plain batched inner loop
+(``align3d._loop_torch``), the JAX package's own route for a batch.
 
 The entry point runs on ``device`` ("cuda" by default); with no card it
-raises unless the caller passes ``device="cpu"``.  It takes one scan pair
-(``models/slam.run_slam3d`` calls it pair by pair); a batch raises.
+raises unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -23,15 +26,17 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
-from icp_rust_tpu_torch.config import ICPConfig, resolve_device
+from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
 from icp_rust_tpu_torch.models.icp2d import (
     ICPStats,
     _is_identity,
     _outer_fixed_point,
-    _scaled,
+    _prepare,
     _sort_enabled,
     _spatial_sort,
+    _unflatten,
+    _unscale_transform,
 )
 from icp_rust_tpu_torch.ops import align3d, huber
 from icp_rust_tpu_torch.ops.nn import build_db_pack, nearest_neighbor_matched
@@ -96,6 +101,15 @@ def _stats_p2l(aux, src_mask, config: ICPConfig, it: int) -> ICPStats:
     )
 
 
+def _check_pair_shapes(src, dst):
+    if (src.ndim < 2 or dst.ndim != src.ndim or src.shape[-1] != 3
+            or dst.shape[-1] != 3 or src.shape[:-2] != dst.shape[:-2]):
+        raise ValueError(
+            "icp_point_to_plane takes src (..., N, 3) and dst (..., M, 3) "
+            f"with the same batch axes; got {tuple(src.shape)}, "
+            f"{tuple(dst.shape)}")
+
+
 def icp_point_to_plane(src, dst, src_mask, dst_mask,
                        initial_transform: RigidTransform3,
                        config: ICPConfig = ICPConfig(), normals_k: int = 8,
@@ -103,38 +117,33 @@ def icp_point_to_plane(src, dst, src_mask, dst_mask,
                        normals_voxel_size: float = 0.3,
                        return_stats: bool = False,
                        src_presorted: bool = False, device="cuda"):
-    """src (N, 3), dst (M, 3), masks over the point axes.  Returns the SE(3)
-    transform taking src to dst; with ``return_stats`` (transform,
-    ICPStats).
+    """src (..., N, 3), dst (..., M, 3), masks over the point axes: one
+    scan pair, or a batch of pairs with (...)-batched (or one shared) warm
+    starts.  Returns the SE(3) transform taking src to dst; with
+    ``return_stats`` (transform, ICPStats), one value per pair.
 
-    ``dst_normals`` reuses precomputed normals (all taken as valid where
-    dst_mask is).  ``normals_method="voxel"`` (voxel PCA at
-    ``normals_voxel_size``, the path every published number uses) or
-    ``"knn"`` (per-point ``normals_k``-neighbour PCA, an O(N M) sweep).
-    ``src_presorted``: src already permuted by ``models.icp2d.presort_src``
-    (bitwise-identical hoist of the loop-invariant sort)."""
+    ``dst_normals`` (..., M, 3) reuses precomputed normals (all taken as
+    valid where dst_mask is).  ``normals_method="voxel"`` (voxel PCA at
+    ``normals_voxel_size``, the path every published number uses, per
+    pair) or ``"knn"`` (per-point ``normals_k``-neighbour PCA, an O(N M)
+    sweep).  ``src_presorted``: src already permuted by
+    ``models.icp2d.presort_src`` (bitwise-identical hoist of the
+    loop-invariant sort).
+
+    A batch runs in lockstep, as the JAX package's does: every outer
+    iteration searches every pair at once (the pair-grid kernels for dbs
+    of at most 4,096 points, kernel 4 above) and solves them with the
+    plain batched inner loop, a pair at its fixed point stays unchanged,
+    and the loop exits when all are fixed; the stats give every pair the
+    loop's count."""
     if normals_method not in NORMALS_METHODS:
         raise ValueError(f"normals_method must be one of {NORMALS_METHODS}, "
                          f"got {normals_method!r}")
-    dt = config.compute_dtype
-    dev = resolve_device(device, dt)
-    src = torch.as_tensor(src).to(device=dev, dtype=dt)
-    dst = torch.as_tensor(dst).to(device=dev, dtype=dt)
-    if src.ndim != 2 or dst.ndim != 2 or src.shape[-1] != 3 \
-            or dst.shape[-1] != 3:
-        raise NotImplementedError(
-            f"icp_point_to_plane takes one scan pair, src (N, 3) and dst "
-            f"(M, 3); got {tuple(src.shape)}, {tuple(dst.shape)}.  A "
-            "batched point-to-plane call is not ported (no path of the "
-            "port needs it; run_slam3d aligns one pair at a time)")
-    src_mask = torch.as_tensor(src_mask).to(device=dev, dtype=torch.bool)
-    dst_mask = torch.as_tensor(dst_mask).to(device=dev, dtype=torch.bool)
+    src, dst, src_mask, dst_mask, t0, batch, dst_normals = _prepare(
+        src, dst, src_mask, dst_mask, initial_transform, config, device,
+        check=_check_pair_shapes, dst_extra=dst_normals)
+    dt, dev = src.dtype, src.device
     s = config.point_scale
-    src = _scaled(src, config)
-    dst = _scaled(dst, config)
-    t0 = initial_transform.astype(dt).to(dev)
-    if s != 1.0:
-        t0 = RigidTransform3(t0.rot, t0.t / s)
 
     sort = _sort_enabled(src, dst, config)
     if sort and not src_presorted:
@@ -149,8 +158,7 @@ def icp_point_to_plane(src, dst, src_mask, dst_mask,
             normals, n_valid = estimate_normals(dst, dst_mask, k=normals_k,
                                                 tile=config.nn_dst_tile)
     else:
-        normals = torch.as_tensor(dst_normals).to(device=dev, dtype=dt)
-        n_valid = dst_mask
+        normals, n_valid = dst_normals, dst_mask
         if sort:
             dst, dst_mask, (normals, n_valid) = _spatial_sort(
                 dst, dst_mask, (normals, n_valid), method=sort)
@@ -161,7 +169,8 @@ def icp_point_to_plane(src, dst, src_mask, dst_mask,
     payload = build_p2l_payload(dst, normals, n_valid, dst_mask)
     db_pack = build_db_pack(src, dst, dst_mask, payload=payload,
                             backend=config.nn_backend,
-                            tile=config.nn_dst_tile)
+                            tile=config.nn_dst_tile,
+                            method=config.nn_method)
     eps = torch.finfo(dt).eps
 
     def make_outer(warm):
@@ -178,7 +187,7 @@ def icp_point_to_plane(src, dst, src_mask, dst_mask,
                 src_t, dst, dst_mask, payload=payload,
                 backend=config.nn_backend, tile=config.nn_dst_tile,
                 q_tile=config.nn_query_tile, q_bound=qb, db_pack=db_pack,
-                warm=warm)
+                warm=warm, method=config.nn_method)
             matched_n, matched, matched_ok = decode_p2l_payload(
                 pay, res.dist_sq)
             dt_ = align3d.estimate_transform_p2l(
@@ -192,8 +201,7 @@ def icp_point_to_plane(src, dst, src_mask, dst_mask,
     t, it, aux, _ = _outer_fixed_point(make_outer(True), t0,
                                        config.outer_iters, aux0,
                                        first_step=make_outer(False))
-    if s != 1.0:
-        t = RigidTransform3(t.rot, t.t * s)
+    t = _unscale_transform(t, s)
     if return_stats:
-        return t, _stats_p2l(aux, src_mask, config, it)
-    return t
+        return _unflatten((t, _stats_p2l(aux, src_mask, config, it)), batch)
+    return _unflatten(t, batch)

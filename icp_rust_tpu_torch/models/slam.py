@@ -116,7 +116,7 @@ def _mean_nn_dist(src, dst, src_mask, dst_mask, t, config: ICPConfig):
     src_t = t.apply_points(src.to(config.compute_dtype))
     res = nearest_neighbor(src_t, dst.to(config.compute_dtype), dst_mask,
                            backend=config.nn_backend,
-                           tile=config.nn_dst_tile)
+                           tile=config.nn_dst_tile, method=config.nn_method)
     d = torch.sqrt(torch.clamp(res.dist_sq, min=0.0))
     w = src_mask.to(d.dtype)
     return torch.sum(d * w, dim=-1) / torch.clamp(torch.sum(w, dim=-1),

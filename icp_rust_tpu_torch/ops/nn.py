@@ -1,9 +1,17 @@
 """Exact 1-nearest-neighbor correspondence search.
 
 Replacement for the reference's KdTree dependency (exact 1-NN, used at
-src/lib.rs:99,121,141,164).  Distances use direct squared differences,
-not the |s|^2+|d|^2-2 s.d identity, whose cancellation would corrupt the
-argmin in f32.  Tie-break: the lowest database index.
+src/lib.rs:99,121,141,164).  Tie-break: the lowest database index.
+
+Distance methods (config.nn_method):
+- ``"direct"``: per-coordinate squared differences, no cancellation beyond
+  the inputs' rounding: the parity-exact choice, and the only one the
+  kernels compute;
+- ``"mxu"``: |q|^2 + |d|^2 - 2 q.d with the cross term a float32
+  ``torch.matmul`` (the JAX package's HIGHEST-precision MXU matmul; TF32
+  stays refused, ``config.resolve_device``).  Its ~|p|^2 eps absolute
+  error can flip the argmin between near-tied neighbours, and a distance
+  may come out slightly negative (not clamped, as in JAX).
 
 Backends (config.nn_backend):
 - ``"torch"``: ``nn_torch``, a tiled sweep over the db with a running
@@ -17,8 +25,11 @@ Backends (config.nn_backend):
   (kernel 4 for a batch or a db of fewer than 3 tiles, kernel 6 unseeded
   or with a wide payload).  ``nearest_neighbor``: kernel 6 for one cloud
   of 3 tiles or more, kernel 5 otherwise;
-- ``"auto"``: ``"cuda"`` for float32, ``"torch"`` for float64 (the f64
-  reference path is the plain one, as on the TPU).
+- ``"auto"``: ``"cuda"`` for float32 with ``"direct"``, ``"torch"`` for
+  float64 or ``"mxu"`` (the f64 reference path is the plain one, as on
+  the TPU; the kernels compute direct distances only).  An explicit
+  ``"cuda"`` takes the kernels whatever the method, as the JAX package's
+  ``"pallas"`` does.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
+from icp_rust_tpu_torch.config import NN_METHODS
 from icp_rust_tpu_torch.ops import nn_cuda, nn_pairs_cuda, nn_sweep_cuda
 
 
@@ -37,13 +49,16 @@ class NNResult(NamedTuple):
 
 
 def nn_torch(query: Tensor, db: Tensor, db_mask: Tensor | None = None,
-             tile: int = 2048) -> NNResult:
+             tile: int = 2048, method: str = "direct") -> NNResult:
     """Tiled brute-force exact 1-NN (the ``nn_xla`` counterpart).
 
     query: (..., Q, D); db: (..., M, D), or a shared (M, D); db_mask:
-    (..., M) or None.  Within a tile the first minimum wins; across tiles
-    the carry update is a strict '<', so the lowest index wins ties
-    overall."""
+    (..., M) or None.  ``method``: "direct" or "mxu" (module docstring).
+    Within a tile the first minimum wins; across tiles the carry update is
+    a strict '<', so the lowest index wins ties overall."""
+    if method not in NN_METHODS:
+        raise ValueError(f"nn method must be one of {NN_METHODS}, got "
+                         f"{method!r}")
     q_n, d = query.shape[-2:]
     m = db.shape[-2]
     if db_mask is None:
@@ -57,13 +72,20 @@ def nn_torch(query: Tensor, db: Tensor, db_mask: Tensor | None = None,
     best_i = torch.zeros((*batch, q_n), dtype=torch.int32,
                          device=query.device)
     inf = torch.tensor(float("inf"), dtype=query.dtype, device=query.device)
+    if method == "mxu":
+        q_sq = torch.sum(query * query, dim=-1)  # (..., Q)
     for start in range(0, m, tile):
         tdb = db[..., start:start + tile, :]
-        dist = torch.zeros((*batch, q_n, tdb.shape[-2]), dtype=query.dtype,
-                           device=query.device)
-        for k in range(d):
-            diff = query[..., :, k, None] - tdb[..., None, :, k]
-            dist = dist + diff * diff
+        if method == "mxu":
+            db_sq = torch.sum(tdb * tdb, dim=-1)  # (..., tile)
+            cross = torch.matmul(query, tdb.transpose(-1, -2))
+            dist = q_sq[..., :, None] + db_sq[..., None, :] - 2.0 * cross
+        else:
+            dist = torch.zeros((*batch, q_n, tdb.shape[-2]),
+                               dtype=query.dtype, device=query.device)
+            for k in range(d):
+                diff = query[..., :, k, None] - tdb[..., None, :, k]
+                dist = dist + diff * diff
         dist = torch.where(db_mask[..., None, start:start + tile], dist, inf)
         local_d, local_i = torch.min(dist, dim=-1)
         better = local_d < best_d
@@ -120,22 +142,26 @@ def spatial_order(points: Tensor, mask: Tensor | None = None,
     raise ValueError(f"unknown spatial sort method: {method!r}")
 
 
-def use_cuda_nn(query: Tensor, db: Tensor, backend: str = "auto") -> bool:
+def use_cuda_nn(query: Tensor, db: Tensor, backend: str = "auto",
+                method: str = "direct") -> bool:
     """Resolve the NN backend (mirrors ``use_pallas_nn``): the kernel path
-    for "cuda", and for "auto" on float32."""
+    for "cuda" whatever the method, and for "auto" on float32 with
+    "direct" distances (the kernels compute no other)."""
     if backend == "cuda":
         return True
-    return backend == "auto" and query.dtype == torch.float32
+    return (backend == "auto" and method == "direct"
+            and query.dtype == torch.float32)
 
 
-def use_pairs_nn(query: Tensor, db: Tensor, backend: str = "auto") -> bool:
+def use_pairs_nn(query: Tensor, db: Tensor, backend: str = "auto",
+                 method: str = "direct") -> bool:
     """The pair-grid dispatch (mirrors ``use_pairs_nn``): a batched query
     (B, Q, D) on the kernel route against dbs of at most
     ``nn_pairs_cuda.PAIRS_MAX_DB`` points.  Shared by
     ``nearest_neighbor_matched`` and the drivers' pre-sort policy, so the
     two always agree."""
     return (query.ndim == 3 and db.shape[-2] <= nn_pairs_cuda.PAIRS_MAX_DB
-            and use_cuda_nn(query, db, backend))
+            and use_cuda_nn(query, db, backend, method))
 
 
 def _gather_rows(payload: Tensor, index: Tensor) -> Tensor:
@@ -149,13 +175,15 @@ def _gather_rows(payload: Tensor, index: Tensor) -> Tensor:
 
 
 def build_db_pack(query: Tensor, db: Tensor, db_mask=None, payload=None,
-                  backend: str = "auto", tile: int = 2048):
+                  backend: str = "auto", tile: int = 2048,
+                  method: str = "direct"):
     """Per-frame NN index build, the KdTree::new analogue (reference
     src/lib.rs:97-102): the packed db of ``nn_cuda.pack_db`` when the
     seeded survivor-list kernel serves (query, db), else None (a batch, a
-    db of fewer than 3 tiles or a payload wider than 8 - D)."""
-    if (query.ndim != 2 or not use_cuda_nn(query, db, backend)
-            or use_pairs_nn(query, db, backend)):
+    db of fewer than 3 tiles, a payload wider than 8 - D, or the plain
+    route)."""
+    if (query.ndim != 2 or not use_cuda_nn(query, db, backend, method)
+            or use_pairs_nn(query, db, backend, method)):
         return None
     p = payload.shape[-1] if payload is not None else db.shape[-1]
     if db.shape[-1] + p > 8 or -(-db.shape[-2] // tile) < 3:
@@ -165,26 +193,28 @@ def build_db_pack(query: Tensor, db: Tensor, db_mask=None, payload=None,
 
 def nearest_neighbor(query: Tensor, db: Tensor, db_mask=None,
                      backend: str = "auto", tile: int = 2048,
-                     q_tile: int = 512) -> NNResult:
+                     q_tile: int = 512, method: str = "direct") -> NNResult:
     """Exact 1-NN without payload (``ops/nn.nearest_neighbor``): on the
     kernel route kernel 6 for one cloud whose db spans 3 tiles or more,
     kernel 5 otherwise (``nn_sweep_cuda.search``); a batched query against
     dbs of at most 4096 points takes the plain sweep on "auto", where the
-    TPU takes ``nn_xla`` (batched small)."""
+    TPU takes ``nn_xla`` (batched small), and so does "auto" with
+    "mxu"."""
     batched_small = query.ndim > 2 and db.shape[-2] <= 4096
-    if backend == "cuda" or (use_cuda_nn(query, db, backend)
+    if backend == "cuda" or (use_cuda_nn(query, db, backend, method)
                              and not batched_small):
         idx, dist, _ = nn_sweep_cuda.search(query, db, db_mask, None, q_tile,
                                             tile)
         return NNResult(index=idx, dist_sq=dist)
-    return nn_torch(query, db, db_mask, tile=tile)
+    return nn_torch(query, db, db_mask, tile=tile, method=method)
 
 
 def nearest_neighbor_matched(query: Tensor, db: Tensor, db_mask=None,
                              payload=None, backend: str = "auto",
                              tile: int = 2048, q_tile: int = 256,
                              q_bound: Tensor | None = None, db_pack=None,
-                             warm: bool | None = None):
+                             warm: bool | None = None,
+                             method: str = "direct"):
     """1-NN that also returns the winner's payload (default: the matched
     db point).  Returns (NNResult, matched (Q, P)).
 
@@ -197,13 +227,14 @@ def nearest_neighbor_matched(query: Tensor, db: Tensor, db_mask=None,
     pair-grid kernels (``use_pairs_nn``); any other batch and any db of
     fewer than 3 tiles the plain sweep (kernel 4); a seeded single cloud
     with D + P <= 8 the survivor-list kernel; an unseeded or wide one the
-    zig-zag kernel (kernel 6)."""
+    zig-zag kernel (kernel 6).  The plain route ("torch", or "auto" with
+    float64 or "mxu") is ``nn_torch`` with ``method`` and a gather."""
     if payload is None:
         payload = db
-    if not use_cuda_nn(query, db, backend):
-        res = nn_torch(query, db, db_mask, tile=tile)
+    if not use_cuda_nn(query, db, backend, method):
+        res = nn_torch(query, db, db_mask, tile=tile, method=method)
         return res, _gather_rows(payload, res.index)
-    if use_pairs_nn(query, db, backend):
+    if use_pairs_nn(query, db, backend, method):
         idx, dist, matched = nn_pairs_cuda.nn_pairs_matched(
             query, db, db_mask, payload, q_bound=q_bound, warm=warm)
         return NNResult(index=idx, dist_sq=dist), matched

@@ -61,6 +61,10 @@ Q_SUB = 256
 LIST_GRP = 64
 _CHUNK = 128
 _DIMS = (2, 3)
+# Payload widths: the driver's xy or xyz matched points (2, 3) and the
+# point-to-plane payload [n, c = n . q] (4), whose sentinel c on invalid
+# rows comes back as it went in.
+_PAYLOADS = (2, 3, 4)
 # nn_pairs_list's schedule: list entries a work item and queries a thread
 # (csrc/nn_pairs_list.cu), the wrapper's by ``list_schedule``: 2 and 2
 # measured best or within 1 % of the best schedule over the batched
@@ -315,11 +319,12 @@ def _check_launch(name: str, query_p: Tensor, dbf_cm: Tensor, d_dim: int,
                              f"{query_p.device}")
     b, qp, d = query_p.shape
     f_dim = dbf_cm.shape[1] - d_dim
-    if (d != d_dim or d_dim not in _DIMS or f_dim not in _DIMS
+    if (d != d_dim or d_dim not in _DIMS or f_dim not in _PAYLOADS
             or dbf_cm.shape[0] != b or dbf_cm.shape[2] % _CHUNK
             or q_sub % 64 or q_sub > 1024 or qp % q_sub):
-        raise ValueError(f"{name}: bad shapes (D, F in {_DIMS}, Qp a "
-                         "multiple of q_sub, M a multiple of 128)")
+        raise ValueError(f"{name}: bad shapes (D in {_DIMS}, F in "
+                         f"{_PAYLOADS}, Qp a multiple of q_sub, M a multiple "
+                         "of 128)")
 
 
 def _outputs(query_p: Tensor, dbf_cm: Tensor, d_dim: int):

@@ -135,7 +135,18 @@ def estimate_normals_voxel(points: Tensor, mask: Tensor, voxel_size: float,
     lies outside the 1024-cells-per-axis index box (points farther than
     1024 * voxel_size from the cloud minimum: invalid, not clipped, so
     far-apart surfaces never blend into one border voxel), or is
-    near-collinear (mid eigenvalue < planarity_eps * largest)."""
+    near-collinear (mid eigenvalue < planarity_eps * largest).
+
+    Batch axes (..., N, 3) run cloud by cloud, each on its own grid at the
+    same capacity, as the JAX package vmaps the function: every lane
+    equals the unbatched call on it."""
+    if points.ndim > 2:
+        lanes = [estimate_normals_voxel(p, m, voxel_size, capacity,
+                                        orient_to, min_points, planarity_eps)
+                 for p, m in zip(points.flatten(0, -3),
+                                 mask.flatten(0, -2))]
+        return (torch.stack([n for n, _ in lanes]).reshape(points.shape),
+                torch.stack([v for _, v in lanes]).reshape(mask.shape))
     n_pts, dim = points.shape
     dtype, dev = points.dtype, points.device
     big = torch.iinfo(torch.int32).max

@@ -185,10 +185,8 @@ def dp_sp_icp_p2l(src, dst, src_mask, dst_mask,
     t0 = initial_transform.astype(dt).to(dev)
     t = RigidTransform3(_local(t0.rot, dev, dt, [(pair, 0)]),
                         _local(t0.t, dev, dt, [(pair, 0)]) / s)
-    per_pair = [estimate_normals_voxel(d, m, normals_voxel_size / s)
-                for d, m in zip(dst_s, dst_mask)]
-    normals = torch.stack([n for n, _ in per_pair])
-    n_valid = torch.stack([v for _, v in per_pair])
+    normals, n_valid = estimate_normals_voxel(dst_s, dst_mask,
+                                              normals_voxel_size / s)
     payload = build_p2l_payload(dst_s, normals, n_valid, dst_mask)
 
     def outer(t):

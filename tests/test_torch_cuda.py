@@ -369,7 +369,8 @@ def test_nn_pairs_kernels_bitwise_equal_to_plain(dev, d, warm):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("d,f_dim", [(2, 2), (2, 3), (3, 2), (3, 3)])
+@pytest.mark.parametrize("d,f_dim", [(2, 2), (2, 3), (2, 4), (3, 2), (3, 3),
+                                     (3, 4)])
 @pytest.mark.parametrize("bounds", ["cold", "tight", "empty-and-full"])
 def test_nn_pairs_schedules_bitwise(dev, d, f_dim, bounds):
     """Kernel 8 at its wrapper's schedule and at work items of 1, 3, 6 and
@@ -1429,3 +1430,152 @@ def test_dp_sp_icp3d_planar_on_four_ranks_tracks_icp3d_planar(dev):
     for rot, t in got:
         assert np.abs(t - want.t.cpu().numpy()).max() < 1e-3
         assert np.abs(rot - want.rot.cpu().numpy()).max() < 1e-3
+
+
+def _plane_pairs(dev, b=4, n=900, m=3072, seed=50):
+    """Batched p2l inputs at the pair-grid route's size: Morton-sorted dbs
+    of m points with a masked tail, queries near them, and the 4-lane
+    payload [n, c] of ``build_p2l_payload`` with invalid planes (the
+    sentinel c) on a third of the rows."""
+    from icp_rust_tpu_torch.models.icp_p2l import build_p2l_payload
+    from icp_rust_tpu_torch.ops.nn import morton_order
+
+    rng = np.random.default_rng(seed)
+    db = torch.as_tensor(rng.uniform(-3, 3, (b, m, 3)), dtype=torch.float32,
+                         device=dev)
+    mask = torch.as_tensor(rng.random((b, m)) > 0.1, device=dev)
+    order = morton_order(db, mask).long()
+    db = torch.take_along_dim(db, order[..., None], dim=1)
+    mask = torch.take_along_dim(mask, order, dim=1)
+    query = db[:, :n] + torch.as_tensor(rng.normal(0, 0.03, (b, n, 3)),
+                                        dtype=torch.float32, device=dev)
+    nrm = torch.nn.functional.normalize(torch.as_tensor(
+        rng.normal(size=(b, m, 3)), dtype=torch.float32, device=dev), dim=-1)
+    n_valid = torch.as_tensor(rng.random((b, m)) > 0.33, device=dev)
+    return query, db, mask, build_p2l_payload(db, nrm, n_valid, mask)
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_nn_pairs_kernels_at_the_plane_payload(dev, warm):
+    """Kernels 8 (cold) and 9 (warm) at D 3 / P 4 through
+    ``nn_pairs_matched``: bitwise their plain versions and brute force,
+    the sentinel c of invalid planes returned as it went in; kernel 9 at
+    every schedule too."""
+    from icp_rust_tpu_torch.models.icp_p2l import _C_INVALID
+    from icp_rust_tpu_torch.ops.nn import nn_torch
+
+    query, db, mask, pay = _plane_pairs(dev)
+    brute = nn_torch(query, db, mask)
+    qb = brute.dist_sq * (1.0 + 32.0 * 1.2e-7) if warm else None
+    name = "nn_pairs_list" if warm else "nn_pairs"
+    before = cuda_build.LAUNCHES[name]
+    idx, dist, got_pay = nn_pairs_cuda.nn_pairs_matched(
+        query, db, mask, pay, q_bound=qb, warm=warm)
+    assert cuda_build.LAUNCHES[name] == before + 1
+    torch.cuda.synchronize()
+    want_pay = torch.take_along_dim(pay, brute.index[..., None].long(), dim=1)
+    assert torch.equal(idx, brute.index) and torch.equal(dist, brute.dist_sq)
+    assert torch.equal(got_pay, want_pay)
+    assert bool((got_pay[..., 3] == _C_INVALID).any())
+    query_p, dbf, cbox, qb_p = nn_pairs_cuda.prepare(query, db, mask, pay, qb)
+    if warm:
+        lists, cnt = nn_pairs_cuda._survivor_lists(query_p, cbox, qb_p, 3,
+                                                   256, 64)
+        args = (query_p, dbf, lists, cnt, 3, 256, qb_p, cbox)
+        want = nn_pairs_cuda.nn_pairs_list_plain(*args)
+        for item in (1, 2, 3, 8):
+            for q in (1, 2, 4):
+                largs, out, _part = nn_pairs_cuda._nn_pairs_list_args(
+                    *args, item=item, q_per_thread=q)
+                assert cuda_build.launcher("nn_pairs_list")(*largs) == 0
+                torch.cuda.synchronize()
+                for a, w in zip(out, want):
+                    assert torch.equal(a, w)
+    else:
+        args = (query_p, dbf, nn_pairs_cuda._query_boxes(query_p, 256), cbox,
+                nn_pairs_cuda._group_bounds(qb_p, 256), 3, 256)
+        want = nn_pairs_cuda.nn_pairs_plain(*args)
+    n = query.shape[1]
+    assert torch.equal(idx, want[1][:, :n])
+    assert torch.equal(dist, nn_cuda._trim_sentinel(want[0][:, :n]))
+    assert torch.equal(got_pay, want[2][:, :n])
+
+
+@pytest.mark.parametrize("n_points", [3072, 6144])
+def test_batched_p2l_on_the_card_tracks_the_plain_route(dev, n_points):
+    """Batched ``icp_point_to_plane`` on the card: 4 consecutive pairs of
+    the room frames (chip_smoke.room_sequence: floor, walls and a ramp
+    constrain every DoF) from perturbed true poses; the pair-grid kernels
+    at 3,072 points, kernel 4 at 6,144.  Each pair within 1 mm of the
+    batched plain route (torch NN, the plain loop) and of the single-pair
+    call on it."""
+    import chip_smoke
+    from icp_rust_tpu_torch.models.icp_p2l import icp_point_to_plane
+
+    (src, smask, dst, dmask), _, t0 = chip_smoke.p2l_room_inputs(
+        dev, n_poses=5, n_points=n_points, scene_n=2 * n_points)
+    cfg = ICPConfig(det_rel_eps=1e-9)
+    cuda_build.reset_launches()
+    t = icp_point_to_plane(src, dst, smask, dmask, t0, cfg,
+                           normals_voxel_size=0.4, device=dev)
+    launched = {k for k, v in cuda_build.LAUNCHES.items() if v}
+    assert launched == ({"nn_pairs", "nn_pairs_list"} if n_points <= 4096
+                        else {"nn_matched"})
+    plain = icp_point_to_plane(
+        src, dst, smask, dmask, t0,
+        cfg.with_(nn_backend="torch", align_backend="torch"),
+        normals_voxel_size=0.4, device=dev)
+    assert float((t.t - plain.t).abs().max()) < 1e-3
+    assert float((t.rot - plain.rot).abs().max()) < 1e-3
+    for i in range(4):
+        one = icp_point_to_plane(src[i], dst[i], smask[i], dmask[i],
+                                 RigidTransform3(t0.rot[i], t0.t[i]), cfg,
+                                 normals_voxel_size=0.4, device=dev)
+        assert float((t.t[i] - one.t).abs().max()) < 1e-3
+        assert float((t.rot[i] - one.rot).abs().max()) < 1e-3
+
+
+def test_gridhash_on_the_card_is_bitwise_the_cpu(dev):
+    """``ops/gridhash`` built and queried on the card: every field and
+    result bitwise the same call's on the CPU (frames 0 and 1, subsampled;
+    r 0.25 m, cap 32, 2^16 slots)."""
+    import dataclasses
+
+    from icp_rust_tpu_torch.ops import gridhash
+
+    frames, _ = io.synthesize_frames3d(2, seed=0)
+    db = torch.as_tensor(frames[0][::4], dtype=torch.float32)
+    query = torch.as_tensor(frames[1][::4], dtype=torch.float32)
+    mask = torch.ones(len(db), dtype=torch.bool)
+    mask[::7] = False
+    grids = [gridhash.build_grid(db.to(d), mask.to(d), 0.25,
+                                 table_size=1 << 16, bucket_cap=32)
+             for d in (dev, "cpu")]
+    for f in dataclasses.fields(grids[0]):
+        a, b = getattr(grids[0], f.name), getattr(grids[1], f.name)
+        assert torch.equal(a.cpu(), b) if torch.is_tensor(a) else a == b
+    res = [gridhash.nn_gridhash(query.to(g.points.device), g) for g in grids]
+    assert torch.equal(res[0].index.cpu(), res[1].index)
+    assert torch.equal(res[0].dist_sq.cpu(), res[1].dist_sq)
+
+
+def test_mxu_on_the_card_matches_the_cpu(dev):
+    """``nn_torch(method="mxu")`` on the card (full float32 matmuls: TF32
+    stays off) gives the CPU's indices on well-separated data, and the
+    direct method's."""
+    from icp_rust_tpu_torch.ops.nn import nn_torch
+
+    rng = np.random.default_rng(6)
+    grid = np.stack(np.meshgrid(*[np.arange(12)] * 3, indexing="ij"),
+                    -1).reshape(-1, 3) * 0.25 - 1.5
+    db = torch.as_tensor(grid + rng.uniform(-0.02, 0.02, grid.shape),
+                         dtype=torch.float32)
+    query = db[torch.as_tensor(rng.integers(0, len(db), 2000))] \
+        + torch.as_tensor(rng.uniform(-0.05, 0.05, (2000, 3)),
+                          dtype=torch.float32)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    card = nn_torch(query.to(dev), db.to(dev), tile=512, method="mxu")
+    cpu = nn_torch(query, db, tile=512, method="mxu")
+    direct = nn_torch(query, db, tile=512)
+    assert torch.equal(card.index.cpu(), cpu.index)
+    assert torch.equal(cpu.index, direct.index)

@@ -597,12 +597,24 @@ def test_icp_point_to_plane_kernel_route_tracks_torch_route(method):
 
 
 def test_icp_point_to_plane_refuses_batches_and_bad_methods():
+    """A batch now runs (tests/test_torch_p2l_batched.py holds it against
+    the JAX package): two copies of one pair give that pair's transform
+    twice.  Bad normals methods and mismatched batch axes still raise."""
     src, dst, mask = _box_pair()
     ident = TT.identity(dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        icp_p2l.icp_point_to_plane(np.stack([src, src]), np.stack([dst, dst]),
+    t = icp_p2l.icp_point_to_plane(np.stack([src, src]), np.stack([dst, dst]),
                                    np.stack([mask, mask]),
                                    np.stack([mask, mask]), ident,
+                                   REFERENCE_CONFIG, **CPU)
+    t1 = icp_p2l.icp_point_to_plane(src, dst, mask, mask, ident,
+                                    REFERENCE_CONFIG, **CPU)
+    assert t.t.shape == (2, 3)
+    for i in range(2):
+        np.testing.assert_allclose(t.t[i].numpy(), t1.t.numpy(),
+                                   atol=GEOM_TOL, rtol=0)
+    with pytest.raises(ValueError, match="same batch axes"):
+        icp_p2l.icp_point_to_plane(np.stack([src, src]), dst,
+                                   np.stack([mask, mask]), mask, ident,
                                    REFERENCE_CONFIG, **CPU)
     with pytest.raises(ValueError, match="normals_method"):
         icp_p2l.icp_point_to_plane(src, dst, mask, mask, ident,
