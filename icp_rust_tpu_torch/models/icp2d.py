@@ -47,6 +47,7 @@ from icp_rust_tpu_torch.ops.nn import (
     use_cuda_nn,
     use_pairs_nn,
 )
+from icp_rust_tpu_torch.utils.profiling import annotate
 
 # Chunk of the pair-grid NN kernels: a batched db sorts from 3 chunks up.
 _PAIRS_CHUNK = 128
@@ -177,12 +178,14 @@ def _outer_fixed_point(step, t0, max_iters: int, aux0, first_step=None):
     fixed = False
     if first_step is not None and max_iters >= 1:
         lane_it = lane_it + 1
-        t, fixed_t, aux = first_step(t0, aux0)
-        fixed, it = bool(torch.all(fixed_t)), 1
+        with annotate("icp.outer_iter"):
+            t, fixed_t, aux = first_step(t0, aux0)
+            fixed, it = bool(torch.all(fixed_t)), 1
     while it < max_iters and not fixed:
         lane_it = lane_it + (~fixed_t).to(torch.int32)
-        t, fixed_t, aux = step(t, aux)
-        fixed = bool(torch.all(fixed_t))
+        with annotate("icp.outer_iter"):
+            t, fixed_t, aux = step(t, aux)
+            fixed = bool(torch.all(fixed_t))
         it += 1
     return t, it, aux, lane_it
 
@@ -240,30 +243,32 @@ def _prepare(src, dst, src_mask, dst_mask, initial_transform,
     and flattened with dst.  Returns (src, dst, src_mask, dst_mask, t0,
     batch, dst_extra): ``batch`` is src's batch shape, for
     ``_unflatten``."""
-    dt = config.compute_dtype
-    dev = resolve_device(device, dt)
-    src = torch.as_tensor(src).to(device=dev, dtype=dt)
-    dst = torch.as_tensor(dst).to(device=dev, dtype=dt)
-    check(src, dst)
-    src_mask = torch.as_tensor(src_mask).to(device=dev, dtype=torch.bool)
-    dst_mask = torch.as_tensor(dst_mask).to(device=dev, dtype=torch.bool)
-    if dst_extra is not None:
-        dst_extra = torch.as_tensor(dst_extra).to(device=dev, dtype=dt)
-    dst, dst_mask = _broadcast_db(src, dst, dst_mask)
-    t0 = _scale_transform(
-        initial_transform.astype(dt).to(dev), config.point_scale)
-    kind, d = type(t0), t0.t.shape[-1]
-    batch = src.shape[:-2]
-    if t0.t.shape[:-1] != batch:
-        t0 = kind(t0.rot.expand(*batch, d, d), t0.t.expand(*batch, d))
-    if len(batch) > 1:
-        src, dst = src.flatten(0, -3), dst.flatten(0, -3)
-        src_mask, dst_mask = src_mask.flatten(0, -2), dst_mask.flatten(0, -2)
+    with annotate("icp.prepare"):
+        dt = config.compute_dtype
+        dev = resolve_device(device, dt)
+        src = torch.as_tensor(src).to(device=dev, dtype=dt)
+        dst = torch.as_tensor(dst).to(device=dev, dtype=dt)
+        check(src, dst)
+        src_mask = torch.as_tensor(src_mask).to(device=dev, dtype=torch.bool)
+        dst_mask = torch.as_tensor(dst_mask).to(device=dev, dtype=torch.bool)
         if dst_extra is not None:
-            dst_extra = dst_extra.flatten(0, -3)
-        t0 = kind(t0.rot.reshape(-1, d, d), t0.t.reshape(-1, d))
-    return (_scaled(src, config), _scaled(dst, config), src_mask, dst_mask,
-            t0, batch, dst_extra)
+            dst_extra = torch.as_tensor(dst_extra).to(device=dev, dtype=dt)
+        dst, dst_mask = _broadcast_db(src, dst, dst_mask)
+        t0 = _scale_transform(
+            initial_transform.astype(dt).to(dev), config.point_scale)
+        kind, d = type(t0), t0.t.shape[-1]
+        batch = src.shape[:-2]
+        if t0.t.shape[:-1] != batch:
+            t0 = kind(t0.rot.expand(*batch, d, d), t0.t.expand(*batch, d))
+        if len(batch) > 1:
+            src, dst = src.flatten(0, -3), dst.flatten(0, -3)
+            src_mask = src_mask.flatten(0, -2)
+            dst_mask = dst_mask.flatten(0, -2)
+            if dst_extra is not None:
+                dst_extra = dst_extra.flatten(0, -3)
+            t0 = kind(t0.rot.reshape(-1, d, d), t0.t.reshape(-1, d))
+        return (_scaled(src, config), _scaled(dst, config), src_mask, dst_mask,
+                t0, batch, dst_extra)
 
 
 def _unflatten(out, batch):
@@ -361,18 +366,19 @@ def icp2d(src, dst, src_mask, dst_mask,
     frame_kernel_max points run as one ``icp2d_frame`` launch when the
     solver resolves to the kernels, and a batch as one
     ``icp2d_frame_pairs`` launch with ``frame_backend="pairs"``."""
-    src, dst, src_mask, dst_mask, t0, batch, _ = _prepare(
-        src, dst, src_mask, dst_mask, initial_transform, config, device)
-    kind = _use_frame_kernel(src, dst, config, return_stats)
-    if kind:
-        rot, t, _ = align2d_cuda.icp2d_frame(src, dst, src_mask, dst_mask,
-                                             t0, config)
-        return _unflatten(_unscale_transform(RigidTransform2(rot, t),
-                                             config.point_scale), batch)
-    return _unflatten(_finish(*_icp_loop(src, dst, src_mask, dst_mask, t0,
-                                         config, src_presorted,
-                                         planar=False)[:3],
-                              config, return_stats), batch)
+    with annotate("icp.icp2d"):
+        src, dst, src_mask, dst_mask, t0, batch, _ = _prepare(
+            src, dst, src_mask, dst_mask, initial_transform, config, device)
+        kind = _use_frame_kernel(src, dst, config, return_stats)
+        if kind:
+            rot, t, _ = align2d_cuda.icp2d_frame(src, dst, src_mask, dst_mask,
+                                                 t0, config)
+            return _unflatten(_unscale_transform(RigidTransform2(rot, t),
+                                                 config.point_scale), batch)
+        return _unflatten(_finish(*_icp_loop(src, dst, src_mask, dst_mask, t0,
+                                             config, src_presorted,
+                                             planar=False)[:3],
+                                  config, return_stats), batch)
 
 
 def icp3d_planar(src, dst, src_mask, dst_mask,

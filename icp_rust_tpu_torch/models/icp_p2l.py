@@ -44,6 +44,7 @@ from icp_rust_tpu_torch.ops.normals import (
     estimate_normals,
     estimate_normals_voxel,
 )
+from icp_rust_tpu_torch.utils.profiling import annotate
 
 # Plane-offset payload protocol: the NN carry holds [n (3), c = n . q]
 # with invalidity folded into c as an unreachable sentinel (|c| <= |q| <=
@@ -136,72 +137,76 @@ def icp_point_to_plane(src, dst, src_mask, dst_mask,
     plain batched inner loop, a pair at its fixed point stays unchanged,
     and the loop exits when all are fixed; the stats give every pair the
     loop's count."""
-    if normals_method not in NORMALS_METHODS:
-        raise ValueError(f"normals_method must be one of {NORMALS_METHODS}, "
-                         f"got {normals_method!r}")
-    src, dst, src_mask, dst_mask, t0, batch, dst_normals = _prepare(
-        src, dst, src_mask, dst_mask, initial_transform, config, device,
-        check=_check_pair_shapes, dst_extra=dst_normals)
-    dt, dev = src.dtype, src.device
-    s = config.point_scale
+    with annotate("icp.icp_point_to_plane"):
+        if normals_method not in NORMALS_METHODS:
+            raise ValueError("normals_method must be one of "
+                             f"{NORMALS_METHODS}, got {normals_method!r}")
+        src, dst, src_mask, dst_mask, t0, batch, dst_normals = _prepare(
+            src, dst, src_mask, dst_mask, initial_transform, config, device,
+            check=_check_pair_shapes, dst_extra=dst_normals)
+        dt, dev = src.dtype, src.device
+        s = config.point_scale
 
-    sort = _sort_enabled(src, dst, config)
-    if sort and not src_presorted:
-        src, src_mask, _ = _spatial_sort(src, src_mask, method=sort)
-    if dst_normals is None:
-        if sort:
-            dst, dst_mask, _ = _spatial_sort(dst, dst_mask, method=sort)
-        if normals_method == "voxel":
-            normals, n_valid = estimate_normals_voxel(
-                dst, dst_mask, normals_voxel_size / s)
+        sort = _sort_enabled(src, dst, config)
+        if sort and not src_presorted:
+            src, src_mask, _ = _spatial_sort(src, src_mask, method=sort)
+        if dst_normals is None:
+            if sort:
+                dst, dst_mask, _ = _spatial_sort(dst, dst_mask, method=sort)
+            with annotate("icp.normals"):
+                if normals_method == "voxel":
+                    normals, n_valid = estimate_normals_voxel(
+                        dst, dst_mask, normals_voxel_size / s)
+                else:
+                    normals, n_valid = estimate_normals(
+                        dst, dst_mask, k=normals_k, tile=config.nn_dst_tile)
         else:
-            normals, n_valid = estimate_normals(dst, dst_mask, k=normals_k,
-                                                tile=config.nn_dst_tile)
-    else:
-        normals, n_valid = dst_normals, dst_mask
-        if sort:
-            dst, dst_mask, (normals, n_valid) = _spatial_sort(
-                dst, dst_mask, (normals, n_valid), method=sort)
+            normals, n_valid = dst_normals, dst_mask
+            if sort:
+                dst, dst_mask, (normals, n_valid) = _spatial_sort(
+                    dst, dst_mask, (normals, n_valid), method=sort)
 
-    # The residual sees the matched point q only through c = n . q, so the
-    # NN carries [n, c]: 4 payload lanes.  The db is packed once per call
-    # (the KdTree-build analogue).
-    payload = build_p2l_payload(dst, normals, n_valid, dst_mask)
-    db_pack = build_db_pack(src, dst, dst_mask, payload=payload,
-                            backend=config.nn_backend,
-                            tile=config.nn_dst_tile,
-                            method=config.nn_method)
-    eps = torch.finfo(dt).eps
+        # The residual sees the matched point q only through c = n . q, so the
+        # NN carries [n, c]: 4 payload lanes.  The db is packed once per call
+        # (the KdTree-build analogue).
+        payload = build_p2l_payload(dst, normals, n_valid, dst_mask)
+        db_pack = build_db_pack(src, dst, dst_mask, payload=payload,
+                                backend=config.nn_backend,
+                                tile=config.nn_dst_tile,
+                                method=config.nn_method)
+        eps = torch.finfo(dt).eps
 
-    def make_outer(warm):
-        def outer(t, aux):
-            prev_d2, prev_q = aux[0], aux[1]
-            src_t = t.apply_points(src)
-            # dist_prev + |dq| bounds the new NN distance (the db is fixed
-            # across outer iterations); 32 eps keeps it an upper bound
-            # after the sqrt/square round trip.  3D: every coordinate
-            # moves.
-            move = torch.linalg.norm(src_t - prev_q, dim=-1)
-            qb = (torch.sqrt(prev_d2) + move) ** 2 * (1.0 + 32.0 * eps)
-            res, pay = nearest_neighbor_matched(
-                src_t, dst, dst_mask, payload=payload,
-                backend=config.nn_backend, tile=config.nn_dst_tile,
-                q_tile=config.nn_query_tile, q_bound=qb, db_pack=db_pack,
-                warm=warm, method=config.nn_method)
-            matched_n, matched, matched_ok = decode_p2l_payload(
-                pay, res.dist_sq)
-            dt_ = align3d.estimate_transform_p2l(
-                src_t, matched, matched_n, src_mask & matched_ok, config)
-            return dt_.compose(t), _is_identity(dt_), (res.dist_sq, src_t,
-                                                       pay)
-        return outer
+        def make_outer(warm):
+            def outer(t, aux):
+                prev_d2, prev_q = aux[0], aux[1]
+                src_t = t.apply_points(src)
+                # dist_prev + |dq| bounds the new NN distance (the db is fixed
+                # across outer iterations); 32 eps keeps it an upper bound
+                # after the sqrt/square round trip.  3D: every coordinate
+                # moves.
+                move = torch.linalg.norm(src_t - prev_q, dim=-1)
+                qb = (torch.sqrt(prev_d2) + move) ** 2 * (1.0 + 32.0 * eps)
+                with annotate("icp.nn"):
+                    res, pay = nearest_neighbor_matched(
+                        src_t, dst, dst_mask, payload=payload,
+                        backend=config.nn_backend, tile=config.nn_dst_tile,
+                        q_tile=config.nn_query_tile, q_bound=qb,
+                        db_pack=db_pack, warm=warm, method=config.nn_method)
+                matched_n, matched, matched_ok = decode_p2l_payload(
+                    pay, res.dist_sq)
+                dt_ = align3d.estimate_transform_p2l(
+                    src_t, matched, matched_n, src_mask & matched_ok, config)
+                return dt_.compose(t), _is_identity(dt_), (res.dist_sq, src_t,
+                                                           pay)
+            return outer
 
-    aux0 = (torch.full(src.shape[:-1], float("inf"), dtype=dt, device=dev),
-            src, torch.zeros((*src.shape[:-1], 4), dtype=dt, device=dev))
-    t, it, aux, _ = _outer_fixed_point(make_outer(True), t0,
-                                       config.outer_iters, aux0,
-                                       first_step=make_outer(False))
-    t = _unscale_transform(t, s)
-    if return_stats:
-        return _unflatten((t, _stats_p2l(aux, src_mask, config, it)), batch)
-    return _unflatten(t, batch)
+        aux0 = (torch.full(src.shape[:-1], float("inf"), dtype=dt, device=dev),
+                src, torch.zeros((*src.shape[:-1], 4), dtype=dt, device=dev))
+        t, it, aux, _ = _outer_fixed_point(make_outer(True), t0,
+                                           config.outer_iters, aux0,
+                                           first_step=make_outer(False))
+        t = _unscale_transform(t, s)
+        if return_stats:
+            return _unflatten((t, _stats_p2l(aux, src_mask, config, it)),
+                              batch)
+        return _unflatten(t, batch)

@@ -57,6 +57,7 @@ from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.ops import align2d, cuda_build, robust
 from icp_rust_tpu_torch.ops.nn_cuda import _SENTINEL
+from icp_rust_tpu_torch.utils.profiling import annotate
 
 _SMALL_ANGLE_F32 = float(torch.finfo(torch.float32).eps) ** 0.25
 FRAME_MAX_POINTS = 1536
@@ -383,15 +384,16 @@ def icp2d_frame_raw(src: Tensor, dst: Tensor, src_mask: Tensor,
     """Launch icp2d_frame (src (N, 2)) or icp2d_frame_pairs (src
     (B, N, 2)) on CUDA tensors; returns the (8,) or (B, 8) output: r00 r01
     r10 r11 tx ty, outer and summed inner iterations of each pair."""
-    name, args, out, _keep = _icp2d_frame_args(src, dst, src_mask, dst_mask,
-                                               t0, config)
-    status = cuda_build.launcher(name)(*args)
-    cuda_build.LAUNCHES[name] += 1
-    if status == -1:
-        raise RuntimeError(f"{name}: no thread-block cluster of that shape "
-                           "can be placed on this card")
-    cuda_build.check(status, name)
-    return out
+    with annotate("icp.frame_launch"):
+        name, args, out, _keep = _icp2d_frame_args(src, dst, src_mask,
+                                                   dst_mask, t0, config)
+        status = cuda_build.launcher(name)(*args)
+        cuda_build.LAUNCHES[name] += 1
+        if status == -1:
+            raise RuntimeError(f"{name}: no thread-block cluster of that "
+                               "shape can be placed on this card")
+        cuda_build.check(status, name)
+        return out
 
 
 def _icp2d_frame_args(src: Tensor, dst: Tensor, src_mask: Tensor,

@@ -36,6 +36,7 @@ from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
 from icp_rust_tpu_torch.ops import huber, robust
 from icp_rust_tpu_torch.ops.align2d import use_cuda_align
 from icp_rust_tpu_torch.ops.collectives import all_gather_tiled, psum
+from icp_rust_tpu_torch.utils.profiling import annotate
 
 
 class GNUpdate6(NamedTuple):
@@ -139,31 +140,32 @@ def _loop_torch(src, dst, normals, mask, huber_k: float, config: ICPConfig,
     """The plain inner loop from identity, batch lanes freezing when done;
     with a ``group`` every update, so the exit test, is the same on all its
     ranks."""
-    dtype = src.dtype
-    batch = src.shape[:-2]
-    t = RigidTransform3.identity(batch, dtype, src.device)
-    prev = torch.full(batch, torch.finfo(dtype).max, dtype=dtype,
-                      device=src.device)
-    done = torch.zeros(batch, dtype=torch.bool, device=src.device)
-    s2 = config.point_scale ** 2
-    it = 0
-    while it < config.inner_max_iter and not bool(torch.all(done)):
-        upd = weighted_gn_update_p2l(t, src, dst, normals, mask, huber_k,
-                                     group)
-        # Physical-units threshold: the translation components rescale.
-        d2_phys = (torch.sum(upd.delta[..., :3] ** 2, dim=-1) * s2
-                   + torch.sum(upd.delta[..., 3:] ** 2, dim=-1))
-        stop = ~upd.ok | (d2_phys < config.inner_delta_sq_tol)
-        stop = stop | (upd.err > prev)
-        newly = done | stop
-        t_step = RigidTransform3.from_twist(upd.delta).compose(t)
-        t = RigidTransform3(
-            rot=torch.where(newly[..., None, None], t.rot, t_step.rot),
-            t=torch.where(newly[..., None], t.t, t_step.t))
-        prev = torch.where(newly, prev, upd.err)
-        done = newly
-        it += 1
-    return t
+    with annotate("icp.inner_loop"):
+        dtype = src.dtype
+        batch = src.shape[:-2]
+        t = RigidTransform3.identity(batch, dtype, src.device)
+        prev = torch.full(batch, torch.finfo(dtype).max, dtype=dtype,
+                          device=src.device)
+        done = torch.zeros(batch, dtype=torch.bool, device=src.device)
+        s2 = config.point_scale ** 2
+        it = 0
+        while it < config.inner_max_iter and not bool(torch.all(done)):
+            upd = weighted_gn_update_p2l(t, src, dst, normals, mask, huber_k,
+                                         group)
+            # Physical-units threshold: the translation components rescale.
+            d2_phys = (torch.sum(upd.delta[..., :3] ** 2, dim=-1) * s2
+                       + torch.sum(upd.delta[..., 3:] ** 2, dim=-1))
+            stop = ~upd.ok | (d2_phys < config.inner_delta_sq_tol)
+            stop = stop | (upd.err > prev)
+            newly = done | stop
+            t_step = RigidTransform3.from_twist(upd.delta).compose(t)
+            t = RigidTransform3(
+                rot=torch.where(newly[..., None, None], t.rot, t_step.rot),
+                t=torch.where(newly[..., None], t.t, t_step.t))
+            prev = torch.where(newly, prev, upd.err)
+            done = newly
+            it += 1
+        return t
 
 
 def estimate_transform_p2l(src: Tensor, dst: Tensor, normals: Tensor,

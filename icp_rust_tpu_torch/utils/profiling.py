@@ -4,8 +4,9 @@
   (host activity, plus the card's when one is present), written into
   ``log_dir`` as a Chrome trace (``*.pt.trace.json``; open it in
   ui.perfetto.dev or chrome://tracing).
-- ``annotate(name)``: a named range in that trace
-  (``torch.profiler.record_function``), and an NVTX range on the card.
+- ``annotate(name)``: a named range of the host in that trace while a
+  profiler records; otherwise nothing beyond one check of the profiler's
+  flag.
 - ``debug_mode()``: raise on NaN, the counterpart of ``jax_debug_nans``.
 """
 
@@ -14,7 +15,8 @@ from __future__ import annotations
 import contextlib
 
 import torch
-from torch.profiler import ProfilerActivity, profile, record_function, \
+from torch._C._profiler import _RecordFunctionFast
+from torch.profiler import ProfilerActivity, profile, \
     tensorboard_trace_handler
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -34,18 +36,24 @@ def trace(log_dir: str):
         yield prof
 
 
-@contextlib.contextmanager
+_NO_RANGE = contextlib.nullcontext()
+
+
 def annotate(name: str):
-    """A named region in profiler timelines (and NVTX on the card)."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
+    """A named range of the calling thread in the profiler's timeline, on
+    the profiler's clock that its device events share, while a torch
+    profiler records; else a shared no-op context, so a span on a hot path
+    costs one flag check when nothing records.  Ranges nest: a range's
+    parent is the innermost one open around it.
+
+    The range is a ``RecordFunction`` of function scope (the profiler's
+    host event, as an op's): ``record_function``'s user scope would also
+    lay a ``gpu_user_annotation`` over the device timeline from the first
+    to the last kernel the range launches, which a trace reader takes for
+    device work."""
+    if torch.autograd.profiler._is_profiler_enabled:
+        return _RecordFunctionFast(name)
+    return _NO_RANGE
 
 
 class _NanCheck(TorchDispatchMode):

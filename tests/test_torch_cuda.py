@@ -718,6 +718,41 @@ def test_batched_icp2d_on_the_card_tracks_the_plain_path(dev):
     torch.testing.assert_close(frame.t, out.t, atol=1e-3, rtol=0)
 
 
+def test_frame_launch_span_encloses_the_pair_frame_launch(dev):
+    """Under the profiler, a pair-frame ``batched_icp2d`` call opens one
+    ``icp.frame_launch`` inside one ``icp.icp2d``, and the runtime launch
+    of its one kernel 10 (the host event correlated with the kernel) lies
+    inside it; no ``icp.`` range reaches the device timeline."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sp, sm, dp, dm = _pair_batch(dev, b=4)
+    cfg = ICPConfig(det_rel_eps=1e-9, frame_backend="pairs")
+    t0 = RigidTransform2.identity((sp.shape[0],), device=dev)
+    batched_icp2d(sp, dp, sm, dm, t0, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        batched_icp2d(sp, dp, sm, dm, t0, cfg)
+        torch.cuda.synchronize()
+    evs = list(prof.profiler.kineto_results.events())
+    host = [e for e in evs if e.device_type() == DeviceType.CPU]
+    on_dev = [e for e in evs if e.device_type() != DeviceType.CPU]
+    assert not [e.name() for e in on_dev if e.name().startswith("icp.")]
+
+    def bounds(e):
+        return e.start_ns(), e.start_ns() + e.duration_ns()
+
+    (span,) = [bounds(e) for e in host if e.name() == "icp.frame_launch"]
+    (entry,) = [bounds(e) for e in host if e.name() == "icp.icp2d"]
+    assert entry[0] <= span[0] and span[1] <= entry[1]
+    (kernel,) = [e for e in on_dev if "frame_kernel" in e.name()]
+    launch = [bounds(e) for e in host if "Launch" in e.name()
+              and e.correlation_id() == kernel.correlation_id()]
+    assert len(launch) == 1
+    assert span[0] <= launch[0][0] and launch[0][1] <= span[1]
+
+
 def test_batched_kernels_refuse_float64(dev):
     x = torch.zeros((2, 256, 2), dtype=torch.float64, device=dev)
     m = torch.ones((2, 256), dtype=torch.bool, device=dev)
