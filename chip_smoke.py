@@ -142,8 +142,13 @@ The full-sequence SLAM paths:
     error of the optimized path <= max(0.8 x odometry's, 0.02 m).
 17. ``run_slam2d`` on the batched path's 210 scans (pair-grid and batched
     IRLS kernels; the mean NN distance on the plain sweep): gate error
-    after <= before; then on the xy of 12 full frames: nn_matched and
-    nn_sweep launch with a batch axis.
+    after <= before; then on the xy of 12 full frames (28,080 points),
+    three runs (the second timed): the cold search of each batched
+    ``icp2d`` call on nn_matched, every warm one on nn_pairs' seed prune
+    (the third run's launches gated against its searches' warm flags),
+    nn_sweep with a batch axis; each warm nn_pairs call of the third run,
+    captured, bitwise nn_matched on the same packed inputs (the first its
+    plain version too), with its chunk-walk share and launcher-alone time.
 
 The last two kernels and the scan-to-submap path:
 
@@ -249,8 +254,9 @@ the grid hash):
 25. Batched ``icp_point_to_plane``, twice each (the second call timed,
     pairs/s by the host clock, synchronised): (a) the 95 consecutive pairs
     (k, k + 1) of the 96 frames at full width from identity, voxel normals
-    at 0.3 m (kernel 4 at D 3 / P 4, once an outer iteration, and the
-    plain batched inner loop, the JAX package's route for a batch); (b)
+    at 0.3 m (kernel 4 at D 3 / P 4 on the cold iteration, kernel 8's seed
+    prune on every warm one, and the plain batched inner loop, the JAX
+    package's route for a batch); (b)
     the 27 consecutive pairs of phase 16's room frames (3,072 points,
     voxel 0.4 m) from their true relative poses perturbed by a seeded
     twist of 2 cm and 0.5 degrees (kernel 8 on the cold iteration, kernel
@@ -261,7 +267,11 @@ the grid hash):
     launch); the launches.  Prints outer iterations and max |t_z|.  (a)'s
     cold kernel 4 call, captured, is held bitwise against its plain
     version and brute force on all 95 pairs, and timed by its launcher
-    alone at every schedule.  Every kernel 8 and 9 call of (b)'s first
+    alone at every schedule; each of its warm kernel 8 calls, captured,
+    bitwise against kernel 4 on the same inputs (the first also against
+    its plain version), with its chunk-walk share and its launcher-alone
+    time, the first at work items of WIDE_ITEMS chunks and 1, 2 and 4
+    queries a thread.  Every kernel 8 and 9 call of (b)'s first
     run, captured, is held bitwise against its plain version, its
     schedule's emulation, brute force and at every schedule, and the cold
     call and the first warm call are timed by their launchers alone (the
@@ -462,6 +472,9 @@ P2L_BATCH_PLAIN = 8
 P2L_BATCH_Z_M = 1e-2
 ROOM_TWIST_M = 0.02
 ROOM_TWIST_RAD = float(np.deg2rad(0.5))
+# Phase 25(a)'s warm kernel 8 calls: the work items (in 128-point chunks)
+# its first warm call is timed at, beside the wrapper's.
+WIDE_ITEMS = (1, 4, 16, 64, 225)
 # nn_method="mxu" (phase 26): the main path's first frames.
 MXU_FRAMES = 16
 
@@ -2626,11 +2639,11 @@ def phase_slam3d_small(device="cuda", n_poses: int = 28,
 
 def phase_slam2d(device="cuda", n_scans: int = BATCH_SCANS,
                  pad: int = BATCH_PAD, wide_frames: int = 12,
-                 wide_stride: int = 1):
+                 wide_stride: int = 1, tile: int = 2048):
     """run_slam2d on the batched path's scans (pair-grid and batched IRLS
-    kernels; the batched mean NN distance on the plain sweep), then on the
-    xy of ``wide_frames`` full frames (kernels 4 and 5 with a batch axis).
-    The synthetic scans are in metres: loop radius 1.5 m and 1 m."""
+    kernels; the batched mean NN distance on the plain sweep), then
+    ``phase_slam2d_wide`` on the xy of ``wide_frames`` full frames.  The
+    synthetic scans are in metres: loop radius 1.5 m and 1 m."""
     pts, mask, _, _ = scans2d(n_scans, pad)
     scans = [p[m] for p, m in zip(pts, mask)]
     cfg = _config()
@@ -2648,20 +2661,63 @@ def phase_slam2d(device="cuda", n_scans: int = BATCH_SCANS,
                         and launches["nn_sweep"] == 0
                         and launches["nn_matched"] == 0):
         raise RuntimeError(f"slam2d launches {launches}")
-    frames, _ = io.synthesize_frames3d(wide_frames, seed=4)
-    wide = [f[::wide_stride, :2] for f in frames]
-    w_res, w_sec, w_launch = _run_slam(run_slam2d, wide, cfg, device,
-                                       loop_radius=1.0, min_gap=8)
-    print(f"# slam2d wide scans: {wide_frames} scans of {len(wide[0])} "
-          f"points, {w_sec:.4f} s; loop closures {w_res.n_loop_closures}; "
-          f"graph error before {w_res.error_before:.6e} after "
-          f"{w_res.error_after:.6e}; launches {w_launch}")
-    if not w_res.error_after <= w_res.error_before:
+    wide = phase_slam2d_wide(device, wide_frames, wide_stride, tile)
+    return dict(launches=launches, wide_launches=wide["launches"],
+                wide_seconds=wide["seconds"], seconds=sec,
+                records=[wide["record"]])
+
+
+def phase_slam2d_wide(device="cuda", n_frames: int = 12, stride: int = 1,
+                      tile: int = 2048):
+    """run_slam2d on the xy of ``n_frames`` full frames (every
+    ``stride``-th point; ``tile`` the config's db tile), three runs, the
+    second timed.  The third counts its batched searches' warm flags and
+    captures its nn_pairs calls: on the card nn_matched launches once a
+    cold search, nn_pairs once a warm one (dbs above PAIRS_MAX_DB points
+    over 3 tiles, ``ops/nn.use_pruned_pairs_nn``), nn_sweep with a batch
+    axis; every captured call is held by ``_pairs_wide_hold``.  Returns
+    the timed run's launches and seconds, and kernel 8's record at path
+    slam2d-wide."""
+    frames, _ = io.synthesize_frames3d(n_frames, seed=4)
+    wide = [f[::stride, :2] for f in frames]
+    cfg = _config().with_(nn_dst_tile=tile)
+    kw = dict(loop_radius=1.0, min_gap=8)
+    _, first_sec, _ = _run_slam(run_slam2d, wide, cfg, device, **kw)
+    res, sec, launches = _run_slam(run_slam2d, wide, cfg, device, **kw)
+    print(f"# slam2d wide scans: {n_frames} scans of {len(wide[0])} "
+          f"points, {sec:.4f} s (first run {first_sec:.4f} s); loop "
+          f"closures {res.n_loop_closures}; graph error before "
+          f"{res.error_before:.6e} after {res.error_after:.6e}; launches "
+          f"{_nonzero(launches)}")
+    if not res.error_after <= res.error_before:
         raise RuntimeError("slam2d wide scans: the graph error grew")
-    if on_card and not (w_launch["nn_matched"] > 0
-                        and w_launch["nn_sweep"] > 0):
-        raise RuntimeError(f"slam2d wide scans launches {w_launch}")
-    return dict(launches=launches, wide_launches=w_launch, seconds=sec)
+    warm, real = [], m_icp.nearest_neighbor_matched
+
+    def spy(*args, **kw):
+        warm.append(kw.get("warm"))
+        return real(*args, **kw)
+
+    calls, undo = _capture_calls(nn_pairs_cuda, "nn_pairs")
+    m_icp.nearest_neighbor_matched = spy
+    try:
+        _, _, held = _run_slam(run_slam2d, wide, cfg, device, **kw)
+    finally:
+        m_icp.nearest_neighbor_matched = real
+        undo()
+    n_warm = warm.count(True)
+    if not n_warm or len(calls) != n_warm:
+        raise RuntimeError(f"slam2d wide scans: {len(calls)} nn_pairs calls "
+                           f"for {n_warm} warm searches")
+    if torch.device(device).type == "cuda":
+        want = {n: 0 for n in held}
+        want.update(nn_matched=warm.count(False), nn_pairs=n_warm,
+                    nn_sweep=held["nn_sweep"],
+                    irls_loop_batched=held["irls_loop_batched"])
+        if not (held == want == launches and held["nn_sweep"] > 0):
+            raise RuntimeError(f"slam2d wide scans launches {held} (timed "
+                               f"run {launches}), expected {_nonzero(want)}")
+    record = _pairs_wide_hold(calls, device, "slam2d-wide")
+    return dict(launches=launches, seconds=sec, record=record)
 
 
 def profile_slam3d(device="cuda", n_frames: int = 96):
@@ -4844,34 +4900,123 @@ def _matched_p2l_hold(args, n_query: int, device):
     return _sweep_record(case, "batched-p2l", device, 0.0)
 
 
-def _pairs_p2l_record(kind, args, pairs, errs, device):
-    """Kernel 8 or 9's kernels-line record at a captured D 3 / P 4 call:
-    the launcher alone, the wrapper, the plain version, the bound."""
+def _pairs_wide_hold(calls, device, path: str):
+    """Warm kernel 8 calls over dbs above PAIRS_MAX_DB points, captured
+    (phase 25(a)'s at D 3 / P 4, path batched-p2l; phase 17's at D 2 /
+    P 2, slam2d-wide): each bitwise kernel 4 on the same packed inputs,
+    the first bitwise its own plain version too; each call's chunk-walk
+    share (the (subtile, chunk) prune tests passed, over all) and
+    launcher-alone time at the wrapper's schedule.  At batched-p2l the
+    first call also at work items of WIDE_ITEMS chunks (2 queries a
+    thread) and at 1 and 4 queries a thread (the wrapper's items), and
+    unseeded (+inf bounds, every chunk walked: the cold search's work on
+    kernel 8) beside kernel 4 on the same inputs, each bitwise.  Returns
+    the first call's kernels-line record at ``path``."""
+    shares, times, pairs = [], [], []
+    on_card = torch.device(device).type == "cuda"
+    d_dim = calls[0][5]
+    what = f"nn_pairs {path} (D {d_dim}, P {calls[0][1].shape[1] - d_dim})"
+    for k, args in enumerate(calls):
+        query_p, dbf_cm, qbox, cbox, qbound, d_dim, q_sub = args
+        got = nn_pairs_cuda.nn_pairs(*args)
+        _sync(device)
+        _equal_or_raise(got, nn_sweep_cuda.nn_matched(query_p, dbf_cm, d_dim),
+                        f"{what} warm call {k} against nn_matched")
+        if k == 0:
+            _equal_or_raise(got, nn_pairs_cuda.nn_pairs_plain(*args),
+                            f"{what} warm call 0")
+        walk = (nn_pairs_cuda._box_lower_bound(qbox, cbox, d_dim)
+                <= qbound[..., None])
+        shares.append(float(walk.double().mean()))
+        pairs.append(int(walk.sum()) * q_sub * 128)
+        if on_card:
+            largs, _, keep = nn_pairs_cuda._nn_pairs_args(*args)
+            times.append(launcher_ms("nn_pairs", largs, device, reps=20))
+            del keep
+    b, qp = calls[0][0].shape[:2]
+    n_ch = calls[0][1].shape[2] // 128
+    item0 = nn_pairs_cuda.pairs_item_chunks(b, qp, n_ch * 128)
+    sched = {}
+    if on_card and path == "batched-p2l":
+        query_p, dbf_cm, qbox, cbox, qbound, d_dim, q_sub = calls[0]
+        out = nn_pairs_cuda.nn_pairs(*calls[0])
+        q0 = nn_pairs_cuda.PAIRS_Q
+        shapes = [(min(i, n_ch), q0) for i in WIDE_ITEMS]
+        shapes += [(item0, q) for q in (1, 4)]
+        for item, q in dict.fromkeys(shapes):
+            largs, res, keep = nn_pairs_cuda._nn_pairs_args(
+                *calls[0], item=item, q_per_thread=q)
+            sched[f"T={item},Q={q}"] = launcher_ms("nn_pairs", largs, device,
+                                                   reps=10)
+            _sync(device)
+            if not all(torch.equal(a, c) for a, c in zip(res, out)):
+                raise RuntimeError(f"{what}: items of {item} chunks and {q} "
+                                   "queries a thread change the result")
+            del keep, res
+        # Padded subtiles keep their -inf; every other bound is +inf.
+        unseeded = torch.where(torch.isneginf(qbound), qbound,
+                               torch.full_like(qbound, float("inf")))
+        largs, res, keep = nn_pairs_cuda._nn_pairs_args(
+            query_p, dbf_cm, qbox, cbox, unseeded, d_dim, q_sub)
+        sched["unseeded"] = launcher_ms("nn_pairs", largs, device, reps=5)
+        largs4, res4, keep4 = nn_sweep_cuda._nn_matched_args(query_p, dbf_cm,
+                                                             d_dim)
+        sched["nn_matched"] = launcher_ms("nn_matched", largs4, device,
+                                          reps=5)
+        _sync(device)
+        _equal_or_raise(res, res4, f"{what} unseeded against nn_matched")
+        del keep, res, keep4, res4
+    print(f"# {what}: {len(calls)} warm calls of {b} pairs x {qp} query rows "
+          f"x {n_ch * 128} db rows, each bitwise equal to nn_matched on its "
+          f"inputs (the first to its plain version); chunk-walk share per "
+          f"call {[round(x, 5) for x in shares]} (mean "
+          f"{sum(shares) / len(shares):.5f}); launcher alone per call (ms, "
+          f"items of {item0} chunks, {nn_pairs_cuda.PAIRS_Q} queries a "
+          f"thread) {[round(x, 4) for x in times]}"
+          + (f"; the first call at items of T chunks, Q queries a thread, "
+             f"unseeded, and nn_matched on its inputs: {sched}" if sched
+             else ""))
+    rec = _pairs_p2l_record("static", calls[0], pairs[0], 0.0, device,
+                            path=path)
+    rec["extra"].update(walk_share=shares, calls_ms=times,
+                        schedules_ms=sched, calls=len(calls))
+    return rec
+
+
+def _pairs_p2l_record(kind, args, pairs, errs, device,
+                      path: str = "batched-p2l-room"):
+    """Kernel 8 or 9's kernels-line record at a captured call (D 3 / P 4,
+    or D 2 / P 2 at slam2d-wide): the launcher alone, the wrapper, the
+    plain version, the bound."""
     name = "nn_pairs" if kind == "static" else "nn_pairs_list"
     fn = nn_pairs_cuda.nn_pairs if kind == "static" \
         else nn_pairs_cuda.nn_pairs_list
     plain = nn_pairs_cuda.nn_pairs_plain if kind == "static" \
         else nn_pairs_cuda.nn_pairs_list_plain
-    wrapper = time_ms(lambda: fn(*args), device, reps=20)
+    on_card = torch.device(device).type == "cuda"
+    # The CPU's times are the plain versions' and prove nothing: one rep.
+    wrapper = time_ms(lambda: fn(*args), device, reps=20 if on_card else 1)
     ms, extra = wrapper, {}
-    if torch.device(device).type == "cuda":
+    if on_card:
         res = (nn_pairs_cuda._nn_pairs_args if kind == "static"
                else nn_pairs_cuda._nn_pairs_list_args)(*args)
         ms = launcher_ms(name, res[0], device)
         extra = dict(wrapper_ms=wrapper)
         del res
-    plain_ms = time_ms(lambda: plain(*args), device, reps=3)
+    plain_ms = time_ms(lambda: plain(*args), device, reps=3 if on_card else 1)
     query_p, dbf = args[0], args[1]
-    d_dim = dbf.shape[1] - 4
+    d_dim = query_p.shape[-1]
+    f_dim = dbf.shape[1] - d_dim
     tables = sum(x.numel() * 4 for x in args[2:] if torch.is_tensor(x))
     n_bytes = (query_p.numel() * 4 + dbf.numel() * 4 + tables
-               + query_p.shape[0] * query_p.shape[1] * (4 + 4 + 4 * 4))
-    b, by = bound_ms(n_bytes, pairs * NN_OPS_PER_PAIR_3D)
+               + query_p.shape[0] * query_p.shape[1] * (4 + 4 + 4 * f_dim))
+    per_pair = NN_OPS_PER_PAIR_3D if d_dim == 3 else NN_OPS_PER_PAIR_2D
+    b, by = bound_ms(n_bytes, pairs * per_pair)
     extra["issue_floor_ms"] = \
         pairs * NN_INSTR_PER_PAIR[d_dim] / PEAK_F32_INSTR_PER_S * 1e3
-    extra["payload"] = 4
+    extra["payload"] = f_dim
     line = 1234 if kind == "static" else 1432
-    return dict(name=name, route="cuda", path="batched-p2l-room",
+    return dict(name=name, route="cuda", path=path,
                 source=f"icp_rust_tpu_torch/csrc/{name}.cu",
                 replaces=f"icp_rust_tpu/ops/nn_pallas.py:{line}",
                 launches=0, max_abs_err=errs, ms=ms, plain_ms=plain_ms,
@@ -4882,28 +5027,35 @@ def phase_p2l_batched(device="cuda", n_frames: int = 96, stride: int = 1,
                       plain_pairs: int = P2L_BATCH_PLAIN,
                       voxel: float = P2L_VOXEL_M, n_poses: int = 28,
                       n_points: int = 3072, scene_n: int = 6000,
-                      room_voxel: float = 0.4):
+                      room_voxel: float = 0.4, tile: int = 2048):
     """Phase 25: batched ``icp_point_to_plane``.  (a) the 95 consecutive
     pairs of the 96 frames at full width from identity (kernel 4 at D 3 /
-    P 4); (b) the 27 consecutive pairs of SLAM 3D small's room frames
-    (3,072 points, voxel 0.4 m) from perturbed true poses (kernels 8 and
-    9), whose captured kernel calls are held bitwise at every schedule.
-    (a)'s cold kernel 4 call is held bitwise on every pair.  Returns (the
-    two runs, kernel 4's record at (a)'s shapes and kernel 8 and 9's at
-    (b)'s, all at D 3 / P 4)."""
+    P 4 cold, kernel 8's seed prune warm); (b) the 27 consecutive pairs of
+    SLAM 3D small's room frames (3,072 points, voxel 0.4 m) from perturbed
+    true poses (kernels 8 and 9), whose captured kernel calls are held
+    bitwise at every schedule.  (a)'s cold kernel 4 call is held bitwise
+    on every pair, its warm kernel 8 calls against kernel 4.  ``tile``:
+    (a)'s db tile (a smaller one lets a reduced width take kernel 8).
+    Returns (the two runs, kernel 4 and 8's records at (a)'s shapes and
+    kernel 8 and 9's at (b)'s, all at D 3 / P 4)."""
     cfg = _config()
     batch, gt = p2l_batched_inputs(device, n_frames, stride)
     ident = RigidTransform3.identity((batch[0].shape[0],),
                                      dtype=torch.float32, device=device)
-    wide = _p2l_batched_case("batched p2l", batch, ident, gt, cfg, device,
-                             voxel, plain_pairs, {"nn_matched": "K"},
-                             capture=((nn_sweep_cuda, "nn_matched", 1),),
+    wide = _p2l_batched_case("batched p2l", batch, ident, gt,
+                             cfg.with_(nn_dst_tile=tile), device, voxel,
+                             plain_pairs, {"nn_matched": 1, "nn_pairs": "K-1"},
+                             capture=((nn_sweep_cuda, "nn_matched", 1),
+                                      (nn_pairs_cuda, "nn_pairs", None)),
                              z_tol=P2L_BATCH_Z_M)
-    calls = wide.pop("captured")["nn_matched"]
-    if not calls:
-        raise RuntimeError("batched p2l: no nn_matched call")
-    records = [_matched_p2l_hold(calls[0], batch[0].shape[1], device)]
-    del calls
+    captured = wide.pop("captured")
+    calls = captured["nn_matched"]
+    if not calls or not captured["nn_pairs"]:
+        raise RuntimeError("batched p2l: no nn_matched or nn_pairs call")
+    records = [_matched_p2l_hold(calls[0], batch[0].shape[1], device),
+               _pairs_wide_hold(captured["nn_pairs"], device,
+                                "batched-p2l")]
+    del calls, captured
     batch, gt, t0 = p2l_room_inputs(device, n_poses, n_points, scene_n)
     room = _p2l_batched_case(
         "batched p2l room", batch, t0, gt, cfg, device, room_voxel,
@@ -5192,6 +5344,7 @@ def main() -> int:
     slam3 = phase_slam3d(device)
     slam3_small = phase_slam3d_small(device)
     slam2 = phase_slam2d(device)
+    records += slam2["records"]
     records += phase_gn_stats(device)
     sub = phase_submap(device)
     records.append(sub["nn_list"])
@@ -5234,9 +5387,11 @@ def main() -> int:
             slam3_small["launches"]["nn_matched"],
         ("nn_sweep", "slam2d-wide"): slam2["wide_launches"]["nn_sweep"],
         ("nn_matched", "slam2d-wide"): slam2["wide_launches"]["nn_matched"],
+        ("nn_pairs", "slam2d-wide"): slam2["wide_launches"]["nn_pairs"],
         ("nn_matched", "submap-2d"): sub_2d["fused"]["launches"]["nn_matched"],
         ("nn_matched", "batched-p2l"):
             p2l_b["wide"]["launches"]["nn_matched"],
+        ("nn_pairs", "batched-p2l"): p2l_b["wide"]["launches"]["nn_pairs"],
         ("nn_pairs", "batched-p2l-room"):
             p2l_b["room"]["launches"]["nn_pairs"],
         ("nn_pairs_list", "batched-p2l-room"):

@@ -13,9 +13,11 @@ Per outer iteration on the kernel route, one pair: one survivor-list NN
 launch (``nn_list``, D = 3 with the 4-lane payload [n, c = n . q]) and one
 ``p2l_loop`` launch.  A batch of pairs (the JAX driver's ``(..., N, 3)``):
 one pair-grid NN launch for dbs of at most 4,096 points (``nn_pairs`` on
-the cold iteration, ``nn_pairs_list`` on every warm one) or one
-``nn_matched`` launch above, and the plain batched inner loop
-(``align3d._loop_torch``), the JAX package's own route for a batch.
+the cold iteration, ``nn_pairs_list`` on every warm one); above, one
+``nn_matched`` launch on the cold iteration and, where the dbs span 3
+tiles, one seed-pruned ``nn_pairs`` launch on every warm one; and the
+plain batched inner loop (``align3d._loop_torch``), the JAX package's own
+route for a batch.
 
 The entry point runs on ``device`` ("cuda" by default); with no card it
 raises unless the caller passes ``device="cpu"``.
@@ -133,7 +135,8 @@ def icp_point_to_plane(src, dst, src_mask, dst_mask,
 
     A batch runs in lockstep, as the JAX package's does: every outer
     iteration searches every pair at once (the pair-grid kernels for dbs
-    of at most 4,096 points, kernel 4 above) and solves them with the
+    of at most 4,096 points; above, kernel 4 cold and kernel 8's seed
+    prune warm, ``ops/nn.nearest_neighbor_matched``) and solves them with the
     plain batched inner loop, a pair at its fixed point stays unchanged,
     and the loop exits when all are fixed; the stats give every pair the
     loop's count."""

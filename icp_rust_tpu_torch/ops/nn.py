@@ -21,10 +21,12 @@ Backends (config.nn_backend):
   ``ops/nn_cuda.py`` over a Morton-sorted, packed db for one seeded query
   cloud; for a batch of queries (B, Q, D) against dbs of at most 4096
   points the pair-grid kernels of ``ops/nn_pairs_cuda.py``
-  (``use_pairs_nn``); the sweeps of ``ops/nn_sweep_cuda.py`` for the rest
-  (kernel 4 for a batch or a db of fewer than 3 tiles, kernel 6 unseeded
-  or with a wide payload).  ``nearest_neighbor``: kernel 6 for one cloud
-  of 3 tiles or more, kernel 5 otherwise;
+  (``use_pairs_nn``), and against larger dbs of 3 tiles or more, on a
+  warm seeded search, their static sweep with its seed prune
+  (``use_pruned_pairs_nn``); the sweeps of ``ops/nn_sweep_cuda.py`` for
+  the rest (kernel 4 for another batch or a db of fewer than 3 tiles,
+  kernel 6 unseeded or with a wide payload).  ``nearest_neighbor``:
+  kernel 6 for one cloud of 3 tiles or more, kernel 5 otherwise;
 - ``"auto"``: ``"cuda"`` for float32 with ``"direct"``, ``"torch"`` for
   float64 or ``"mxu"`` (the f64 reference path is the plain one, as on
   the TPU; the kernels compute direct distances only).  An explicit
@@ -164,6 +166,25 @@ def use_pairs_nn(query: Tensor, db: Tensor, backend: str = "auto",
             and use_cuda_nn(query, db, backend, method))
 
 
+def use_pruned_pairs_nn(query: Tensor, db: Tensor, q_bound, warm,
+                        backend: str = "auto", tile: int = 2048,
+                        method: str = "direct") -> bool:
+    """The seeded static pair-grid route above ``PAIRS_MAX_DB``: a batched
+    query (B, Q, D) on the kernel route, dbs of more than PAIRS_MAX_DB
+    points spanning at least 3 tiles (where the ICP loops' pre-sort has
+    Morton-sorted them, ``models.icp2d._sort_enabled``), per-query bounds
+    and ``warm`` True.  Kernel 8's chunk prune then skips most of the db
+    (4-6 % of the chunks walked on the warm searches of 95 VLP-16 pairs).
+    The cold search (+inf bounds) keeps kernel 4: with nothing to prune,
+    kernel 8 sweeps the same pairs 5 % slower (33.45 against 31.83 ms on
+    one packed 95 x 28,800-point batch, H100).  ``warm`` None keeps it
+    too: deciding from the bounds would read them back."""
+    return (warm is True and q_bound is not None and query.ndim == 3
+            and nn_pairs_cuda.PAIRS_MAX_DB < db.shape[-2]
+            and db.shape[-2] >= 3 * tile
+            and use_cuda_nn(query, db, backend, method))
+
+
 def _gather_rows(payload: Tensor, index: Tensor) -> Tensor:
     """payload[..., index, :] per batch lane; a shared (M, P) payload is
     broadcast to the index's batch."""
@@ -224,17 +245,22 @@ def nearest_neighbor_matched(query: Tensor, db: Tensor, db_mask=None,
     results are bit-identical whatever they are, as long as the bounds are
     valid.  Routes, as ``nn_pallas_matched`` takes them on the TPU: a
     batched query (B, Q, D) against dbs of at most 4096 points takes the
-    pair-grid kernels (``use_pairs_nn``); any other batch and any db of
-    fewer than 3 tiles the plain sweep (kernel 4); a seeded single cloud
-    with D + P <= 8 the survivor-list kernel; an unseeded or wide one the
-    zig-zag kernel (kernel 6).  The plain route ("torch", or "auto" with
-    float64 or "mxu") is ``nn_torch`` with ``method`` and a gather."""
+    pair-grid kernels (``use_pairs_nn``); a warm seeded batch against
+    larger dbs of 3 tiles or more kernel 8's seed-pruned static sweep
+    (``use_pruned_pairs_nn``, no TPU counterpart); any other batch and any
+    db of fewer than 3 tiles the plain sweep (kernel 4); a seeded single
+    cloud with D + P <= 8 the survivor-list kernel; an unseeded or wide
+    one the zig-zag kernel (kernel 6).  The plain route ("torch", or
+    "auto" with float64 or "mxu") is ``nn_torch`` with ``method`` and a
+    gather."""
     if payload is None:
         payload = db
     if not use_cuda_nn(query, db, backend, method):
         res = nn_torch(query, db, db_mask, tile=tile, method=method)
         return res, _gather_rows(payload, res.index)
-    if use_pairs_nn(query, db, backend, method):
+    if (use_pairs_nn(query, db, backend, method)
+            or use_pruned_pairs_nn(query, db, q_bound, warm, backend, tile,
+                                   method)):
         idx, dist, matched = nn_pairs_cuda.nn_pairs_matched(
             query, db, db_mask, payload, q_bound=q_bound, warm=warm)
         return NNResult(index=idx, dist_sq=dist), matched

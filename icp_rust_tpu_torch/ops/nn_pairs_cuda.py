@@ -6,9 +6,12 @@ torch code around them.
 Counterpart of icp_rust_tpu/ops/nn_pallas.py's pair-grid path
 (``nn_pallas_matched_pairs`` -> ``_nn_pairs_kernel`` on the cold ICP
 iteration, ``_nn_pairs_list_kernel`` on every warm one).  B queries
-(B, Nq, D) against B small dbs (B, M, D), M <= ``PAIRS_MAX_DB``, per
-(pair, 256-query subtile), walking the pair's 128-point chunks in
-ascending order with a strict '<': the lowest index wins ties.
+(B, Nq, D) against B dbs (B, M, D), per (pair, 256-query subtile),
+walking the pair's 128-point chunks in ascending order with a strict '<':
+the lowest index wins ties.  Dbs of at most ``PAIRS_MAX_DB`` points take
+both kernels; larger ones the static sweep alone, on the warm searches of
+a batched ICP call over Morton-sorted dbs (``ops/nn.use_pruned_pairs_nn``),
+where the seeds prune most chunks.
 
 Pruning is seed-only and exact: chunk c is skipped for a subtile when the
 (deflated) box-to-box lower bound exceeds the subtile's upper bound on
@@ -26,7 +29,8 @@ unpruned sweep.
   queries a thread, the items merged lexicographically, a chunk that
   fails every test of the block's subtiles neither staged nor swept
   (``pairs_items`` emulates the schedule on tensors).
-- Survivor lists (kernel 9): the test runs here in torch per
+- Survivor lists (kernel 9, dbs of at most ``PAIRS_MAX_DB`` points: its
+  scratch is sized for every list full): the test runs here in torch per
   ``LIST_GRP``-query group and is unioned per subtile; the list holds the
   surviving chunk ids in ascending order, with capacity n_chunks rounded
   up to even, so no list can overflow.  The kernel cuts each subtile's
@@ -43,7 +47,8 @@ and walk nothing.  A query with no valid db point gets (+inf after the
 trim, 0, 0).
 
 The plain versions are the masked full sweep of each pair, with the
-chunks a subtile does not walk set to +inf, vectorised over pairs.
+chunks a subtile does not walk set to +inf, vectorised over pairs, in
+blocks of rows of at most ``_PLAIN_PAIRS`` (query, db point) distances.
 """
 
 from __future__ import annotations
@@ -77,15 +82,24 @@ _LIST_QS = (1, 2, 4)
 # (at least, where the db has the chunks), which sizes its work items
 # (``pairs_item_chunks``): at the batched path's cold call (627 query
 # groups of 6 chunks) the whole db an item and 2 queries a thread
-# measured best on an H100 (PERF.md).  Like kernel 9's they set which
-# block walks which chunks, never the result.
+# measured best on an H100 (PERF.md).  An item holds at most
+# PAIRS_ITEM_MAX chunks: at batched p2l's warm searches over 28,800-point
+# dbs (95 pairs; the seeds prune ~95 % of the chunks) items of 64 chunks
+# measured 3.3 % faster than 16, 113 or the whole db's 225; dbs of at
+# most PAIRS_MAX_DB points (32 chunks) never reach it.  Like kernel 9's
+# they set which block walks which chunks, never the result.
 PAIRS_Q = 2
 PAIRS_BLOCKS = 512
+PAIRS_ITEM_MAX = 64
 _PAIRS_QS = (1, 2, 4)
 # With the queries' bounds and the chunk boxes, nn_pairs_list repeats the
 # prune test per group of LIST_WARP queries (a warp's, in every schedule)
 # and such a group skips a listed chunk that fails it.
 LIST_WARP = 32
+# The plain versions' distances held at once (float32: 64 MB): a larger
+# sweep runs in blocks of rows, so that the static sweep over dbs of
+# 28,800 points (95 pairs: 7.9e10 distances) stays within tens of MB.
+_PLAIN_PAIRS = 1 << 24
 
 
 def pack_pairs(db: Tensor, db_mask, payload: Tensor) -> Tensor:
@@ -112,10 +126,9 @@ def _chunk_boxes(dbf_cm: Tensor, d_dim: int) -> Tensor:
     b, _, m_pad = dbf_cm.shape
     nc = m_pad // _CHUNK
     t = dbf_cm[:, :d_dim].reshape(b, d_dim, nc, _CHUNK)
-    valid = t[:, 0] < _SENTINEL / 2
-    inf = torch.tensor(float("inf"), dtype=dbf_cm.dtype, device=dbf_cm.device)
-    lo = torch.amin(torch.where(valid[:, None], t, inf), dim=-1)
-    hi = torch.amax(torch.where(valid[:, None], t, -inf), dim=-1)
+    invalid = (t[:, 0] >= _SENTINEL / 2)[:, None]
+    lo = torch.amin(t.masked_fill(invalid, float("inf")), dim=-1)
+    hi = torch.amax(t.masked_fill(invalid, float("-inf")), dim=-1)
     out = torch.zeros((b, nc, 8), dtype=dbf_cm.dtype, device=dbf_cm.device)
     out[..., :d_dim] = lo.transpose(1, 2)
     out[..., 4:4 + d_dim] = hi.transpose(1, 2)
@@ -185,7 +198,27 @@ def _masked_sweep(query_p: Tensor, dbf_cm: Tensor, walk: Tensor,
     """Exact 1-NN of each pair's queries over the chunks its row of q_sub
     queries walks (walk (B, Qp / q_sub, n_chunks) bool), the others set to
     +inf; the lowest index wins ties; (+inf, 0, 0) where nothing valid was
-    walked."""
+    walked.  Above ``_PLAIN_PAIRS`` distances, in blocks of rows: each row
+    is swept alone, so the blocks change no result."""
+    b, qp, _ = query_p.shape
+    m_pad = dbf_cm.shape[2]
+    if b * qp * m_pad <= _PLAIN_PAIRS:
+        return _masked_rows(query_p, dbf_cm, walk, d_dim, q_sub)
+    n_rows = b * (qp // q_sub)
+    q_rows = query_p.reshape(n_rows, q_sub, -1)
+    w_rows = walk.reshape(n_rows, 1, -1)
+    pair = torch.arange(n_rows, device=query_p.device) // (qp // q_sub)
+    step = max(1, _PLAIN_PAIRS // (q_sub * m_pad))
+    parts = [_masked_rows(q_rows[r:r + step], dbf_cm[pair[r:r + step]],
+                          w_rows[r:r + step], d_dim, q_sub)
+             for r in range(0, n_rows, step)]
+    dist, idx, pay = (torch.cat(x) for x in zip(*parts))
+    return dist.reshape(b, qp), idx.reshape(b, qp), pay.reshape(b, qp, -1)
+
+
+def _masked_rows(query_p: Tensor, dbf_cm: Tensor, walk: Tensor,
+                 d_dim: int, q_sub: int):
+    """``_masked_sweep`` in one piece."""
     b, qp, _ = query_p.shape
     f_dim = dbf_cm.shape[1] - d_dim
     m_pad = dbf_cm.shape[2]
@@ -219,12 +252,13 @@ def nn_pairs_plain(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor,
 def pairs_item_chunks(b: int, qp: int, m_pad: int,
                       q_per_thread: int = PAIRS_Q) -> int:
     """nn_pairs' work item in 128-point chunks for B pairs of qp queries
-    against m_pad db points: the largest that still gives at least
-    PAIRS_BLOCKS blocks (the whole db where the query groups alone do),
-    one chunk where none does."""
+    against m_pad db points: the largest of at most PAIRS_ITEM_MAX that
+    still gives at least PAIRS_BLOCKS blocks (the whole db where the query
+    groups alone do and it holds at most PAIRS_ITEM_MAX chunks), one chunk
+    where none does."""
     groups = b * -(-qp // (MATCHED_THREADS * q_per_thread))
     n_ch = m_pad // _CHUNK
-    for item in range(n_ch, 1, -1):
+    for item in range(min(n_ch, PAIRS_ITEM_MAX), 1, -1):
         if groups * -(-n_ch // item) >= PAIRS_BLOCKS:
             return item
     return 1
@@ -520,10 +554,10 @@ def group_walks(query_p: Tensor, dbf_cm: Tensor, lists: Tensor, cnt: Tensor,
 def prepare(query: Tensor, db: Tensor, db_mask=None, payload=None,
             q_bound: Tensor | None = None, q_sub: int = Q_SUB):
     """The kernels' inputs for query (B, Nq, D) against db (B, M, D) or a
-    shared (M, D), M <= PAIRS_MAX_DB: (query_p (B, Qp, D) zero-padded to
-    a multiple of q_sub, dbf_cm (B, D + F, m_pad), chunk boxes
-    (B, m_pad / 128, 8), bounds (B, Qp)).  Missing bounds are +inf;
-    padded queries carry -inf, so their subtiles prune every chunk."""
+    shared (M, D): (query_p (B, Qp, D) zero-padded to a multiple of q_sub,
+    dbf_cm (B, D + F, m_pad), chunk boxes (B, m_pad / 128, 8), bounds
+    (B, Qp)).  Missing bounds are +inf; padded queries carry -inf, so
+    their subtiles prune every chunk."""
     b, n_q, d_dim = query.shape
     if payload is None:
         payload = db
@@ -531,9 +565,6 @@ def prepare(query: Tensor, db: Tensor, db_mask=None, payload=None,
     payload = payload.expand(b, *payload.shape[-2:])
     if db_mask is not None:
         db_mask = db_mask.expand(b, db_mask.shape[-1])
-    if db.shape[1] > PAIRS_MAX_DB:
-        raise ValueError(f"nn_pairs: a db of {db.shape[1]} points exceeds "
-                         f"{PAIRS_MAX_DB}")
     dbf_cm = pack_pairs(db, db_mask, payload)
     q_pad = _round_up(n_q, q_sub)
     query_p = torch.zeros((b, q_pad, d_dim), dtype=query.dtype,
@@ -550,14 +581,15 @@ def nn_pairs_matched(query: Tensor, db: Tensor, db_mask=None, payload=None,
                      q_bound: Tensor | None = None, q_sub: int = Q_SUB,
                      list_grp: int = LIST_GRP, warm: bool | None = None):
     """Batched exact 1-NN with matched payload: query (B, Nq, D) against
-    db (B, M, D) or a shared (M, D), M <= PAIRS_MAX_DB.  Returns (index
-    (B, Nq) int32, dist_sq (B, Nq), matched (B, Nq, F)).
+    db (B, M, D) or a shared (M, D).  Returns (index (B, Nq) int32,
+    dist_sq (B, Nq), matched (B, Nq, F)).
 
     Warmth dispatch: ``warm`` None decides from the bounds (all +-inf ->
     the static sweep, any finite bound -> the survivor lists), a bool
     selects the branch statically, and no bound means the static sweep
-    with +inf bounds; the results are bit-identical whichever runs, as
-    long as the bounds are valid."""
+    with +inf bounds.  Above PAIRS_MAX_DB points every search takes the
+    static sweep, a warm one with its subtiles' bounds.  The results are
+    bit-identical whichever runs, as long as the bounds are valid."""
     n_q, d_dim = query.shape[1:]
     query_p, dbf_cm, cbox, qb = prepare(query, db, db_mask, payload,
                                         q_bound, q_sub)
@@ -565,7 +597,7 @@ def nn_pairs_matched(query: Tensor, db: Tensor, db_mask=None, payload=None,
         warm = False
     elif warm is None:
         warm = bool(torch.any(torch.isfinite(qb)))
-    if warm:
+    if warm and db.shape[-2] <= PAIRS_MAX_DB:
         lists, cnt = _survivor_lists(query_p, cbox, qb, d_dim, q_sub,
                                      min(list_grp, q_sub))
         dist, idx, pay = nn_pairs_list(query_p, dbf_cm, lists, cnt, d_dim,

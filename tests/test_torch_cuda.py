@@ -10,7 +10,8 @@ Tolerances: nn_list, nn_pairs, nn_pairs_list, nn_sweep, nn_matched and
 nn_pruned are bitwise equal to their plain versions (indices, distances
 and payload) and to a brute-force sweep, nn_sweep, nn_matched and
 nn_pruned at every work-item split, nn_pairs and nn_pairs_list at every
-schedule;
+schedule, nn_pairs' seed-pruned warm calls over 28,800-point dbs to
+nn_matched;
 icp2d_frame's result is bitwise the same at every cluster size, and
 icp2d_frame_pairs' at every cluster size of one thread count.  irls_loop's medians and sigmas
 are bitwise those of the exact median and of gn_stats.  irls_loop,
@@ -1174,9 +1175,13 @@ def test_nn_sweep_kernels_refuse_float64_and_unserved_widths(dev):
 
 def test_slam_on_the_card_tracks_the_plain_path(dev):
     """run_slam3d on small frames (kernels 4 and 5) and run_slam2d on wide
-    scans (kernels 4 and 5 with a batch axis) against the plain path."""
+    scans (7,020 points over 4 tiles: kernel 4 on each batched call's cold
+    search, kernel 8's seed prune on every warm one, kernel 5 with a batch
+    axis) against the plain path; each warm kernel 8 call, captured, is
+    bitwise kernel 4 on the same packed inputs (D 2 / P 2)."""
     import chip_smoke
     from icp_rust_tpu_torch.models.slam import run_slam2d, run_slam3d
+    from icp_rust_tpu_torch.ops import nn_sweep_cuda
 
     frames, _ = chip_smoke.room_sequence(n_poses=12, n_points=2048,
                                          scene_n=4000, seed=2)
@@ -1193,10 +1198,23 @@ def test_slam_on_the_card_tracks_the_plain_path(dev):
     assert np.abs(res.optimized_path - ref.optimized_path).max() < 1e-3
     scans, _ = io.synthesize_frames3d(6, seed=3)
     scans = [s[::4, :2] for s in scans]  # 7020 points: off the pair grid
-    cuda_build.reset_launches()
-    res = run_slam2d(scans, cfg, loop_radius=1.0, min_gap=3)
-    assert cuda_build.LAUNCHES["nn_matched"] > 0
-    assert cuda_build.LAUNCHES["nn_sweep"] > 0
+    calls, undo = chip_smoke._capture_calls(nn_pairs_cuda, "nn_pairs")
+    try:
+        cuda_build.reset_launches()
+        res = run_slam2d(scans, cfg, loop_radius=1.0, min_gap=3)
+        launched = dict(cuda_build.LAUNCHES)
+    finally:
+        undo()
+    assert launched["nn_matched"] > 0 and launched["nn_sweep"] > 0
+    assert launched["nn_pairs"] == len(calls) > 0
+    assert launched["nn_pairs_list"] == 0
+    for query_p, dbf, qbox, cbox, qbound, d_dim, q_sub in calls:
+        got = nn_pairs_cuda.nn_pairs(query_p, dbf, qbox, cbox, qbound,
+                                     d_dim, q_sub)
+        want = nn_sweep_cuda.nn_matched(query_p, dbf, d_dim)
+        torch.cuda.synchronize()
+        assert d_dim == 2 and dbf.shape[1] == 4 and all(
+            torch.equal(a, b) for a, b in zip(got, want))
     ref = run_slam2d(scans, plain, loop_radius=1.0, min_gap=3)
     assert np.abs(res.optimized_path - ref.optimized_path).max() < 1e-3
 
@@ -1541,7 +1559,8 @@ def test_batched_p2l_on_the_card_tracks_the_plain_route(dev, n_points):
     """Batched ``icp_point_to_plane`` on the card: 4 consecutive pairs of
     the room frames (chip_smoke.room_sequence: floor, walls and a ramp
     constrain every DoF) from perturbed true poses; the pair-grid kernels
-    at 3,072 points, kernel 4 at 6,144.  Each pair within 1 mm of the
+    at 3,072 points, kernel 4 cold and kernel 8 warm at 6,144.  Each pair
+    within 1 mm of the
     batched plain route (torch NN, the plain loop) and of the single-pair
     call on it."""
     import chip_smoke
@@ -1555,7 +1574,7 @@ def test_batched_p2l_on_the_card_tracks_the_plain_route(dev, n_points):
                            normals_voxel_size=0.4, device=dev)
     launched = {k for k, v in cuda_build.LAUNCHES.items() if v}
     assert launched == ({"nn_pairs", "nn_pairs_list"} if n_points <= 4096
-                        else {"nn_matched"})
+                        else {"nn_matched", "nn_pairs"})
     plain = icp_point_to_plane(
         src, dst, smask, dmask, t0,
         cfg.with_(nn_backend="torch", align_backend="torch"),
@@ -1568,6 +1587,45 @@ def test_batched_p2l_on_the_card_tracks_the_plain_route(dev, n_points):
                                  normals_voxel_size=0.4, device=dev)
         assert float((t.t[i] - one.t).abs().max()) < 1e-3
         assert float((t.rot[i] - one.rot).abs().max()) < 1e-3
+
+
+def test_wide_batched_p2l_warm_searches_are_kernel_8_bitwise_kernel_4(dev):
+    """Batched ``icp_point_to_plane`` over 8 consecutive pairs of the
+    synthetic 28,800-point frames: one kernel 4 launch (the cold search)
+    and kernel 8 on every warm one; each warm call, captured with the
+    outer loop's seed bounds, prunes chunks and is bitwise kernel 4 on the
+    same packed inputs (dist, idx, the 4-lane payload)."""
+    import chip_smoke
+    from icp_rust_tpu_torch.models.icp_p2l import icp_point_to_plane
+    from icp_rust_tpu_torch.ops import nn_sweep_cuda
+
+    (src, smask, dst, dmask), _ = chip_smoke.p2l_batched_inputs(dev,
+                                                                n_frames=9)
+    assert src.shape == (8, 28800, 3)
+    calls, undo = chip_smoke._capture_calls(nn_pairs_cuda, "nn_pairs")
+    try:
+        cuda_build.reset_launches()
+        _, st = icp_point_to_plane(
+            src, dst, smask, dmask,
+            RigidTransform3.identity((8,), device=dev),
+            ICPConfig(det_rel_eps=1e-9), normals_voxel_size=0.3,
+            return_stats=True, device=dev)
+        launched = {k: v for k, v in cuda_build.LAUNCHES.items() if v}
+    finally:
+        undo()
+    k = int(st.outer_iters[0])
+    assert k >= 3 and launched == {"nn_matched": 1, "nn_pairs": k - 1}
+    assert len(calls) == k - 1
+    for query_p, dbf, qbox, cbox, qbound, d_dim, q_sub in calls:
+        walk = (nn_pairs_cuda._box_lower_bound(qbox, cbox, d_dim)
+                <= qbound[..., None])
+        assert float(walk.double().mean()) < 0.5
+        got = nn_pairs_cuda.nn_pairs(query_p, dbf, qbox, cbox, qbound,
+                                     d_dim, q_sub)
+        want = nn_sweep_cuda.nn_matched(query_p, dbf, d_dim)
+        torch.cuda.synchronize()
+        assert dbf.shape[1] == 7 and all(
+            torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_gridhash_on_the_card_is_bitwise_the_cpu(dev):

@@ -301,3 +301,115 @@ def test_pairs_schedule_emulations_at_the_plane_payload(item):
     for a, b in zip(plain8, plain9):
         assert torch.equal(a[:, :n], b[:, :n])
     assert torch.equal(plain9[1][:, :n], brute.index)
+
+
+def _wide_pairs(seed=3):
+    """Two pairs of 500 box queries (a masked tail on pair 0: 512 rows
+    padded) against dbs of 4,224 points: pair 0's db every point twice
+    (exact ties), pair 1's fully masked.  Each src is its dst's box moved
+    by one twist."""
+    rng = np.random.default_rng(seed)
+    half = _box_cloud(704, rng)
+    dst = np.stack([np.concatenate([half, half]), _box_cloud(1408, rng)])
+    tw = torch.tensor([[0.03, -0.02, 0.025, 0.015, -0.01, 0.02]] * 2,
+                      dtype=torch.float64)
+    src = torch.as_tensor(np.stack([_box_cloud(167, rng)[:500]
+                                    for _ in range(2)]))
+    src = TT.from_twist(tw).inverse().apply_points(src)
+    smask = np.ones((2, 500), bool)
+    smask[0, -37:] = False
+    dmask = np.ones((2, 4224), bool)
+    dmask[1] = False
+    return (src.numpy().astype(np.float32), dst.astype(np.float32), smask,
+            dmask)
+
+
+def test_batched_p2l_warm_searches_above_4096_points_take_kernel_8(
+        monkeypatch):
+    """Dbs of more than 4,096 points and 3 tiles or more (a 1,408-point
+    tile): the cold search takes kernel 4 (its plain version here), every
+    warm one kernel 8's seed-pruned static sweep, each search's (dist,
+    idx, payload) bitwise kernel 4's plain version on the same inputs, and
+    the transforms bitwise those of the call with every search on kernel
+    4."""
+    from icp_rust_tpu_torch.ops import nn_cuda, nn_sweep_cuda
+
+    src, dst, smask, dmask = _wide_pairs()
+    cfg = KERNEL_CFG.with_(nn_dst_tile=1408)
+    seen, searches = [], []
+    for mod, name in ((nn_sweep_cuda, "nn_matched"),
+                      (nn_pairs_cuda, "nn_pairs")):
+        real = getattr(mod, name)
+
+        def spy(*args, _real=real, _name=name):
+            walk = (nn_pairs_cuda._box_lower_bound(args[2], args[3], 3)
+                    <= args[4][..., None]) if _name == "nn_pairs" else None
+            seen.append((_name, walk))
+            return _real(*args)
+        monkeypatch.setattr(mod, name, spy)
+    real_nn = icp_p2l.nearest_neighbor_matched
+
+    def nn_spy(query, db, db_mask, **kw):
+        out = real_nn(query, db, db_mask, **kw)
+        searches.append((query, db, db_mask, kw["payload"], out))
+        return out
+    monkeypatch.setattr(icp_p2l, "nearest_neighbor_matched", nn_spy)
+
+    def run():
+        seen.clear()
+        return icp_p2l.icp_point_to_plane(src, dst, smask, dmask,
+                                          TT.identity((2,)), cfg,
+                                          return_stats=True, **CPU)
+    t, st = run()
+    k = int(st.outer_iters[0])
+    assert k >= 3 and len(searches) == k
+    assert [n for n, _ in seen] == ["nn_matched"] + ["nn_pairs"] * (k - 1)
+    # The seeds prune chunks of pair 0; pair 1's +inf bounds walk all.
+    assert all(bool(w[1].all()) and not bool(w[0].all())
+               for _, w in seen[1:])
+    for query, db, db_mask, pay, (res, got_pay) in searches:
+        query_p = torch.zeros((2, 512, 3))
+        query_p[:, :500] = query
+        dbf = nn_cuda._dbf_cm_matched(db, db_mask, pay, 4224)
+        dist, idx, want_pay = nn_sweep_cuda.nn_matched_plain(query_p, dbf, 3)
+        assert torch.equal(res.index, idx[:, :500])
+        assert torch.equal(res.dist_sq, nn_cuda._trim_sentinel(dist[:, :500]))
+        assert torch.equal(got_pay, want_pay[:, :500])
+    # Pair 1 has no valid point; each winner of pair 0 is the lower index
+    # of its two copies.
+    _, db, _, _, (res, _) = searches[-1]
+    assert torch.isinf(res.dist_sq[1]).all()
+    win = res.index[0].long()
+    same = (db[0][None] == db[0][win][:, None]).all(-1)
+    assert bool((same.sum(1) == 2).all())
+    assert torch.equal(torch.argmax(same.to(torch.int8), dim=1), win)
+    monkeypatch.setattr(nn, "use_pruned_pairs_nn", lambda *a, **kw: False)
+    t4, st4 = run()
+    assert [n for n, _ in seen] == ["nn_matched"] * k
+    assert torch.equal(t4.rot, t.rot) and torch.equal(t4.t, t.t)
+    assert torch.equal(st4.outer_iters, st.outer_iters)
+
+
+def test_pairs_plain_versions_sweep_in_row_blocks_bitwise(monkeypatch):
+    """Above ``_PLAIN_PAIRS`` distances the plain versions sweep blocks of
+    (pair, subtile) rows: bitwise the one-piece sweep, for kernel 8's
+    subtiles and kernel 9's warp groups."""
+    q, db, dm, pay, _ = _plane_case("cold", m=520)
+    t = torch.as_tensor
+    brute = nn.nn_torch(t(q), t(db), t(dm))
+    qb = brute.dist_sq * (1.0 + 32.0 * float(np.finfo(np.float32).eps))
+    query_p, dbf, cbox, qb_p = nn_pairs_cuda.prepare(t(q), t(db), t(dm),
+                                                     t(pay), qb, 128)
+    args8 = (query_p, dbf, nn_pairs_cuda._query_boxes(query_p, 128), cbox,
+             nn_pairs_cuda._group_bounds(qb_p, 128), 3, 128)
+    lists, cnt = nn_pairs_cuda._survivor_lists(query_p, cbox, qb_p, 3, 128,
+                                               64)
+    args9 = (query_p, dbf, lists, cnt, 3, 128, qb_p, cbox)
+    whole = (nn_pairs_cuda.nn_pairs_plain(*args8),
+             nn_pairs_cuda.nn_pairs_list_plain(*args9))
+    for pairs in (1, 2 * 128 * 640):
+        monkeypatch.setattr(nn_pairs_cuda, "_PLAIN_PAIRS", pairs)
+        got = (nn_pairs_cuda.nn_pairs_plain(*args8),
+               nn_pairs_cuda.nn_pairs_list_plain(*args9))
+        for g, w in zip(got, whole):
+            assert all(torch.equal(a, b) for a, b in zip(g, w))

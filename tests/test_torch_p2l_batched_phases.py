@@ -4,7 +4,10 @@ every wrapper takes its kernel's plain version: the phases' shapes,
 control flow and gates (the launch gates are the card's) run without a
 card.  Phase 25's checks of kernels 4, 8 and 9 at the 4-lane payload
 against their plain versions, brute force and (kernels 8 and 9) their
-schedule emulations are real ones here.
+schedule emulations are real ones here; (a) runs at a sixth of the width
+on 1,536-point tiles, so that its dbs (4,800 points) take kernel 4's
+plain version cold and kernel 8's warm, each warm call held against
+kernel 4's.
 """
 
 import pytest
@@ -24,10 +27,13 @@ def test_chip_smoke_phases_25_to_27_rehearse_on_cpu(capsys):
 
     runs, recs = chip_smoke.phase_p2l_batched(
         "cpu", n_frames=2, stride=6, plain_pairs=1, voxel=0.4, n_poses=3,
-        n_points=768, scene_n=2000)
+        n_points=768, scene_n=2000, tile=1536)
     assert [(r["name"], r["path"]) for r in recs] == [
-        ("nn_matched", "batched-p2l"), ("nn_pairs", "batched-p2l-room"),
+        ("nn_matched", "batched-p2l"), ("nn_pairs", "batched-p2l"),
+        ("nn_pairs", "batched-p2l-room"),
         ("nn_pairs_list", "batched-p2l-room")]
+    assert recs[1]["extra"]["calls"] == runs["wide"]["outer"] - 1
+    assert all(0.0 < w < 1.0 for w in recs[1]["extra"]["walk_share"])
     for rec in recs:
         assert rec["max_abs_err"] == 0.0
         assert rec["name"] == "nn_matched" or rec["extra"]["payload"] == 4
@@ -43,6 +49,7 @@ def test_chip_smoke_phases_25_to_27_rehearse_on_cpu(capsys):
     assert ("nn_matched batched-p2l (D 3, P 4): the cold call, 1 pairs"
             in out)
     assert "bitwise equal to plain and brute force on every pair" in out
+    assert "each bitwise equal to nn_matched on its inputs" in out
     assert out.count("bitwise equal to plain, the items' emulation and "
                      "brute force") == 2
     assert "fields and results bitwise the CPU's: True" in out

@@ -128,20 +128,26 @@ def test_pairs_items_are_the_pruned_ascending_sweep(case, item):
 
 
 def test_pairs_item_chunks_rule():
-    """Kernel 8's work items (``pairs_item_chunks``): the largest that
-    gives PAIRS_BLOCKS blocks, the whole db where the query groups alone
-    do (as at the batched path's cold call), one chunk where none does."""
+    """Kernel 8's work items (``pairs_item_chunks``): the largest of at
+    most PAIRS_ITEM_MAX chunks that gives PAIRS_BLOCKS blocks, the whole
+    db where the query groups alone do and it is no larger (as at the
+    batched path's cold call), one chunk where none does; at batched
+    p2l's warm searches over 28,800-point dbs, PAIRS_ITEM_MAX."""
     rule = nn_pairs_cuda.pairs_item_chunks
     blocks = nn_pairs_cuda.PAIRS_BLOCKS
+    cap = nn_pairs_cuda.PAIRS_ITEM_MAX
     assert rule(209, 768, 768) == 6
+    assert rule(95, 28928, 28800) == cap == 64
     for b, qp, m_pad in ((209, 768, 768), (4, 768, 4096), (1, 256, 128),
-                         (10 ** 4, 768, 768), (40, 768, 768)):
+                         (10 ** 4, 768, 768), (40, 768, 768),
+                         (95, 28928, 28800), (8, 28928, 28800),
+                         (1, 28928, 28800)):
         groups = b * -(-qp // (128 * nn_pairs_cuda.PAIRS_Q))
         item = rule(b, qp, m_pad)
         n_items = -(-(m_pad // 128) // item)
-        assert 1 <= item <= m_pad // 128
+        assert 1 <= item <= min(m_pad // 128, cap)
         assert item == 1 or groups * n_items >= blocks
-        assert item == m_pad // 128 \
+        assert item == min(m_pad // 128, cap) \
             or groups * -(-(m_pad // 128) // (item + 1)) < blocks
 
 

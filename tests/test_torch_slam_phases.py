@@ -35,7 +35,13 @@ def test_chip_smoke_slam_phases_rehearse_on_cpu(chip_smoke, capsys):
     assert run["closures"] >= 1 and run["ate"] < chip_smoke.ATE_GATE_M
     chip_smoke.phase_slam3d_small("cpu", n_poses=20, n_points=768,
                                   scene_n=2000)
-    chip_smoke.phase_slam2d("cpu", n_scans=22, wide_frames=9,
-                            wide_stride=64)
+    # Wide scans of 4,680 points on 1,536-point tiles: above PAIRS_MAX_DB
+    # and over 3 tiles, so the warm searches take kernel 8's route.
+    run = chip_smoke.phase_slam2d("cpu", n_scans=22, wide_frames=3,
+                                  wide_stride=6, tile=1536)
+    assert [(r["name"], r["path"]) for r in run["records"]] == [
+        ("nn_pairs", "slam2d-wide")]
+    assert run["records"][0]["extra"]["calls"] >= 2
     out = capsys.readouterr().out
     assert "slam3d plain path" in out and "slam2d wide scans" in out
+    assert "nn_pairs slam2d-wide (D 2, P 2)" in out
