@@ -42,6 +42,7 @@ import torch
 
 from icp_rust_tpu_torch.models import pose_graph as pg
 from icp_rust_tpu_torch.ops.collectives import psum
+from icp_rust_tpu_torch.utils.profiling import annotate
 
 
 def _structure(graph: pg.PoseGraph, seg_cap: int = 64):
@@ -295,25 +296,30 @@ def optimize_schur(graph: pg.PoseGraph, iters: int = 20,
     ``pose_graph.odometry_chain_graph``'s layout (ValueError otherwise).
     With a ``mesh`` (a ``DeviceMesh``; TypeError otherwise) the segments
     shard over ``seg_axis`` and the solve runs on the mesh's device; every
-    rank passes the whole graph and gets the same result."""
-    st = _structure(graph)
-    seg, group = None, None
-    if mesh is not None:
-        from icp_rust_tpu_torch.parallel.mesh import axis, check_mesh, \
-            mesh_device
+    rank passes the whole graph and gets the same result.
 
-        ax = axis(check_mesh(mesh), seg_axis)
-        graph = pg.graph_to(graph, mesh_device(mesh))
-        seg, group = _segments(st, (ax.rank, ax.size)), ax.group
-    tcls, dof = pg._group(graph.poses)
-    g = graph
-    done = torch.zeros((), dtype=torch.bool, device=graph.poses.t.device)
-    for _ in range(iters):
-        r, ji, jj = pg.edge_residuals_and_jacobians(g)
-        w = pg._edge_weights(r, g.info, g.edge_mask, huber_k, kernel)
-        delta = _solve_delta(g, r, ji, jj, w, st, seg, group)
-        delta = torch.where(done, torch.zeros_like(delta), delta)
-        stepped = tcls.from_twist(delta)
-        g = g._replace(poses=stepped.compose(g.poses))
-        done = done | (torch.sum(delta * delta) < delta_tol)
-    return g
+    Spans as ``pose_graph.optimize``'s, except that the per-edge blocks are
+    assembled inside the elimination, so ``icp.graph_solve`` holds the
+    assembly too and no ``icp.graph_assemble`` opens."""
+    with annotate("icp.pose_graph"):
+        st = _structure(graph)
+        seg, group = None, None
+        if mesh is not None:
+            from icp_rust_tpu_torch.parallel.mesh import axis, check_mesh, \
+                mesh_device
+
+            ax = axis(check_mesh(mesh), seg_axis)
+            graph = pg.graph_to(graph, mesh_device(mesh))
+            seg, group = _segments(st, (ax.rank, ax.size)), ax.group
+        tcls, _ = pg._group(graph.poses)
+        g = graph
+        done = torch.zeros((), dtype=torch.bool, device=graph.poses.t.device)
+        for _ in range(iters):
+            with annotate("icp.graph_linearize"):
+                r, ji, jj = pg.edge_residuals_and_jacobians(g)
+                w = pg._edge_weights(r, g.info, g.edge_mask, huber_k, kernel)
+            with annotate("icp.graph_solve"):
+                delta = _solve_delta(g, r, ji, jj, w, st, seg, group)
+                pg.SOLVES["graph_solves"] += 1
+                g, done = pg._retract(g, tcls, delta, done, delta_tol)
+        return g

@@ -32,6 +32,14 @@ Solvers:
 it converged, and CG all ``cg_iters`` steps with converged lanes frozen
 (``lax.scan``/``while_loop`` semantics without a host read per step).  The
 graph runs in float64 on any device.
+
+Spans (``utils/profiling.annotate``, open only while a profiler records):
+``icp.pose_graph`` over the whole of ``optimize``; in each iteration
+``icp.graph_linearize`` (residuals, Jacobians, weights),
+``icp.graph_assemble`` (dense H and b; on the CG route b and the
+preconditioner) and ``icp.graph_solve`` (gauge prior, solve, retraction).
+``SOLVES["graph_solves"]`` counts the linear solves launched (one an
+iteration, dense or CG), ``reset_solves`` zeroes it.
 """
 
 from __future__ import annotations
@@ -44,6 +52,15 @@ from torch import Tensor
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
 from icp_rust_tpu_torch.ops import huber
+from icp_rust_tpu_torch.utils.profiling import annotate
+
+# Linear solves launched by the graph solvers, one a Gauss-Newton
+# iteration; read and zeroed by the benchmark like ``cuda_build.LAUNCHES``.
+SOLVES = {"graph_solves": 0}
+
+
+def reset_solves() -> None:
+    SOLVES["graph_solves"] = 0
 
 
 class PoseGraph(NamedTuple):
@@ -250,37 +267,53 @@ def optimize(graph: PoseGraph, iters: int = 20, solve: str = "dense",
     poses."""
     if solve not in ("dense", "cg"):
         raise ValueError(f"solve must be 'dense' or 'cg', got {solve!r}")
-    tcls, dof = _group(graph.poses)
-    p = graph.poses.t.shape[0]
-    dtype, dev = graph.poses.t.dtype, graph.poses.t.device
-    gauge = _gauge_prior(p, dof, dtype, dev)
-    eye = torch.eye(dof * p, dtype=dtype, device=dev)
-    g = graph
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    for _ in range(iters):
-        r, ji, jj = edge_residuals_and_jacobians(g)
-        w = _edge_weights(r, g.info, g.edge_mask, huber_k, kernel)
-        if solve == "dense":
-            h, b = _assemble_dense(g, r, ji, jj, w)
-            h = h + torch.diag(gauge) + 1e-10 * eye
-            delta = -torch.linalg.solve(h, b)
-        else:
-            b = _apply_b(g, r, ji, jj, w)
-            minv = _block_jacobi_inv(g, ji, jj, w, gauge)
+    with annotate("icp.pose_graph"):
+        tcls, dof = _group(graph.poses)
+        p = graph.poses.t.shape[0]
+        dtype, dev = graph.poses.t.dtype, graph.poses.t.device
+        gauge = _gauge_prior(p, dof, dtype, dev)
+        eye = torch.eye(dof * p, dtype=dtype, device=dev)
+        g = graph
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        for _ in range(iters):
+            with annotate("icp.graph_linearize"):
+                r, ji, jj = edge_residuals_and_jacobians(g)
+                w = _edge_weights(r, g.info, g.edge_mask, huber_k, kernel)
+            if solve == "dense":
+                with annotate("icp.graph_assemble"):
+                    h, b = _assemble_dense(g, r, ji, jj, w)
+                with annotate("icp.graph_solve"):
+                    h = h + torch.diag(gauge) + 1e-10 * eye
+                    delta = -torch.linalg.solve(h, b)
+                    SOLVES["graph_solves"] += 1
+                    g, done = _retract(g, tcls, delta, done, delta_tol)
+            else:
+                with annotate("icp.graph_assemble"):
+                    b = _apply_b(g, r, ji, jj, w)
+                    minv = _block_jacobi_inv(g, ji, jj, w, gauge)
 
-            def hx(x, g=g, ji=ji, jj=jj, w=w):
-                return _apply_h(g, ji, jj, w, x) + gauge * x
+                def hx(x, g=g, ji=ji, jj=jj, w=w):
+                    return _apply_h(g, ji, jj, w, x) + gauge * x
 
-            def prec(x, minv=minv):
-                return torch.einsum("pij,pj->pi", minv,
-                                    x.reshape(p, dof)).reshape(dof * p)
+                def prec(x, minv=minv):
+                    return torch.einsum("pij,pj->pi", minv,
+                                        x.reshape(p, dof)).reshape(dof * p)
 
-            delta = _pcg(hx, -b, prec, cg_iters)
-        delta = torch.where(done, torch.zeros_like(delta), delta)
-        stepped = tcls.from_twist(delta.reshape(p, dof))
-        g = g._replace(poses=stepped.compose(g.poses))
-        done = done | (torch.sum(delta * delta) < delta_tol)
-    return g
+                with annotate("icp.graph_solve"):
+                    delta = _pcg(hx, -b, prec, cg_iters)
+                    SOLVES["graph_solves"] += 1
+                    g, done = _retract(g, tcls, delta, done, delta_tol)
+        return g
+
+
+def _retract(g: PoseGraph, tcls, delta: Tensor, done: Tensor,
+             delta_tol: float):
+    """The step applied left-multiplicatively, T <- Exp(delta) T, zeroed
+    once ``done``; returns (graph, done after this step)."""
+    delta = torch.where(done, torch.zeros_like(delta), delta)
+    stepped = tcls.from_twist(delta.reshape(g.poses.t.shape[0], -1))
+    g = g._replace(poses=stepped.compose(g.poses))
+    return g, done | (torch.sum(delta * delta) < delta_tol)
 
 
 def odometry_chain_graph(transforms, info_scale: float = 1.0,

@@ -13,6 +13,13 @@
   ``synthesize_scans3d`` writes that file, ``load_scans3d_hdf5`` reads it
   and ``ensure_scans3d`` does both as needed; they import ``h5py``
   inside, so importing this module never needs it.
+- SE(3) pose graphs: ``load_g2o`` reads g2o's text format
+  (``VERTEX_SE3:QUAT`` and ``EDGE_SE3:QUAT`` lines, as sphere2500.g2o
+  holds them) into a ``models.pose_graph.PoseGraph``, ``save_g2o`` writes
+  one.  g2o's edge error is (t, the quaternion's vector part), which is
+  (v, w / 2) of the port's twist residual to first order, so the
+  information's rotation rows and columns are halved on reading and
+  doubled on writing (exact in binary).
 """
 
 from __future__ import annotations
@@ -22,6 +29,10 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+G2O_VERTEX = "VERTEX_SE3:QUAT"
+G2O_EDGE = "EDGE_SE3:QUAT"
+# g2o's error (t, q_vec) to the port's twist (v, w): w = 2 q_vec.
+_G2O_TO_TWIST = np.array([1.0, 1.0, 1.0, 0.5, 0.5, 0.5])
 N_POINTS_IN_PACKET = 24 * 16  # reference examples/scan3d.rs:9
 PACKETS_PER_FRAME = 75  # reference examples/scan3d.rs:104
 RANGE_FILTER = 0.2  # reference examples/scan3d.rs:67
@@ -191,3 +202,91 @@ def load_scans3d_hdf5(path: str,
                 pts = pts[np.linalg.norm(pts, axis=1) > RANGE_FILTER]
             frames.append(pts)
     return frames
+
+
+def _quat_to_rot(q: np.ndarray) -> np.ndarray:
+    """Unit quaternions (K, 4) as (x, y, z, w) -> rotations (K, 3, 3)."""
+    x, y, z, w = (q / np.linalg.norm(q, axis=-1, keepdims=True)).T
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                  2 * (x * z + y * w)], -1),
+        np.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                  2 * (y * z - x * w)], -1),
+        np.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
+                  1 - 2 * (x * x + y * y)], -1)], -2)
+
+
+def _rot_to_quat(r: np.ndarray) -> np.ndarray:
+    """Rotations (K, 3, 3) -> unit quaternions (K, 4) as (x, y, z, w),
+    w >= 0, each from its largest component (Shepperd)."""
+    tr = np.trace(r, axis1=-2, axis2=-1)
+    d = np.diagonal(r, axis1=-2, axis2=-1)
+    lead = np.argmax(np.column_stack([d, tr]), -1)
+    q = np.empty((len(r), 4))
+    for k, m in enumerate(r):
+        if lead[k] == 3:
+            s = 2 * np.sqrt(1 + tr[k])
+            q[k] = [(m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s,
+                    (m[1, 0] - m[0, 1]) / s, s / 4]
+            continue
+        i = lead[k]
+        j, l = (i + 1) % 3, (i + 2) % 3
+        s = 2 * np.sqrt(1 + m[i, i] - m[j, j] - m[l, l])
+        q[k, i], q[k, 3] = s / 4, (m[l, j] - m[j, l]) / s
+        q[k, j], q[k, l] = (m[j, i] + m[i, j]) / s, (m[l, i] + m[i, l]) / s
+    return q * np.where(q[:, 3:] < 0, -1, 1)
+
+
+def load_g2o(path: str, dtype=None, device="cpu"):
+    """An SE(3) ``PoseGraph`` from a g2o file: its ``VERTEX_SE3:QUAT``
+    poses in id order, each ``EDGE_SE3:QUAT`` (i, j, z_ij, information from
+    its upper triangle, row by row) in file order, every edge on; other
+    lines are skipped.  Float64 unless ``dtype`` is given."""
+    from icp_rust_tpu_torch.convert import pose_graph_from_numpy
+
+    verts, edges = {}, []
+    with open(path) as f:
+        for line in f:
+            tok = line.split()
+            if tok and tok[0] == G2O_VERTEX:
+                verts[int(tok[1])] = np.array(tok[2:9], np.float64)
+            elif tok and tok[0] == G2O_EDGE:
+                edges.append((int(tok[1]), int(tok[2]),
+                              np.array(tok[3:31], np.float64)))
+    ids = sorted(verts)
+    index = {v: k for k, v in enumerate(ids)}
+    pose = np.stack([verts[v] for v in ids])
+    ev = np.stack([e[2] for e in edges])
+    upper = np.zeros((len(edges), 6, 6))
+    iu, ju = np.triu_indices(6)
+    upper[:, iu, ju] = ev[:, 7:]
+    info = upper + np.triu(upper, 1).transpose(0, 2, 1)
+    info *= _G2O_TO_TWIST[:, None] * _G2O_TO_TWIST[None, :]
+    return pose_graph_from_numpy(
+        _quat_to_rot(pose[:, 3:]), pose[:, :3],
+        [index[e[0]] for e in edges], [index[e[1]] for e in edges],
+        _quat_to_rot(ev[:, 3:7]), ev[:, :3], info,
+        np.ones(len(edges), bool), device=device, dtype=dtype)
+
+
+def save_g2o(path: str, graph) -> None:
+    """Write an SE(3) ``PoseGraph``'s poses (ids 0..P-1) and its edges that
+    are on as g2o text, the inverse of ``load_g2o``."""
+    def rows(rot, t):
+        rot, t = (np.asarray(x.detach().cpu(), np.float64) for x in (rot, t))
+        return np.concatenate([t, _rot_to_quat(rot)], -1)
+
+    on = graph.edge_mask.cpu().numpy()
+    info = graph.info.detach().cpu().numpy()[on].astype(np.float64)
+    info = info / (_G2O_TO_TWIST[:, None] * _G2O_TO_TWIST[None, :])
+    iu, ju = np.triu_indices(6)
+    upper = info[:, iu, ju]
+    meas = rows(graph.meas.rot, graph.meas.t)[on]
+    ei, ej = (x.cpu().numpy()[on] for x in (graph.edge_i, graph.edge_j))
+    with open(path, "w") as f:
+        for k, p in enumerate(rows(graph.poses.rot, graph.poses.t)):
+            f.write(" ".join([G2O_VERTEX, str(k)] + [repr(float(x))
+                                                      for x in p]) + "\n")
+        for i, j, z, u in zip(ei, ej, meas, upper):
+            f.write(" ".join([G2O_EDGE, str(i), str(j)]
+                             + [repr(float(x)) for x in (*z, *u)]) + "\n")
