@@ -8,7 +8,8 @@ plane of every destination point:
 - ``estimate_normals``: per-point k-neighbour covariance PCA;
 - ``estimate_normals_voxel``: per-VOXEL covariance PCA, the path every
   published p2l number uses (one sorted segment-sum pass instead of an
-  O(N^2) k-NN).
+  O(N^2) k-NN).  Batch axes run as one lane-keyed pass, every lane bitwise
+  the unbatched call on it; ``PASSES`` counts the passes and their lanes.
 
 Normals are the smallest-eigenvalue eigenvectors of the covariances
 (``linalg.sym3x3_eigh_smallest``), oriented toward the sensor origin, and
@@ -18,11 +19,14 @@ Determinism on the card: the voxel moments are a sorted segment sum.  A
 scatter-add (``index_add_``) sums with float atomics there, in an order
 that changes from run to run; ``torch.segment_reduce`` over the sorted
 segments sums each segment in one fixed order, so a frame's normals, and
-with them the trajectory, repeat bitwise.  Every argsort is stable, as
-``jnp.argsort`` is.
+with them the trajectory, repeat bitwise.  Every sort is stable, as
+``jnp.argsort`` is.  The voxel pass waits on the card nowhere: its
+scalars are made there (``torch.full``) and it reads nothing back.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import Tensor
@@ -35,6 +39,16 @@ from icp_rust_tpu_torch.ops.voxel import segment_sums
 # well above it; real planes have lam1/lam2 = O(1).
 _PLANARITY_EPS = 2e-3
 _CELLS = 1024  # voxel index box: cells per axis
+
+# Voxel-normal passes and the lanes they ran, one pass an
+# ``estimate_normals_voxel`` call whatever its batch; zeroed by
+# ``reset_passes`` (held like ``models/pose_graph.SOLVES``).
+PASSES = {"voxel_passes": 0, "voxel_lanes": 0}
+
+
+def reset_passes() -> None:
+    PASSES["voxel_passes"] = 0
+    PASSES["voxel_lanes"] = 0
 
 
 def knn_torch(query: Tensor, db: Tensor, k: int,
@@ -89,8 +103,13 @@ def _orient(normals: Tensor, points: Tensor, orient_to) -> Tensor:
     if orient_to is None:
         orient_to = torch.zeros(points.shape[-1], dtype=points.dtype,
                                 device=points.device)
-    sign = torch.sign(torch.sum(normals * (orient_to - points), dim=-1,
-                                keepdim=True))
+    # The dot as explicit adds in axis order: a reduction kernel may pick
+    # its order by the tensor's shape, and this sign decides the normal.
+    v = normals * (orient_to - points)
+    dot = v[..., 0]
+    for kk in range(1, v.shape[-1]):
+        dot = dot + v[..., kk]
+    sign = torch.sign(dot)[..., None]
     return normals * torch.where(sign == 0, torch.ones_like(sign), sign)
 
 
@@ -129,79 +148,83 @@ def estimate_normals_voxel(points: Tensor, mask: Tensor, voxel_size: float,
                            planarity_eps: float = _PLANARITY_EPS):
     """Per-point unit normals from per-VOXEL covariance PCA.
 
-    Every point inherits the normal of its voxel.  points: (N, 3); mask:
-    (N,).  Returns (normals (N, 3), valid (N,)); invalid where the voxel
-    has fewer than ``min_points`` members, was dropped by ``capacity``,
-    lies outside the 1024-cells-per-axis index box (points farther than
-    1024 * voxel_size from the cloud minimum: invalid, not clipped, so
-    far-apart surfaces never blend into one border voxel), or is
-    near-collinear (mid eigenvalue < planarity_eps * largest).
+    Every point inherits the normal of its voxel.  points: (..., N, 3);
+    mask: (..., N).  Returns (normals (..., N, 3), valid (..., N)); invalid
+    where the voxel has fewer than ``min_points`` members, was dropped by
+    ``capacity``, lies outside the 1024-cells-per-axis index box (points
+    farther than 1024 * voxel_size from the cloud minimum: invalid, not
+    clipped, so far-apart surfaces never blend into one border voxel), or
+    is near-collinear (mid eigenvalue < planarity_eps * largest).
 
-    Batch axes (..., N, 3) run cloud by cloud, each on its own grid at the
-    same capacity, as the JAX package vmaps the function: every lane
-    equals the unbatched call on it."""
-    if points.ndim > 2:
-        lanes = [estimate_normals_voxel(p, m, voxel_size, capacity,
-                                        orient_to, min_points, planarity_eps)
-                 for p, m in zip(points.flatten(0, -3),
-                                 mask.flatten(0, -2))]
-        return (torch.stack([n for n, _ in lanes]).reshape(points.shape),
-                torch.stack([v for _, v in lanes]).reshape(mask.shape))
-    n_pts, dim = points.shape
+    Batch axes run as one lane-keyed pass (a 2-D cloud is a batch of
+    one): each lane on its own grid at the same capacity, as the JAX
+    package vmaps the function, and every lane bitwise the unbatched call
+    on it.  Each call adds one pass and its lanes to ``PASSES``."""
+    *batch, n_pts, dim = points.shape
+    lanes = math.prod(batch)
+    PASSES["voxel_passes"] += 1
+    PASSES["voxel_lanes"] += lanes
+    pts = points.reshape(lanes, n_pts, dim)
+    msk = mask.reshape(lanes, n_pts)
     dtype, dev = points.dtype, points.device
     big = torch.iinfo(torch.int32).max
-    inf = torch.tensor(float("inf"), dtype=dtype, device=dev)
-
-    lo = torch.amin(torch.where(mask[:, None], points, inf), dim=0)
+    inf = torch.full((), float("inf"), dtype=dtype, device=dev)
     # A tensor divisor: a Python scalar would be multiplied by its
     # reciprocal on the card, and a cell boundary could move by an ulp.
-    vs = torch.tensor(voxel_size, dtype=dtype, device=dev)
-    cells = torch.floor((points - lo) / vs).to(torch.int32)
+    vs = torch.full((), voxel_size, dtype=dtype, device=dev)
+
+    lo = torch.amin(torch.where(msk[..., None], pts, inf), dim=-2,
+                    keepdim=True)
+    cells = torch.floor((pts - lo) / vs).to(torch.int32)
     in_box = torch.all((cells >= 0) & (cells < _CELLS), dim=-1)
     cells = torch.clamp(cells, 0, _CELLS - 1)
-    cell_id = cells[:, 0]
+    cell_id = cells[..., 0]
     for kk in range(1, dim):
-        cell_id = cell_id * _CELLS + cells[:, kk]
-    cell_id = torch.where(mask & in_box, cell_id,
+        cell_id = cell_id * _CELLS + cells[..., kk]
+    cell_id = torch.where(msk & in_box, cell_id,
                           torch.full_like(cell_id, big))
 
     # Moments accumulate in per-voxel local coordinates (each point minus
     # its cell corner): in global coordinates E[x^2] - mean^2 cancels
     # catastrophically in f32.  The covariance is translation-invariant.
-    local = points - (lo + cells.to(dtype) * voxel_size)
+    local = pts - (lo + cells.to(dtype) * voxel_size)
 
-    order = torch.argsort(cell_id, stable=True)
-    sid = cell_id[order]
-    spts = local[order]
+    sid, order = torch.sort(cell_id, dim=-1, stable=True)
+    spts = torch.take_along_dim(local, order[..., None], dim=-2)
     svalid = sid != big
-    first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
-                       sid[1:] != sid[:-1]]) & svalid
-    seg = torch.cumsum(first.to(torch.int32), dim=0) - 1
+    first = torch.cat([torch.ones_like(svalid[:, :1]),
+                       sid[:, 1:] != sid[:, :-1]], dim=-1) & svalid
+    seg = torch.cumsum(first.to(torch.int32), dim=-1) - 1
     seg = torch.where(svalid, torch.clamp(seg, 0, capacity),
                       torch.full_like(seg, capacity))
 
-    wf = svalid.to(dtype)[:, None]
+    wf = svalid.to(dtype)[..., None]
     # second moments, packed (xx, yy, zz, xy, xz, yz)
-    m2 = torch.stack([spts[:, 0] * spts[:, 0], spts[:, 1] * spts[:, 1],
-                      spts[:, 2] * spts[:, 2], spts[:, 0] * spts[:, 1],
-                      spts[:, 0] * spts[:, 2], spts[:, 1] * spts[:, 2]],
-                     dim=-1)
-    rows = torch.cat([wf, spts * wf, m2 * wf], dim=-1)  # (N, 10)
-    # seg ascends (a cumsum of run starts; invalid rows last, at
-    # ``capacity``), so the segments partition the rows in order.
-    acc = segment_sums(rows, seg, capacity + 1)
-    cnt = acc[:capacity, 0]
-    s1 = acc[:capacity, 1:1 + dim]
-    s2 = acc[:capacity, 1 + dim:7 + dim]
+    x, y, z = spts[..., 0], spts[..., 1], spts[..., 2]
+    m2 = torch.stack([x * x, y * y, z * z, x * y, x * z, y * z], dim=-1)
+    rows = torch.cat([wf, spts * wf, m2 * wf], dim=-1)  # (B, N, 10)
+    # Each lane owns capacity + 1 segments, its overflow row last.  seg
+    # ascends within a lane (a cumsum of run starts; invalid rows last, at
+    # ``capacity``) and the lane offset across lanes, so the segments
+    # partition the rows in order and each voxel sums as it would alone.
+    n_seg = capacity + 1
+    lane0 = torch.arange(lanes, dtype=torch.int64, device=dev)[:, None]
+    acc = segment_sums(rows.reshape(lanes * n_pts, -1),
+                       (seg + lane0 * n_seg).reshape(-1), lanes * n_seg)
+    acc = acc.reshape(lanes, n_seg, -1)[:, :capacity]
+    cnt = acc[..., 0]
+    s1 = acc[..., 1:1 + dim]
+    s2 = acc[..., 1 + dim:7 + dim]
 
     c = torch.clamp(cnt, min=1.0)
-    mean = s1 / c[:, None]
-    xx = s2[:, 0] / c - mean[:, 0] * mean[:, 0]
-    yy = s2[:, 1] / c - mean[:, 1] * mean[:, 1]
-    zz = s2[:, 2] / c - mean[:, 2] * mean[:, 2]
-    xy = s2[:, 3] / c - mean[:, 0] * mean[:, 1]
-    xz = s2[:, 4] / c - mean[:, 0] * mean[:, 2]
-    yz = s2[:, 5] / c - mean[:, 1] * mean[:, 2]
+    mean = s1 / c[..., None]
+    mx, my, mz = mean[..., 0], mean[..., 1], mean[..., 2]
+    xx = s2[..., 0] / c - mx * mx
+    yy = s2[..., 1] / c - my * my
+    zz = s2[..., 2] / c - mz * mz
+    xy = s2[..., 3] / c - mx * my
+    xz = s2[..., 4] / c - mx * mz
+    yz = s2[..., 5] / c - my * mz
     cov = torch.stack([torch.stack([xx, xy, xz], -1),
                        torch.stack([xy, yy, yz], -1),
                        torch.stack([xz, yz, zz], -1)], -2)
@@ -213,12 +236,15 @@ def estimate_normals_voxel(points: Tensor, mask: Tensor, voxel_size: float,
     # rides the normals as a 4th lane, so each step is one 4-lane gather.
     in_range = seg < capacity
     pt_seg_sorted = torch.clamp(seg, 0, capacity - 1).to(torch.int64)
-    packed = torch.cat([vox_n, vox_ok.to(dtype)[:, None]], dim=-1)
-    pt_sorted = packed[pt_seg_sorted]  # (N, 4)
-    okf_sorted = pt_sorted[:, 3:4] * (svalid & in_range).to(dtype)[:, None]
-    pt_sorted = torch.cat([pt_sorted[:, :3], okf_sorted], dim=-1)
-    inv = torch.argsort(order, stable=True)
-    out = pt_sorted[inv]
-    normals = _orient(out[:, :3], points, orient_to)
-    valid = (out[:, 3] > 0.5) & mask
-    return normals, valid
+    packed = torch.cat([vox_n, vox_ok.to(dtype)[..., None]], dim=-1)
+    pt_sorted = torch.take_along_dim(packed, pt_seg_sorted[..., None],
+                                     dim=-2)  # (B, N, 4)
+    okf_sorted = pt_sorted[..., 3:4] * (svalid & in_range).to(dtype)[..., None]
+    pt_sorted = torch.cat([pt_sorted[..., :3], okf_sorted], dim=-1)
+    # The sort's inverse permutation as a scatter: each sorted row goes
+    # back to the index it came from (a permutation: one write a slot).
+    out = torch.empty_like(pt_sorted).scatter_(
+        -2, order[..., None].expand_as(pt_sorted), pt_sorted)
+    normals = _orient(out[..., :3], pts, orient_to)
+    valid = (out[..., 3] > 0.5) & msk
+    return normals.reshape(points.shape), valid.reshape(mask.shape)

@@ -32,6 +32,8 @@ way (chip_smoke.frame_gate).  The voxel hash table on the
 card equals the CPU's: keys, counts and drops exact, point sums to
 float32 roundoff.  The per-frame odometry runners are bitwise the fused
 runners on the card, and a resumed run bitwise the uninterrupted one.
+The voxel normals of 95 clouds in one batched pass are bitwise the 95
+unbatched calls, with no host synchronise under the normals span.
 On four gloo ranks sharing the card, the ring NN is bitwise the search
 over the whole cloud, and dp_sp_icp3d_planar on one 28,800-point pair is
 within 1 mm of icp3d_planar.  chip_smoke.py runs the same comparisons at
@@ -862,6 +864,47 @@ def test_p2l_odometry_on_the_card_tracks_the_plain_path(dev):
     _, plain = run_odometry_p2l_fused(
         pts, mask, cfg.with_(nn_backend="torch", align_backend="torch"), 0.45)
     assert ate_rmse(path, plain) < 1e-3
+
+
+def test_voxel_normals_batch_is_one_pass_bitwise_its_lanes(dev):
+    """vlp16's 95 destination clouds (``synthesize_frames3d(96, seed=0)``'s
+    frames 1-95, padded to 28,800) in one voxel-normal pass: each lane
+    bitwise the unbatched call on it, one pass of 95 lanes; and the
+    ``icp.normals`` span (``models/icp_p2l``'s) holds no host synchronise,
+    read from the profiler's trace as ``bench_port/spans.py`` reads the
+    cell's (a pageable copy in a span of its own shows the reader sees
+    one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bench_port import spans, tracing
+    from icp_rust_tpu_torch.ops import normals
+    from icp_rust_tpu_torch.utils.profiling import annotate
+
+    frames, _ = io.synthesize_frames3d(96, seed=0)
+    pts, mask = io.pad_points(frames[1:], 28800)
+    dst = torch.as_tensor(pts, dtype=torch.float32, device=dev)
+    dmask = torch.as_tensor(mask, device=dev)
+    normals.estimate_normals_voxel(dst, dmask, 0.3)  # warm-up
+    torch.cuda.synchronize()
+    normals.reset_passes()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with annotate("icp.normals"):
+            n_b, ok_b = normals.estimate_normals_voxel(dst, dmask, 0.3)
+        with annotate("icp.control"):
+            torch.tensor(1.0, device=dev)
+        torch.cuda.synchronize()
+    assert normals.PASSES == {"voxel_passes": 1, "voxel_lanes": 95}
+    trace = tracing.collect(prof)
+    by_span = spans.syncs(trace, spans.pieces(trace))
+    assert by_span.get("icp.control", 0) >= 1, by_span
+    assert by_span.get("icp.normals", 0) == 0, by_span
+    for lane in range(95):
+        n_u, ok_u = normals.estimate_normals_voxel(dst[lane], dmask[lane],
+                                                   0.3)
+        assert torch.equal(n_b[lane], n_u), lane
+        assert torch.equal(ok_b[lane], ok_u), lane
+    assert int(ok_b.sum()) > 0.9 * int(dmask.sum())
 
 
 def test_p2l_kernels_refuse_float64(dev):

@@ -310,6 +310,71 @@ def test_estimate_normals_voxel_matches_jax(dt, case):
     _normals_close(got, want, dt)
 
 
+def _voxel_lanes(case, np_dt):
+    """(points (..., N, 3), mask (..., N), capacity) for the batched voxel
+    normals: lanes of other extents, offsets and masks; "far" puts one
+    lane's first points beyond the index box; "capacity" drops voxels;
+    "single" is one 2-D cloud; "grid" a (2, 3) batch."""
+    rng = np.random.default_rng(11)
+    n_lanes = {"single": 1, "grid": 6}.get(case, 3)
+    pts, mask = [], []
+    for lane in range(n_lanes):
+        p, m = _faces_cloud("plain", np_dt, seed=4 + lane)
+        p = p * (1.0, 0.7, 1.3, 0.85, 1.15, 1.0)[lane] + rng.uniform(-1, 1, 3)
+        pts.append(p.astype(np_dt))
+        mask.append(m & (rng.random(len(m)) > 0.1 * lane))
+    pts, mask = np.stack(pts), np.stack(mask)
+    if case == "far":
+        pts[1, :20] += 600.0  # 1,200 cells from the lane's minimum
+    if case == "single":
+        pts, mask = pts[0], mask[0]
+    elif case == "grid":
+        pts, mask = pts.reshape(2, 3, *pts.shape[1:]), mask.reshape(2, 3, -1)
+    return pts, mask, 8 if case == "capacity" else 1 << 15
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+@pytest.mark.parametrize("case", ["lanes", "far", "capacity", "single",
+                                  "grid"])
+def test_estimate_normals_voxel_batch_is_bitwise_its_lanes(dt, case):
+    """One pass over every lane: each lane bitwise the unbatched call on
+    it, normals and validity; ``PASSES`` reads one pass and the batch's
+    lanes; each lane still the JAX package's (``_normals_close``).
+
+    A warm-up call comes first: in a fresh process, PyTorch's first
+    multithreaded ``sqrt`` on the CPU can round one thread's chunk
+    differently (seen with torch 2.13 on AVX-512, in the unbatched call
+    as much as in the batched one), and this test compares bits."""
+    np_dt, _, _ = DTYPES[dt]
+    pts, mask, cap = _voxel_lanes(case, np_dt)
+    t_pts, t_mask = torch.as_tensor(pts), torch.as_tensor(mask)
+    normals.estimate_normals_voxel(t_pts, t_mask, 0.5, capacity=cap)
+    normals.reset_passes()
+    n_b, ok_b = normals.estimate_normals_voxel(t_pts, t_mask, 0.5,
+                                               capacity=cap)
+    lanes = int(np.prod(pts.shape[:-2]))
+    assert normals.PASSES == {"voxel_passes": 1, "voxel_lanes": lanes}
+    assert n_b.shape == t_pts.shape and ok_b.shape == t_mask.shape
+    flat_p, flat_m = pts.reshape(lanes, *pts.shape[-2:]), mask.reshape(
+        lanes, -1)
+    n_b, ok_b = n_b.reshape(flat_p.shape), ok_b.reshape(flat_m.shape)
+    for lane in range(lanes):
+        p, m = torch.as_tensor(flat_p[lane]), torch.as_tensor(flat_m[lane])
+        n_u, ok_u = normals.estimate_normals_voxel(p, m, 0.5, capacity=cap)
+        assert torch.equal(n_b[lane], n_u), lane
+        assert torch.equal(ok_b[lane], ok_u), lane
+        want = j_normals.estimate_normals_voxel(
+            jnp.asarray(flat_p[lane]), jnp.asarray(flat_m[lane]), 0.5,
+            capacity=cap)
+        _normals_close((n_b[lane], ok_b[lane]), want, dt)
+    ok = ok_b.numpy()
+    assert not ok[~flat_m].any() and ok.sum() > (0.05 if cap == 8 else 0.5
+                                                 ) * flat_m.sum()
+    if case == "far":
+        assert not ok[1, :20].any()  # beyond the index box: invalid
+    assert normals.PASSES["voxel_passes"] == 1 + lanes
+
+
 # ------------------------------------------------------ GN and loops
 
 
