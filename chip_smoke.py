@@ -370,6 +370,7 @@ from icp_rust_tpu_torch.models import icp_p2l as m_p2l
 from icp_rust_tpu_torch.models import pose_graph as pg
 from icp_rust_tpu_torch.models import slam as m_slam
 from icp_rust_tpu_torch.models import submap as m_submap
+from icp_rust_tpu_torch.models.driver import is_identity, spatial_sort
 from icp_rust_tpu_torch.models.graph_schur import optimize_schur
 from icp_rust_tpu_torch.models.odometry import ate_rmse, \
     run_odometry_device, run_odometry_fused, run_odometry_p2l, \
@@ -463,11 +464,19 @@ SUBMAP_2D_GATE_M = 0.02
 P2L_BATCH_PLAIN = 8
 # Phase 25(a)'s z against the single-pair calls (the plain route keeps
 # PLAIN_GATE_M in z).  The synthetic world is vertical walls: every normal
-# is horizontal, so the data barely constrain z.  On an H100 the same
-# plain inner loop on one pair and on the batch differed by 2.4e-3 m in z
-# at 2 of 95 pairs, by 1.5e-4 m in xy and 1.1e-4 in rotation; that the
-# cause is float32 summation order is inferred, not shown by a float64
-# run.  xy and rotation keep PLAIN_GATE_M; z keeps this, and the
+# is horizontal, so the data barely constrain z.  On an H100 one pair and
+# the batch differed by 2.4e-3 m in z at 2 of 95 pairs, by 1.5e-4 m in xy
+# and 1.1e-4 in rotation.  Float64 runs on the CPU (pair 45, from
+# identity, voxel 0.3 m) show the cause (ROADMAP.md section 1, F1):
+# batching adds nothing (batched and single calls agree within 2e-17 m in
+# z); the single pair's float32 kernel route takes another path.  It
+# splits from the plain route at outer iteration 2 (3.0e-4 m in that
+# step's z) and exits two iterations early at z 0.00444 m, where the
+# float32 batch, JAX's float32 call and float64 land at 0.00202.  Each of
+# its NN results is bitwise nn_torch and each p2l_loop call within
+# 2.3e-7 m of JAX's kernel; the CPU reproduces the card's gap (2.418e-3
+# against 2.423e-3 m in z), and either float32 route can take such a
+# path.  xy and rotation keep PLAIN_GATE_M; z keeps this, and the
 # ground-truth gate.
 P2L_BATCH_Z_M = 1e-2
 ROOM_TWIST_M = 0.02
@@ -553,8 +562,8 @@ def _first_pair(device, stride):
     pts, mask, _ = frames3d(2, stride)
     p = torch.as_tensor(pts, dtype=torch.float32, device=device)
     k = torch.as_tensor(mask, device=device)
-    src, smask, _ = m_icp._spatial_sort(p[0], k[0])
-    dst, dmask, _ = m_icp._spatial_sort(p[1], k[1])
+    src, smask, _ = spatial_sort(p[0], k[0])
+    dst, dmask, _ = spatial_sort(p[1], k[1])
     return src, smask, dst, dmask
 
 
@@ -842,9 +851,9 @@ def phase_frame(device="cuda", n: int = 640, pad: int = 768,
     records = []
     for shape, (sp, sm, dp, dm) in frame_inputs(device, n, pad,
                                                  n_max).items():
-        rot, t, it = align2d_cuda.icp2d_frame(sp, dp, sm, dm, t0, cfg)
-        rot_p, t_p, it_p = align2d_cuda.icp2d_frame_plain(sp, dp, sm, dm, t0,
-                                                          cfg)
+        rot, t, it = m_icp.icp2d_frame(sp, dp, sm, dm, t0, cfg)
+        rot_p, t_p, it_p = m_icp.icp2d_frame_plain(sp, dp, sm, dm, t0,
+                                                   cfg)
         err = max(float(torch.max(torch.abs(rot - rot_p))),
                   float(torch.max(torch.abs(t - t_p))))
         print(f"# icp2d_frame {shape}: outer iterations kernel {int(it)} "
@@ -856,7 +865,7 @@ def phase_frame(device="cuda", n: int = 640, pad: int = 768,
         if int(it) != int(it_p):
             raise RuntimeError("icp2d_frame: outer iterations differ from "
                                "the plain version's")
-        wrapper_ms = time_ms(lambda: align2d_cuda.icp2d_frame(
+        wrapper_ms = time_ms(lambda: m_icp.icp2d_frame(
             sp, dp, sm, dm, t0, cfg), device, reps=20 if on_card else 1)
         extra = dict(shape=shape, wrapper_ms=wrapper_ms)
         if on_card:
@@ -869,7 +878,7 @@ def phase_frame(device="cuda", n: int = 640, pad: int = 768,
                   f"{times['cluster_ms']}), wrapper {wrapper_ms:.4f} ms")
         else:
             outer, inner, ms = int(it), 0, wrapper_ms
-        plain_ms = time_ms(lambda: align2d_cuda.icp2d_frame_plain(
+        plain_ms = time_ms(lambda: m_icp.icp2d_frame_plain(
             sp, dp, sm, dm, t0, cfg), device, reps=2)
         n_src, n_dst = float(sm.sum()), float(dm.sum())
         ops = (outer * n_src * (n_dst * NN_OPS_PER_PAIR_2D + 6)
@@ -1033,8 +1042,8 @@ def _batch(device, n_scans: int = BATCH_SCANS, pad: int = BATCH_PAD,
     k = torch.as_tensor(mask, device=device)
     src, smask, dst, dmask = p[:-1], k[:-1], p[1:], k[1:]
     if sort:
-        src, smask, _ = m_icp._spatial_sort(src, smask)
-        dst, dmask, _ = m_icp._spatial_sort(dst, dmask)
+        src, smask, _ = spatial_sort(src, smask)
+        dst, dmask, _ = spatial_sort(dst, dmask)
     return src, smask, dst, dmask
 
 
@@ -1295,8 +1304,8 @@ def _big_db_case(device, big_pairs: int = 4, big_db: int = 4096,
     pts_b = torch.as_tensor(np.stack(xy_b), dtype=torch.float32,
                             device=device)
     ones = torch.ones(pts_b.shape[:2], dtype=torch.bool, device=device)
-    q_b, _, _ = m_icp._spatial_sort(pts_b[:-1, :pad], ones[:-1, :pad])
-    db_b, dm_b, _ = m_icp._spatial_sort(pts_b[1:], ones[1:])
+    q_b, _, _ = spatial_sort(pts_b[:-1, :pad], ones[:-1, :pad])
+    db_b, dm_b, _ = spatial_sort(pts_b[1:], ones[1:])
     return q_b, db_b, dm_b
 
 
@@ -1454,10 +1463,10 @@ def plain_fixed_point(args, rot, t) -> torch.Tensor:
     """Per pair of kernel 10's (or 3's) arguments ``args``: is (rot, t) an
     exact fixed point of the plain outer step?  ``icp2d_frame_plain``
     warm-started there takes its fixed-point exit at the first outer
-    iteration: its dT is the identity bitwise (``_outer_fixed_point``'s
-    test)."""
+    iteration: its dT is the identity bitwise (``models/driver.
+    fixed_point``'s test)."""
     sp, dp, sm, dm, _, cfg = args
-    _, _, lane_it = align2d_cuda.icp2d_frame_plain(
+    _, _, lane_it = m_icp.icp2d_frame_plain(
         sp, dp, sm, dm, RigidTransform2(rot, t), cfg)
     return lane_it.reshape(-1).cpu() == 1
 
@@ -1497,7 +1506,7 @@ def near_tie_replay(src, dst, smask, dmask, t0, cfg, flip=None):
                 idx = idx.clone()
                 idx[flip[1]] = two[flip[1]]
         dt = align2d.estimate_transform(xy, dst[idx], smask, cfg)
-        if bool(m_icp._is_identity(dt)):
+        if bool(is_identity(dt)):
             return _six(t), k + 1, ties
         t = dt.compose(t)
     return _six(t), cfg.outer_iters, ties
@@ -1582,8 +1591,8 @@ def _frame_pairs_check(args, what: str):
     (``frame_trace``) before the check raises.  Returns (max |diff|, outer
     iterations per pair, the plain version's (rot, t, outer
     iterations))."""
-    rot, t, its = align2d_cuda.icp2d_frame_pairs(*args)
-    plain = align2d_cuda.icp2d_frame_pairs_plain(*args)
+    rot, t, its = m_icp.icp2d_frame(*args)
+    plain = m_icp.icp2d_frame_pairs_plain(*args)
     err, failed = frame_gate(args, rot, t, its, plain, f"icp2d_frame_pairs "
                              f"{what}")
     its_k = its.to(torch.int64).cpu()
@@ -1686,8 +1695,8 @@ def phase_frame_pairs(device="cuda", n_scans: int = BATCH_SCANS,
     extra = {}
     if torch.device(device).type == "cuda":
         inner = align2d_cuda.icp2d_frame_raw(*args)[:, 7].double().cpu()
-        wrapper_ms = time_ms(lambda: align2d_cuda.icp2d_frame_pairs(*args),
-                             device, reps=10)
+        wrapper_ms = time_ms(lambda: m_icp.icp2d_frame(*args), device,
+                             reps=10)
         ms, by_shape, chosen, ref, outs = _frame_pairs_settings(args,
                                                                 device)
         _frame_pairs_hold(args, plain, ref, outs)
@@ -1698,9 +1707,8 @@ def phase_frame_pairs(device="cuda", n_scans: int = BATCH_SCANS,
               f"{by_shape}), wrapper {wrapper_ms:.4f} ms")
     else:
         inner = torch.zeros(b, dtype=torch.float64)
-        ms = time_ms(lambda: align2d_cuda.icp2d_frame_pairs(*args), device,
-                     reps=1)
-    plain_ms = time_ms(lambda: align2d_cuda.icp2d_frame_pairs_plain(*args),
+        ms = time_ms(lambda: m_icp.icp2d_frame(*args), device, reps=1)
+    plain_ms = time_ms(lambda: m_icp.icp2d_frame_pairs_plain(*args),
                        device, reps=1)
     n_src = smask.sum(dim=1).double().cpu()
     n_dst = dmask.sum(dim=1).double().cpu()
@@ -2188,7 +2196,7 @@ def profile_p2l(device="cuda", n_frames: int = 16):
     frames = n_frames - 1
     p = torch.as_tensor(pts, dtype=torch.float32, device=device)
     k = torch.as_tensor(mask, device=device)
-    dsts = [m_icp._spatial_sort(p[i], k[i]) for i in range(1, n_frames)]
+    dsts = [spatial_sort(p[i], k[i]) for i in range(1, n_frames)]
     with profile(activities=[ProfilerActivity.CUDA]) as nprof:
         for dst, dmask, _ in dsts:
             estimate_normals_voxel(dst, dmask, P2L_VOXEL_M)
@@ -2448,8 +2456,8 @@ def phase_nn_sweeps(device="cuda", stride: int = 1, small: int = 3072,
         cases[(kind, name)] = c
 
     run("nn_pruned", "full-width", src, dst, dmask)
-    s_src, s_smask, _ = m_icp._spatial_sort(src, smask)
-    s_dst, s_dmask, _ = m_icp._spatial_sort(dst, dmask)
+    s_src, s_smask, _ = spatial_sort(src, smask)
+    s_dst, s_dmask, _ = spatial_sort(dst, dmask)
     run("nn_pruned", "morton-sorted", s_src, s_dst, s_dmask)
     half = int(dmask.sum()) // 2
     dup = torch.cat([dst[:half], dst[:half]])
@@ -2466,8 +2474,8 @@ def phase_nn_sweeps(device="cuda", stride: int = 1, small: int = 3072,
 
     # Small frames (2 db tiles): kernel 5 as _mean_nn_dist, kernel 4 with
     # the p2l payload as the point-to-plane ICP sorts and packs them.
-    f_src, f_sm, _ = m_icp._spatial_sort(src[:small], smask[:small])
-    f_dst, f_dm, _ = m_icp._spatial_sort(dst[:small], dmask[:small])
+    f_src, f_sm, _ = spatial_sort(src[:small], smask[:small])
+    f_dst, f_dm, _ = spatial_sort(dst[:small], dmask[:small])
     run("nn_sweep", "small", src[:small], dst[:small], dmask[:small])
     nrm, nv = estimate_normals_voxel(f_dst, f_dm, P2L_VOXEL_M)
     run("nn_matched", "small-p2l", f_src, f_dst, f_dm,
@@ -2674,7 +2682,7 @@ def phase_slam2d_wide(device="cuda", n_frames: int = 12, stride: int = 1,
     second timed.  The third counts its batched searches' warm flags and
     captures its nn_pairs calls: on the card nn_matched launches once a
     cold search, nn_pairs once a warm one (dbs above PAIRS_MAX_DB points
-    over 3 tiles, ``ops/nn.use_pruned_pairs_nn``), nn_sweep with a batch
+    over 3 tiles, ``ops/nn.route``'s pruned_warm), nn_sweep with a batch
     axis; every captured call is held by ``_pairs_wide_hold``.  Returns
     the timed run's launches and seconds, and kernel 8's record at path
     slam2d-wide."""
@@ -2691,18 +2699,18 @@ def phase_slam2d_wide(device="cuda", n_frames: int = 12, stride: int = 1,
           f"{_nonzero(launches)}")
     if not res.error_after <= res.error_before:
         raise RuntimeError("slam2d wide scans: the graph error grew")
-    warm, real = [], m_icp.nearest_neighbor_matched
+    warm, real = [], m_nn.NNIndex.search
 
-    def spy(*args, **kw):
-        warm.append(kw.get("warm"))
-        return real(*args, **kw)
+    def spy(index, query, q_bound=None, is_warm=None):
+        warm.append(is_warm)
+        return real(index, query, q_bound, is_warm)
 
     calls, undo = _capture_calls(nn_pairs_cuda, "nn_pairs")
-    m_icp.nearest_neighbor_matched = spy
+    m_nn.NNIndex.search = spy
     try:
         _, _, held = _run_slam(run_slam2d, wide, cfg, device, **kw)
     finally:
-        m_icp.nearest_neighbor_matched = real
+        m_nn.NNIndex.search = real
         undo()
     n_warm = warm.count(True)
     if not n_warm or len(calls) != n_warm:
@@ -3988,8 +3996,7 @@ def _frame_times(pair, device, reps: int = 20):
     ms = launcher_ms("icp2d_frame", largs, device, reps=reps)
     _sync(device)
     ref = out.clone()
-    rot_p, t_p, it_p = align2d_cuda.icp2d_frame_plain(sp, dp, sm, dm, t0,
-                                                      cfg)
+    rot_p, t_p, it_p = m_icp.icp2d_frame_plain(sp, dp, sm, dm, t0, cfg)
     err = max(float(torch.max(torch.abs(ref[:4] - rot_p.reshape(4)))),
               float(torch.max(torch.abs(ref[4:6] - t_p))))
     clusters = {}
@@ -4241,8 +4248,8 @@ def frame_trace(device, kernel: str, args, pair: int, shape=None):
         calls, undo = _capture_calls(align2d, "estimate_transform")
         try:
             tu = RigidTransform2(t0.rot[one].to(dt), t0.t[one].to(dt))
-            align2d_cuda.icp2d_frame_plain(src.to(dt), dst.to(dt), smask,
-                                           dmask, tu, cfg)
+            m_icp.icp2d_frame_plain(src.to(dt), dst.to(dt), smask,
+                                    dmask, tu, cfg)
         finally:
             undo()
         plain_t[dt] = calls

@@ -30,18 +30,9 @@ from torch import Tensor
 
 from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
-from icp_rust_tpu_torch.models.icp2d import (
-    ICPStats,
-    _is_identity,
-    _outer_fixed_point,
-    _prepare,
-    _sort_enabled,
-    _spatial_sort,
-    _unflatten,
-    _unscale_transform,
-)
-from icp_rust_tpu_torch.ops import align3d, huber
-from icp_rust_tpu_torch.ops.nn import build_db_pack, nearest_neighbor_matched
+from icp_rust_tpu_torch.models.driver import ICPStats, fixed_point, \
+    outer_step, prepare, sort_pair, unflatten, unscale_transform
+from icp_rust_tpu_torch.ops import align3d, huber, nn
 from icp_rust_tpu_torch.ops.normals import (
     estimate_normals,
     estimate_normals_voxel,
@@ -130,13 +121,13 @@ def icp_point_to_plane(src, dst, src_mask, dst_mask,
     ``normals_voxel_size``, the path every published number uses, per
     pair) or ``"knn"`` (per-point ``normals_k``-neighbour PCA, an O(N M)
     sweep).  ``src_presorted``: src already permuted by
-    ``models.icp2d.presort_src`` (bitwise-identical hoist of the
+    ``models.driver.presort_src`` (bitwise-identical hoist of the
     loop-invariant sort).
 
     A batch runs in lockstep, as the JAX package's does: every outer
     iteration searches every pair at once (the pair-grid kernels for dbs
     of at most 4,096 points; above, kernel 4 cold and kernel 8's seed
-    prune warm, ``ops/nn.nearest_neighbor_matched``) and solves them with the
+    prune warm, ``ops/nn.route``) and solves them with the
     plain batched inner loop, a pair at its fixed point stays unchanged,
     and the loop exits when all are fixed; the stats give every pair the
     loop's count."""
@@ -144,18 +135,20 @@ def icp_point_to_plane(src, dst, src_mask, dst_mask,
         if normals_method not in NORMALS_METHODS:
             raise ValueError("normals_method must be one of "
                              f"{NORMALS_METHODS}, got {normals_method!r}")
-        src, dst, src_mask, dst_mask, t0, batch, dst_normals = _prepare(
+        src, dst, src_mask, dst_mask, t0, batch, dst_normals = prepare(
             src, dst, src_mask, dst_mask, initial_transform, config, device,
             check=_check_pair_shapes, dst_extra=dst_normals)
-        dt, dev = src.dtype, src.device
         s = config.point_scale
 
-        sort = _sort_enabled(src, dst, config)
-        if sort and not src_presorted:
-            src, src_mask, _ = _spatial_sort(src, src_mask, method=sort)
-        if dst_normals is None:
-            if sort:
-                dst, dst_mask, _ = _spatial_sort(dst, dst_mask, method=sort)
+        # The residual sees the matched point q only through c = n . q, so
+        # the NN carries [n, c]: 4 payload lanes.
+        route = nn.route(src, dst, 4, config)
+        given = () if dst_normals is None else (dst_normals, dst_mask)
+        src, src_mask, dst, dst_mask, given = sort_pair(
+            route.sort, src, src_mask, dst, dst_mask, src_presorted, given)
+        if given:
+            normals, n_valid = given
+        else:
             with annotate("icp.normals"):
                 if normals_method == "voxel":
                     normals, n_valid = estimate_normals_voxel(
@@ -163,53 +156,29 @@ def icp_point_to_plane(src, dst, src_mask, dst_mask,
                 else:
                     normals, n_valid = estimate_normals(
                         dst, dst_mask, k=normals_k, tile=config.nn_dst_tile)
-        else:
-            normals, n_valid = dst_normals, dst_mask
-            if sort:
-                dst, dst_mask, (normals, n_valid) = _spatial_sort(
-                    dst, dst_mask, (normals, n_valid), method=sort)
+        index = nn.NNIndex(route, dst, dst_mask,
+                           build_p2l_payload(dst, normals, n_valid, dst_mask),
+                           config)
 
-        # The residual sees the matched point q only through c = n . q, so the
-        # NN carries [n, c]: 4 payload lanes.  The db is packed once per call
-        # (the KdTree-build analogue).
-        payload = build_p2l_payload(dst, normals, n_valid, dst_mask)
-        db_pack = build_db_pack(src, dst, dst_mask, payload=payload,
-                                backend=config.nn_backend,
-                                tile=config.nn_dst_tile,
-                                method=config.nn_method)
-        eps = torch.finfo(dt).eps
+        def place(t):
+            src_t = t.apply_points(src)
+            return src_t, src_t
 
-        def make_outer(warm):
-            def outer(t, aux):
-                prev_d2, prev_q = aux[0], aux[1]
-                src_t = t.apply_points(src)
-                # dist_prev + |dq| bounds the new NN distance (the db is fixed
-                # across outer iterations); 32 eps keeps it an upper bound
-                # after the sqrt/square round trip.  3D: every coordinate
-                # moves.
-                move = torch.linalg.norm(src_t - prev_q, dim=-1)
-                qb = (torch.sqrt(prev_d2) + move) ** 2 * (1.0 + 32.0 * eps)
-                with annotate("icp.nn"):
-                    res, pay = nearest_neighbor_matched(
-                        src_t, dst, dst_mask, payload=payload,
-                        backend=config.nn_backend, tile=config.nn_dst_tile,
-                        q_tile=config.nn_query_tile, q_bound=qb,
-                        db_pack=db_pack, warm=warm, method=config.nn_method)
-                matched_n, matched, matched_ok = decode_p2l_payload(
-                    pay, res.dist_sq)
-                dt_ = align3d.estimate_transform_p2l(
-                    src_t, matched, matched_n, src_mask & matched_ok, config)
-                return dt_.compose(t), _is_identity(dt_), (res.dist_sq, src_t,
-                                                           pay)
-            return outer
+        def solve(src_t, res, pay):
+            matched_n, matched, matched_ok = decode_p2l_payload(pay,
+                                                                res.dist_sq)
+            return align3d.estimate_transform_p2l(
+                src_t, matched, matched_n, src_mask & matched_ok,
+                config), pay
 
-        aux0 = (torch.full(src.shape[:-1], float("inf"), dtype=dt, device=dev),
-                src, torch.zeros((*src.shape[:-1], 4), dtype=dt, device=dev))
-        t, it, aux, _ = _outer_fixed_point(make_outer(True), t0,
-                                           config.outer_iters, aux0,
-                                           first_step=make_outer(False))
-        t = _unscale_transform(t, s)
+        aux0 = (torch.full(src.shape[:-1], float("inf"), dtype=src.dtype,
+                           device=src.device),
+                src, torch.zeros((*src.shape[:-1], 4), dtype=src.dtype,
+                                 device=src.device))
+        t, it, aux, _ = fixed_point(outer_step(index, place, solve), t0,
+                                    config.outer_iters, aux0)
+        t = unscale_transform(t, s)
         if return_stats:
-            return _unflatten((t, _stats_p2l(aux, src_mask, config, it)),
-                              batch)
-        return _unflatten(t, batch)
+            return unflatten((t, _stats_p2l(aux, src_mask, config, it)),
+                             batch)
+        return unflatten(t, batch)

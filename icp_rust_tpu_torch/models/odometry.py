@@ -20,8 +20,8 @@ import torch
 from icp_rust_tpu_torch.config import ICPConfig, resolve_device
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
-from icp_rust_tpu_torch.models.icp2d import ICPStats, icp2d, icp3d_planar, \
-    presort_src
+from icp_rust_tpu_torch.models.driver import ICPStats, presort_src
+from icp_rust_tpu_torch.models.icp2d import se2_driver
 from icp_rust_tpu_torch.models.icp_p2l import icp_point_to_plane
 from icp_rust_tpu_torch.utils import io as scan_io
 
@@ -126,7 +126,7 @@ def run_odometry_fused(frames, masks, config: ICPConfig = ICPConfig(),
     With ``with_metrics`` the per-frame ICPStats (leading frame axis) ride
     along as a third element."""
     return _fused(frames, masks, config, with_metrics, device,
-                  _driver(np.shape(frames)[-1]), RigidTransform2)
+                  se2_driver(np.shape(frames)[-1]), RigidTransform2)
 
 
 def run_odometry_p2l_fused(frames, masks, config: ICPConfig = ICPConfig(),
@@ -145,12 +145,6 @@ def run_odometry_p2l_fused(frames, masks, config: ICPConfig = ICPConfig(),
                   normals_voxel_size=normals_voxel_size)
 
 
-def _driver(dim: int):
-    """The SE(2) driver for the points' dimension: ``icp2d`` for 2D scans,
-    ``icp3d_planar`` (3D matching, SE(2) solve on xy) for 3D ones."""
-    return icp2d if dim == 2 else icp3d_planar
-
-
 def run_odometry(frames, config: ICPConfig = ICPConfig(),
                  pad_multiple: int | None = None, device="cuda"):
     """Scan-to-first-scan odometry over a list of ragged (N_i, 2) or
@@ -160,7 +154,7 @@ def run_odometry(frames, config: ICPConfig = ICPConfig(),
     pts, mask = scan_io.pad_points(
         frames, multiple=pad_multiple or config.pad_multiple)
     transforms, path, _ = _run_sequence(
-        pts, mask, config, False, device, _driver(pts.shape[-1]),
+        pts, mask, config, False, device, se2_driver(pts.shape[-1]),
         RigidTransform2)
     return transforms, path
 
@@ -189,9 +183,9 @@ def run_odometry_device(frames, masks, config: ICPConfig = ICPConfig(),
     the rest of the trajectory bitwise (the engine is deterministic given
     its (src, transform) state)."""
     transforms, path, _ = _run_sequence(
-        frames, masks, config, False, device, _driver(np.shape(frames)[-1]),
-        RigidTransform2, metrics=metrics, checkpoint=checkpoint,
-        resume=resume)
+        frames, masks, config, False, device,
+        se2_driver(np.shape(frames)[-1]), RigidTransform2, metrics=metrics,
+        checkpoint=checkpoint, resume=resume)
     return transforms, path
 
 

@@ -47,14 +47,11 @@ from torch import Tensor
 
 from icp_rust_tpu_torch.config import ICPConfig, resolve_device
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
-from icp_rust_tpu_torch.models.icp2d import ICPStats, icp2d, icp3d_planar
+from icp_rust_tpu_torch.models.driver import ICPStats, spatial_sort
+from icp_rust_tpu_torch.models.icp2d import se2_driver
 from icp_rust_tpu_torch.ops import voxel_hash as vh
-from icp_rust_tpu_torch.ops.nn import morton_order, spatial_order
+from icp_rust_tpu_torch.ops.nn import morton_order
 from icp_rust_tpu_torch.ops.voxel import voxel_downsample
-
-
-def _driver(dim: int):
-    return icp2d if dim == 2 else icp3d_planar
 
 
 def _apply_planar(t: RigidTransform2, scan: Tensor, dtype) -> Tensor:
@@ -72,8 +69,8 @@ def submap_step(map_pts: Tensor, map_mask: Tensor, scan: Tensor,
     The transform maps scan (sensor frame) -> odometry/map frame, the
     inverse of the reference drivers' convention, so that map insertion is
     a plain apply."""
-    t = _driver(scan.shape[-1])(scan, map_pts, scan_mask, map_mask, t_prev,
-                                config, device=scan.device)
+    t = se2_driver(scan.shape[-1])(scan, map_pts, scan_mask, map_mask,
+                                   t_prev, config, device=scan.device)
     scan_in_map = _apply_planar(t, scan, map_pts.dtype)
     merged = torch.cat([map_pts, scan_in_map], dim=0)
     merged_mask = torch.cat([map_mask, scan_mask], dim=0)
@@ -163,19 +160,6 @@ def _result(rots, ts, dtype, dev, dim: int):
     return t, t.t.to(torch.float64).cpu().numpy()
 
 
-def _morton_sort_queries(pts: Tensor, msk: Tensor):
-    """Queries in Morton order (sensor frame; rigid motion preserves the
-    clustering) to match the per-frame map sort, one pass over a batch of
-    frames.  Masked points sort last, so the permuted mask is the prefix
-    ``arange < n_valid``.  Per-frame independent: sorting a segment equals
-    sorting the whole batch and slicing."""
-    order = spatial_order(pts, msk, "morton").to(torch.int64)
-    pts = torch.take_along_dim(pts, order[..., None], dim=-2)
-    n_valid = torch.sum(msk, dim=-1, keepdim=True)
-    msk = torch.arange(msk.shape[-1], device=msk.device)[None, :] < n_valid
-    return pts, msk
-
-
 def _step(carry, i: int, scan: Tensor, smask: Tensor, config: ICPConfig,
           voxel_size: float, probes: int, with_stats: bool,
           resort_every: int, warm_start: str, view_rows):
@@ -216,9 +200,9 @@ def _step(carry, i: int, scan: Tensor, smask: Tensor, config: ICPConfig,
     else:
         map_mask = map_mask[view]
     hidden = n_occ - torch.sum(map_mask.to(torch.int32))
-    out = _driver(scan.shape[-1])(scan, map_pts, smask, map_mask, t_warm,
-                                  config, return_stats=with_stats,
-                                  device=scan.device)
+    out = se2_driver(scan.shape[-1])(scan, map_pts, smask, map_mask, t_warm,
+                                     config, return_stats=with_stats,
+                                     device=scan.device)
     t_new, stats = out if with_stats else (out, None)
     rel_new = t.inverse().compose(t_new)
     scan_in_map = _apply_planar(t_new, scan, dtype)
@@ -310,7 +294,10 @@ def _run_fused(frames, masks, config: ICPConfig, voxel_size: float,
     while i < f_total:
         j = min(i + every, f_total)
         seg_t0 = time.perf_counter()
-        q_pts, q_msk = _morton_sort_queries(pts[i:j], msk[i:j])
+        # Queries in Morton order (sensor frame; rigid motion preserves the
+        # clustering) to match the per-frame map sort; sorting a segment
+        # equals sorting the whole batch and slicing.
+        q_pts, q_msk, _ = spatial_sort(pts[i:j], msk[i:j])
         carry = (t, rel, m, order)
         drops, hidden, seg_stats = [], [], []
         for k in range(j - i):

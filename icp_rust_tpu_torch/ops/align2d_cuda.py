@@ -33,14 +33,15 @@ kernels' cluster sweep finds bitwise the matches of one thread sweeping
 all of dst (``frame_sweep`` emulates it).
 
 Plain versions: the inner loops' is ``align2d.irls_loop_torch`` (the
-``align_backend="torch"`` loop, batched over pairs); the frames' is the
-unfused ``icp2d`` outer loop with ``frame_backend="off"`` and torch
-backends, which does not sort: the frame kernels search the unsorted db;
-the stats kernels' is ``gn_stats_plain``, the same 16 numbers in
-``gn_stats_block``'s op order with the exact medians of ``ops/select``.
-A wrapper takes the plain version only for a CPU tensor; a CUDA tensor
-reaches the kernel or raises.  The kernels take float32 only: the float64
-reference path is a CPU path.
+``align_backend="torch"`` loop, batched over pairs); the frames' is
+``models/icp2d.icp2d_frame_plain``, the unfused outer loop with
+``frame_backend="off"`` and torch backends, which does not sort: the
+frame kernels search the unsorted db; the stats kernels' is
+``gn_stats_plain``, the same 16 numbers in ``gn_stats_block``'s op order
+with the exact medians of ``ops/select``.  A wrapper takes the plain
+version only for a CPU tensor (the frames' ``models/icp2d.icp2d_frame``
+does the same); a CUDA tensor reaches the kernel or raises.  The kernels
+take float32 only: the float64 reference path is a CPU path.
 
 Tolerance against the plain versions: float32 roundoff of the sums, which
 are taken in another order (the cluster kernels' float64 rounded once, or
@@ -340,36 +341,15 @@ def _irls_loop_batched_args(src: Tensor, dst: Tensor, mask: Tensor,
     return args, buf[:b * 12].view(b, 12), buf
 
 
-def icp2d_frame_plain(src: Tensor, dst: Tensor, src_mask: Tensor,
-                      dst_mask: Tensor, t0: RigidTransform2,
-                      config: ICPConfig):
-    """Plain PyTorch version of the icp2d_frame and icp2d_frame_pairs
-    kernels: the unfused outer loop with torch NN and solver and no sort,
-    in solver units.  A lane that reaches its fixed point stays bitwise
-    unchanged while the others go on.  Returns (rot, t, outer iterations
-    per lane, int32)."""
-    from icp_rust_tpu_torch.models import icp2d as icp2d_mod
-
-    cfg = config.with_(frame_backend="off", nn_backend="torch",
-                       align_backend="torch")
-    t, _, lane_it = icp2d_mod._icp2d_solver(src, dst, src_mask, dst_mask,
-                                            t0, cfg)
-    return t.rot, t.t, lane_it
-
-
-icp2d_frame_pairs_plain = icp2d_frame_plain
-
-
 def icp2d_frame(src: Tensor, dst: Tensor, src_mask: Tensor,
                 dst_mask: Tensor, t0: RigidTransform2, config: ICPConfig):
     """Whole warm-started 2D ICP calls (Icp2d::estimate with the exact
     fixed-point exit) in one launch: one pair, src (N, 2) and dst (M, 2),
     through the icp2d_frame kernel, or B pairs, (B, N, 2) and (B, M, 2)
     with (B,)-batched warm starts, through the icp2d_frame_pairs kernel,
-    each pair to its own fixed point.  Solver units, N, M <= 1536.
-    Returns (rot, t, outer iterations per pair)."""
-    if src.device.type == "cpu":
-        return icp2d_frame_plain(src, dst, src_mask, dst_mask, t0, config)
+    each pair to its own fixed point.  Solver units, N, M <= 1536, CUDA
+    tensors (``models/icp2d.icp2d_frame`` takes the plain version on the
+    CPU).  Returns (rot, t, outer iterations per pair)."""
     out = icp2d_frame_raw(src, dst, src_mask, dst_mask, t0, config)
     return out[..., :4].reshape(*out.shape[:-1], 2, 2), out[..., 4:6], \
         out[..., 6]

@@ -13,25 +13,15 @@ Distance methods (config.nn_method):
   error can flip the argmin between near-tied neighbours, and a distance
   may come out slightly negative (not clamped, as in JAX).
 
-Backends (config.nn_backend):
-- ``"torch"``: ``nn_torch``, a tiled sweep over the db with a running
-  (best distance, best index) carry, on any device;
-- ``"cuda"``: the hand-written kernels, their plain versions on a CPU
-  tensor.  Matched searches: the survivor-list kernel of
-  ``ops/nn_cuda.py`` over a Morton-sorted, packed db for one seeded query
-  cloud; for a batch of queries (B, Q, D) against dbs of at most 4096
-  points the pair-grid kernels of ``ops/nn_pairs_cuda.py``
-  (``use_pairs_nn``), and against larger dbs of 3 tiles or more, on a
-  warm seeded search, their static sweep with its seed prune
-  (``use_pruned_pairs_nn``); the sweeps of ``ops/nn_sweep_cuda.py`` for
-  the rest (kernel 4 for another batch or a db of fewer than 3 tiles,
-  kernel 6 unseeded or with a wide payload).  ``nearest_neighbor``:
-  kernel 6 for one cloud of 3 tiles or more, kernel 5 otherwise;
-- ``"auto"``: ``"cuda"`` for float32 with ``"direct"``, ``"torch"`` for
-  float64 or ``"mxu"`` (the f64 reference path is the plain one, as on
-  the TPU; the kernels compute direct distances only).  An explicit
-  ``"cuda"`` takes the kernels whatever the method, as the JAX package's
-  ``"pallas"`` does.
+Backends (config.nn_backend): ``"torch"`` is ``nn_torch``, a tiled sweep
+over the db with a running (best distance, best index) carry, on any
+device; ``"cuda"`` the hand-written kernels, their plain versions on a CPU
+tensor; ``"auto"`` the kernels for float32 with ``"direct"`` and
+``nn_torch`` for float64 or ``"mxu"`` (the f64 reference path is the
+plain one, as on the TPU; the kernels compute direct distances only).  An
+explicit ``"cuda"`` takes the kernels whatever the method, as the JAX
+package's ``"pallas"`` does.  ``route`` is the one place that picks a
+kernel (its docstring holds the table); ``NNIndex`` runs the pick.
 """
 
 from __future__ import annotations
@@ -41,7 +31,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
-from icp_rust_tpu_torch.config import NN_METHODS
+from icp_rust_tpu_torch.config import NN_METHODS, ICPConfig
 from icp_rust_tpu_torch.ops import nn_cuda, nn_pairs_cuda, nn_sweep_cuda
 
 
@@ -144,48 +134,92 @@ def spatial_order(points: Tensor, mask: Tensor | None = None,
     raise ValueError(f"unknown spatial sort method: {method!r}")
 
 
-def use_cuda_nn(query: Tensor, db: Tensor, backend: str = "auto",
-                method: str = "direct") -> bool:
-    """Resolve the NN backend (mirrors ``use_pallas_nn``): the kernel path
-    for "cuda" whatever the method, and for "auto" on float32 with
-    "direct" distances (the kernels compute no other)."""
-    if backend == "cuda":
-        return True
-    return (backend == "auto" and method == "direct"
-            and query.dtype == torch.float32)
+class NNRoute(NamedTuple):
+    """Which search serves a (query, db) pair, decided once per driver
+    call (``route``).  ``kind``: "torch" (``nn_torch`` and a gather),
+    "pairs" (the pair-grid kernels 8 and 9), "list" (the survivor-list
+    kernel 1 over a packed db) or "sweep" (kernels 4-6,
+    ``nn_sweep_cuda.search``); ``pruned_warm``: a warm search with bounds
+    takes kernel 8's seed prune instead; ``sort``: the drivers' spatial
+    pre-sort, "morton", "azimuth" or None."""
+
+    kind: str
+    pruned_warm: bool
+    sort: str | None
+
+    @property
+    def pack(self) -> bool:
+        """Whether the db is packed once for kernel 1."""
+        return self.kind == "list"
 
 
-def use_pairs_nn(query: Tensor, db: Tensor, backend: str = "auto",
-                 method: str = "direct") -> bool:
-    """The pair-grid dispatch (mirrors ``use_pairs_nn``): a batched query
-    (B, Q, D) on the kernel route against dbs of at most
-    ``nn_pairs_cuda.PAIRS_MAX_DB`` points.  Shared by
-    ``nearest_neighbor_matched`` and the drivers' pre-sort policy, so the
-    two always agree."""
-    return (query.ndim == 3 and db.shape[-2] <= nn_pairs_cuda.PAIRS_MAX_DB
-            and use_cuda_nn(query, db, backend, method))
+def route(query: Tensor, db: Tensor, payload_width: int,
+          config: ICPConfig, matched: bool = True) -> NNRoute:
+    """The NN route of query (..., Q, D) against db (..., M, D) with a
+    payload of ``payload_width`` lanes, from shapes, dtype and
+    ``config``'s ``nn_backend``, ``nn_method``, ``nn_dst_tile`` and
+    ``nn_sort`` alone (the TPU's ``nn_pallas_matched`` routes likewise).
+    "Kernels" is ``"cuda"``, or ``"auto"`` with float32 and ``"direct"``;
+    "M >= 3 tiles" is M >= 3 nn_dst_tile, "spans 3 tiles" ceil(M / tile)
+    >= 3:
+
+    =============================================  ===========  ==========
+    matched search                                 kind         auto sort
+    =============================================  ===========  ==========
+    not kernels                                    torch        None
+    batched (B, Q, D), M <= PAIRS_MAX_DB           pairs        Morton if
+                                                                M >= 3
+                                                                chunks
+    batched, M > PAIRS_MAX_DB and M >= 3 tiles     sweep,       Morton
+                                                   pruned_warm
+    one cloud, D + P <= 8, db spans 3 tiles        list         Morton if
+                                                                M >= 3
+                                                                tiles
+    anything else on the kernels                   sweep        Morton if
+                                                                M >= 3
+                                                                tiles
+    =============================================  ===========  ==========
+
+    ``pruned_warm``: warm searches with bounds take kernel 8's exact seed
+    prune (4-6 % of a sorted db's chunks walked on 95 VLP-16 pairs); the
+    cold one keeps kernel 4, 5 % faster with nothing to prune (H100).
+    "list" without bounds sweeps its packed db (kernel 6).  An explicit
+    ``nn_sort`` overrides the auto sort, which permutes reduction order
+    only.  Unmatched: "sweep" (kernel 5 or 6) on the kernels, but "torch"
+    for "auto" on a batched db of at most PAIRS_MAX_DB points, where the
+    TPU takes ``nn_xla``."""
+    m, tile = db.shape[-2], config.nn_dst_tile
+    kernels = config.nn_backend == "cuda" or (
+        config.nn_backend == "auto" and config.nn_method == "direct"
+        and query.dtype == torch.float32)
+    batched = query.ndim == 3
+    pairs = kernels and batched and m <= nn_pairs_cuda.PAIRS_MAX_DB
+    if config.nn_sort != "auto":
+        sort = config.nn_sort if config.nn_sort in ("azimuth", "morton") \
+            else None
+    elif pairs:
+        sort = "morton" if m >= 3 * nn_pairs_cuda.CHUNK else None
+    else:
+        sort = "morton" if kernels and m >= 3 * tile else None
+    if not matched:
+        small = query.ndim > 2 and m <= nn_pairs_cuda.PAIRS_MAX_DB
+        sweep = config.nn_backend == "cuda" or (kernels and not small)
+        return NNRoute("sweep" if sweep else "torch", False, sort)
+    if not kernels:
+        kind = "torch"
+    elif pairs:
+        kind = "pairs"
+    elif (query.ndim == 2 and query.shape[-1] + payload_width <= 8
+          and -(-m // tile) >= 3):
+        kind = "list"
+    else:
+        kind = "sweep"
+    pruned = (kernels and batched and m > nn_pairs_cuda.PAIRS_MAX_DB
+              and m >= 3 * tile)
+    return NNRoute(kind, pruned, sort)
 
 
-def use_pruned_pairs_nn(query: Tensor, db: Tensor, q_bound, warm,
-                        backend: str = "auto", tile: int = 2048,
-                        method: str = "direct") -> bool:
-    """The seeded static pair-grid route above ``PAIRS_MAX_DB``: a batched
-    query (B, Q, D) on the kernel route, dbs of more than PAIRS_MAX_DB
-    points spanning at least 3 tiles (where the ICP loops' pre-sort has
-    Morton-sorted them, ``models.icp2d._sort_enabled``), per-query bounds
-    and ``warm`` True.  Kernel 8's chunk prune then skips most of the db
-    (4-6 % of the chunks walked on the warm searches of 95 VLP-16 pairs).
-    The cold search (+inf bounds) keeps kernel 4: with nothing to prune,
-    kernel 8 sweeps the same pairs 5 % slower (33.45 against 31.83 ms on
-    one packed 95 x 28,800-point batch, H100).  ``warm`` None keeps it
-    too: deciding from the bounds would read them back."""
-    return (warm is True and q_bound is not None and query.ndim == 3
-            and nn_pairs_cuda.PAIRS_MAX_DB < db.shape[-2]
-            and db.shape[-2] >= 3 * tile
-            and use_cuda_nn(query, db, backend, method))
-
-
-def _gather_rows(payload: Tensor, index: Tensor) -> Tensor:
+def gather_rows(payload: Tensor, index: Tensor) -> Tensor:
     """payload[..., index, :] per batch lane; a shared (M, P) payload is
     broadcast to the index's batch."""
     idx = index.to(torch.int64)
@@ -195,96 +229,90 @@ def _gather_rows(payload: Tensor, index: Tensor) -> Tensor:
     return torch.take_along_dim(payload, idx[..., None], dim=-2)
 
 
-def build_db_pack(query: Tensor, db: Tensor, db_mask=None, payload=None,
-                  backend: str = "auto", tile: int = 2048,
-                  method: str = "direct"):
-    """Per-frame NN index build, the KdTree::new analogue (reference
-    src/lib.rs:97-102): the packed db of ``nn_cuda.pack_db`` when the
-    seeded survivor-list kernel serves (query, db), else None (a batch, a
-    db of fewer than 3 tiles, a payload wider than 8 - D, or the plain
-    route)."""
-    if (query.ndim != 2 or not use_cuda_nn(query, db, backend, method)
-            or use_pairs_nn(query, db, backend, method)):
-        return None
-    p = payload.shape[-1] if payload is not None else db.shape[-1]
-    if db.shape[-1] + p > 8 or -(-db.shape[-2] // tile) < 3:
-        return None
-    return nn_cuda.pack_db(db, db_mask, payload, db_tile=tile)
+class NNIndex:
+    """The db side of a route, built once per driver call (the
+    KdTree::new analogue, reference src/lib.rs:97-102): the db, its mask,
+    the payload (None: no payload rows) and, where the route packs, the
+    packed db of ``nn_cuda.pack_db``."""
+
+    def __init__(self, nn_route: NNRoute, db: Tensor, db_mask, payload,
+                 config: ICPConfig):
+        self.route, self.db, self.db_mask = nn_route, db, db_mask
+        self.payload = payload
+        self.tile, self.q_tile = config.nn_dst_tile, config.nn_query_tile
+        self.method = config.nn_method
+        self.packed = (nn_cuda.pack_db(db, db_mask, payload,
+                                       db_tile=self.tile)
+                       if nn_route.pack else None)
+
+    def search(self, query: Tensor, q_bound: Tensor | None = None,
+               warm: bool | None = None):
+        """(NNResult, the winners' payload rows or None) of ``query``.
+        ``q_bound`` (..., Q) is an upper bound on each query's NN
+        distance² (+inf where unknown) and ``warm`` selects the seeded
+        search's cold/warm branch (None decides from the bounds); results
+        are bit-identical whatever they are, as long as the bounds are
+        valid."""
+        kind, pay = self.route.kind, self.payload
+        if kind == "torch":
+            res = nn_torch(query, self.db, self.db_mask, tile=self.tile,
+                           method=self.method)
+            return res, None if pay is None else gather_rows(pay, res.index)
+        if kind == "pairs" or (self.route.pruned_warm and warm is True
+                               and q_bound is not None):
+            idx, dist, rows = nn_pairs_cuda.nn_pairs_matched(
+                query, self.db, self.db_mask, pay, q_bound=q_bound,
+                warm=warm)
+            return NNResult(index=idx, dist_sq=dist), rows
+        if kind == "sweep" or q_bound is None:
+            dbf_cm = None if self.packed is None else self.packed.dbf_cm
+            idx, dist, rows = nn_sweep_cuda.search(
+                query, self.db, self.db_mask, pay, self.q_tile, self.tile,
+                q_bound, dbf_cm)
+            return NNResult(index=idx, dist_sq=dist), rows
+        q_n, d_dim = query.shape
+        q_pad = -(-q_n // self.q_tile) * self.q_tile
+        query_p = torch.zeros((q_pad, d_dim), dtype=query.dtype,
+                              device=query.device)
+        query_p[:q_n] = query
+        # Padded queries get -inf: their (discarded) results may then
+        # prune everything.
+        qb_p = torch.full((q_pad,), float("-inf"), dtype=query.dtype,
+                          device=query.device)
+        qb_p[:q_n] = q_bound.to(query.dtype)
+        dist, idx, rows = nn_cuda.nn_seeded(query_p, self.packed, qb_p,
+                                            d_dim, self.q_tile, warm=warm)
+        dist = nn_cuda._trim_sentinel(dist)
+        return NNResult(index=idx[:q_n], dist_sq=dist[:q_n]), rows[:q_n]
 
 
 def nearest_neighbor(query: Tensor, db: Tensor, db_mask=None,
                      backend: str = "auto", tile: int = 2048,
                      q_tile: int = 512, method: str = "direct") -> NNResult:
-    """Exact 1-NN without payload (``ops/nn.nearest_neighbor``): on the
-    kernel route kernel 6 for one cloud whose db spans 3 tiles or more,
-    kernel 5 otherwise (``nn_sweep_cuda.search``); a batched query against
-    dbs of at most 4096 points takes the plain sweep on "auto", where the
-    TPU takes ``nn_xla`` (batched small), and so does "auto" with
-    "mxu"."""
-    batched_small = query.ndim > 2 and db.shape[-2] <= 4096
-    if backend == "cuda" or (use_cuda_nn(query, db, backend, method)
-                             and not batched_small):
-        idx, dist, _ = nn_sweep_cuda.search(query, db, db_mask, None, q_tile,
-                                            tile)
-        return NNResult(index=idx, dist_sq=dist)
-    return nn_torch(query, db, db_mask, tile=tile, method=method)
+    """Exact 1-NN without payload (``ops/nn.nearest_neighbor``), one
+    search on ``route``'s unmatched route: on the kernels kernel 6 for one
+    cloud whose db spans 3 tiles or more, kernel 5 otherwise
+    (``nn_sweep_cuda.search``)."""
+    cfg = ICPConfig(nn_backend=backend, nn_method=method, nn_dst_tile=tile,
+                    nn_query_tile=q_tile)
+    nn_route = route(query, db, 0, cfg, matched=False)
+    return NNIndex(nn_route, db, db_mask, None, cfg).search(query)[0]
 
 
 def nearest_neighbor_matched(query: Tensor, db: Tensor, db_mask=None,
                              payload=None, backend: str = "auto",
                              tile: int = 2048, q_tile: int = 256,
-                             q_bound: Tensor | None = None, db_pack=None,
+                             q_bound: Tensor | None = None,
                              warm: bool | None = None,
                              method: str = "direct"):
     """1-NN that also returns the winner's payload (default: the matched
-    db point).  Returns (NNResult, matched (Q, P)).
-
-    On the kernel route ``q_bound`` (..., Q) is an upper bound on each
-    query's NN distance² (+inf where unknown) and ``warm`` selects the
-    seeded search's cold/warm branch (None decides from the bounds);
-    results are bit-identical whatever they are, as long as the bounds are
-    valid.  Routes, as ``nn_pallas_matched`` takes them on the TPU: a
-    batched query (B, Q, D) against dbs of at most 4096 points takes the
-    pair-grid kernels (``use_pairs_nn``); a warm seeded batch against
-    larger dbs of 3 tiles or more kernel 8's seed-pruned static sweep
-    (``use_pruned_pairs_nn``, no TPU counterpart); any other batch and any
-    db of fewer than 3 tiles the plain sweep (kernel 4); a seeded single
-    cloud with D + P <= 8 the survivor-list kernel; an unseeded or wide
-    one the zig-zag kernel (kernel 6).  The plain route ("torch", or
-    "auto" with float64 or "mxu") is ``nn_torch`` with ``method`` and a
-    gather."""
+    db point): one search on ``route``'s matched route
+    (``NNIndex.search`` for ``q_bound`` and ``warm``).  Returns
+    (NNResult, matched (..., Q, P))."""
     if payload is None:
         payload = db
-    if not use_cuda_nn(query, db, backend, method):
-        res = nn_torch(query, db, db_mask, tile=tile, method=method)
-        return res, _gather_rows(payload, res.index)
-    if (use_pairs_nn(query, db, backend, method)
-            or use_pruned_pairs_nn(query, db, q_bound, warm, backend, tile,
-                                   method)):
-        idx, dist, matched = nn_pairs_cuda.nn_pairs_matched(
-            query, db, db_mask, payload, q_bound=q_bound, warm=warm)
-        return NNResult(index=idx, dist_sq=dist), matched
-    dbf_cm = None if db_pack is None else db_pack.dbf_cm
-    seeded = (query.ndim == 2 and q_bound is not None
-              and query.shape[-1] + payload.shape[-1] <= 8
-              and -(-db.shape[-2] // tile) >= 3)
-    if not seeded:
-        idx, dist, pay = nn_sweep_cuda.search(query, db, db_mask, payload,
-                                              q_tile, tile, q_bound, dbf_cm)
-        return NNResult(index=idx, dist_sq=dist), pay
-    q_n, d_dim = query.shape
-    if db_pack is None:
-        db_pack = nn_cuda.pack_db(db, db_mask, payload, db_tile=tile)
-    q_pad = -(-q_n // q_tile) * q_tile
-    query_p = torch.zeros((q_pad, d_dim), dtype=query.dtype,
-                          device=query.device)
-    query_p[:q_n] = query
-    # Padded queries get -inf: their (discarded) results may then prune
-    # everything.
-    qb_p = torch.full((q_pad,), float("-inf"), dtype=query.dtype,
-                      device=query.device)
-    qb_p[:q_n] = q_bound.to(query.dtype)
-    dist, idx, pay = nn_cuda.nn_seeded(query_p, db_pack, qb_p, d_dim,
-                                       q_tile, warm=warm)
-    dist = nn_cuda._trim_sentinel(dist)
-    return NNResult(index=idx[:q_n], dist_sq=dist[:q_n]), pay[:q_n]
+    cfg = ICPConfig(nn_backend=backend, nn_method=method, nn_dst_tile=tile,
+                    nn_query_tile=q_tile)
+    nn_route = route(query, db, payload.shape[-1], cfg)
+    return NNIndex(nn_route, db, db_mask, payload, cfg).search(
+        query, q_bound, warm)

@@ -10,8 +10,8 @@ iteration, ``_nn_pairs_list_kernel`` on every warm one).  B queries
 walking the pair's 128-point chunks in ascending order with a strict '<':
 the lowest index wins ties.  Dbs of at most ``PAIRS_MAX_DB`` points take
 both kernels; larger ones the static sweep alone, on the warm searches of
-a batched ICP call over Morton-sorted dbs (``ops/nn.use_pruned_pairs_nn``),
-where the seeds prune most chunks.
+a batched ICP call over Morton-sorted dbs (``ops/nn.route``), where the
+seeds prune most chunks.
 
 Pruning is seed-only and exact: chunk c is skipped for a subtile when the
 (deflated) box-to-box lower bound exceeds the subtile's upper bound on
@@ -64,7 +64,9 @@ from icp_rust_tpu_torch.ops.nn_sweep_cuda import MATCHED_THREADS, _tickets
 PAIRS_MAX_DB = 4096
 Q_SUB = 256
 LIST_GRP = 64
-_CHUNK = 128
+# db points a chunk, the kernels' unit of staging and pruning (the drivers
+# sort a batched db from 3 chunks up, ``ops/nn.route``).
+CHUNK = 128
 _DIMS = (2, 3)
 # Payload widths: the driver's xy or xyz matched points (2, 3) and the
 # point-to-plane payload [n, c = n . q] (4), whose sentinel c on invalid
@@ -110,7 +112,7 @@ def pack_pairs(db: Tensor, db_mask, payload: Tensor) -> Tensor:
     if db_mask is not None:
         sentinel = torch.tensor(_SENTINEL, dtype=db.dtype, device=db.device)
         db = torch.where(db_mask[..., None], db, sentinel)
-    m_pad = _round_up(m, _CHUNK)
+    m_pad = _round_up(m, CHUNK)
     out = torch.zeros((b, d + payload.shape[-1], m_pad), dtype=db.dtype,
                       device=db.device)
     out[:, :d] = _SENTINEL
@@ -124,8 +126,8 @@ def _chunk_boxes(dbf_cm: Tensor, d_dim: int) -> Tensor:
     cols 0..3 lo (+inf for an all-sentinel chunk), cols 4..7 hi (-inf
     likewise); unused dims are 0."""
     b, _, m_pad = dbf_cm.shape
-    nc = m_pad // _CHUNK
-    t = dbf_cm[:, :d_dim].reshape(b, d_dim, nc, _CHUNK)
+    nc = m_pad // CHUNK
+    t = dbf_cm[:, :d_dim].reshape(b, d_dim, nc, CHUNK)
     invalid = (t[:, 0] >= _SENTINEL / 2)[:, None]
     lo = torch.amin(t.masked_fill(invalid, float("inf")), dim=-1)
     hi = torch.amax(t.masked_fill(invalid, float("-inf")), dim=-1)
@@ -229,7 +231,7 @@ def _masked_rows(query_p: Tensor, dbf_cm: Tensor, walk: Tensor,
         dist = sq if dist is None else dist + sq
     inf = torch.tensor(float("inf"), dtype=dist.dtype, device=dist.device)
     dist = torch.where(walk[:, :, None, :, None],
-                       dist.reshape(b, qp // q_sub, q_sub, -1, _CHUNK), inf)
+                       dist.reshape(b, qp // q_sub, q_sub, -1, CHUNK), inf)
     best, arg = torch.min(dist.reshape(b, qp, m_pad), dim=-1)
     hit = best != inf
     idx = torch.where(hit, arg, torch.zeros_like(arg))
@@ -257,7 +259,7 @@ def pairs_item_chunks(b: int, qp: int, m_pad: int,
     groups alone do and it holds at most PAIRS_ITEM_MAX chunks), one chunk
     where none does."""
     groups = b * -(-qp // (MATCHED_THREADS * q_per_thread))
-    n_ch = m_pad // _CHUNK
+    n_ch = m_pad // CHUNK
     for item in range(min(n_ch, PAIRS_ITEM_MAX), 1, -1):
         if groups * -(-n_ch // item) >= PAIRS_BLOCKS:
             return item
@@ -275,7 +277,7 @@ def pairs_items(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor, cbox: Tensor,
     winner.  Returns (dist, idx int32, pay, the work items that stage at
     least one chunk for groups of 128 x ``q_per_thread`` queries)."""
     b, qp, _ = query_p.shape
-    nc = dbf_cm.shape[2] // _CHUNK
+    nc = dbf_cm.shape[2] // CHUNK
     if item is None:
         item = pairs_item_chunks(b, qp, dbf_cm.shape[2], q_per_thread)
     walk = _box_lower_bound(qbox, cbox, d_dim) <= qbound[..., None]
@@ -310,7 +312,7 @@ def _list_walk(query_p: Tensor, dbf_cm: Tensor, lists: Tensor, cnt: Tensor,
     of each subtile's first ``cnt``; with ``q_bound`` (B, Qp) and
     ``cbox`` also the prune test per group of LIST_WARP queries.  Returns
     (walk (B, rows, n_chunks) bool, queries a row)."""
-    nc = dbf_cm.shape[2] // _CHUNK
+    nc = dbf_cm.shape[2] // CHUNK
     pos = torch.arange(lists.shape[-1], device=lists.device)
     mine = (pos < cnt[..., None]) & (pos >= first)
     if last is not None:
@@ -354,7 +356,7 @@ def _check_launch(name: str, query_p: Tensor, dbf_cm: Tensor, d_dim: int,
     b, qp, d = query_p.shape
     f_dim = dbf_cm.shape[1] - d_dim
     if (d != d_dim or d_dim not in _DIMS or f_dim not in _PAYLOADS
-            or dbf_cm.shape[0] != b or dbf_cm.shape[2] % _CHUNK
+            or dbf_cm.shape[0] != b or dbf_cm.shape[2] % CHUNK
             or q_sub % 64 or q_sub > 1024 or qp % q_sub):
         raise ValueError(f"{name}: bad shapes (D in {_DIMS}, F in "
                          f"{_PAYLOADS}, Qp a multiple of q_sub, M a multiple "
@@ -403,7 +405,7 @@ def _nn_pairs_args(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor,
     b, qp, _ = query_p.shape
     m_pad = dbf_cm.shape[2]
     if (qbox.shape != (b, qp // q_sub, 8) or qbound.shape != (b, qp // q_sub)
-            or cbox.shape != (b, m_pad // _CHUNK, 8)):
+            or cbox.shape != (b, m_pad // CHUNK, 8)):
         raise ValueError("nn_pairs: bad box or bound shapes")
     q = PAIRS_Q if q_per_thread is None else q_per_thread
     item = pairs_item_chunks(b, qp, m_pad, q) if item is None else item
@@ -415,7 +417,7 @@ def _nn_pairs_args(query_p: Tensor, dbf_cm: Tensor, qbox: Tensor,
                          "dbf_cm not 16-byte aligned")
     g = MATCHED_THREADS * q
     n_groups = -(-qp // g)
-    n_items = -(-(m_pad // _CHUNK) // item)
+    n_items = -(-(m_pad // CHUNK) // item)
     dev = query_p.device
     tickets = _tickets(dev, b * n_groups, "nn_pairs")
     part = torch.empty(b * n_groups * n_items * 2 * g if n_items > 1 else 1,
@@ -483,7 +485,7 @@ def _nn_pairs_list_args(query_p: Tensor, dbf_cm: Tensor, lists: Tensor,
             or cnt.shape != (b, qp // q_sub) or cap < 1):
         raise ValueError("nn_pairs_list: bad list shapes")
     if grouped and (q_bound.shape != (b, qp) or cbox.data_ptr() % 16
-                    or cbox.shape != (b, dbf_cm.shape[2] // _CHUNK, 8)):
+                    or cbox.shape != (b, dbf_cm.shape[2] // CHUNK, 8)):
         raise ValueError("nn_pairs_list: q_bound must be (B, Qp) and cbox "
                          "(B, m_pad / 128, 8), 16-byte aligned")
     d_item, d_q = list_schedule(q_sub, cap)
@@ -548,7 +550,7 @@ def group_walks(query_p: Tensor, dbf_cm: Tensor, lists: Tensor, cnt: Tensor,
     walked (query, chunk), after the per-group test when it is on."""
     walk, rows = _list_walk(query_p, dbf_cm, lists, cnt, d_dim, q_sub,
                             q_bound, cbox)
-    return int(walk.sum()) * rows * _CHUNK
+    return int(walk.sum()) * rows * CHUNK
 
 
 def prepare(query: Tensor, db: Tensor, db_mask=None, payload=None,

@@ -27,7 +27,7 @@ import torch.distributed as dist
 from torch import Tensor
 
 from icp_rust_tpu_torch.ops import nn_sweep_cuda
-from icp_rust_tpu_torch.ops.nn import NNResult, _gather_rows, nn_torch
+from icp_rust_tpu_torch.ops.nn import NNResult, gather_rows, nn_torch
 from icp_rust_tpu_torch.parallel.collectives import ring_shift
 
 
@@ -47,7 +47,7 @@ def _shard_nn(query, db, dbm, payload, backend: str, tile: int):
                                             db_tile=-(-tile // 128) * 128)
         return NNResult(index=idx, dist_sq=d2), pay
     res = nn_torch(query, db, dbm, tile=tile)
-    return res, None if payload is None else _gather_rows(payload,
+    return res, None if payload is None else gather_rows(payload,
                                                           res.index)
 
 

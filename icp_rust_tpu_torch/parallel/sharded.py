@@ -36,8 +36,9 @@ import torch
 from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
-from icp_rust_tpu_torch.models.icp2d import _is_identity, \
-    _outer_fixed_point, icp2d
+from icp_rust_tpu_torch.models.driver import fixed_point, is_identity, \
+    scale_transform, unscale_transform
+from icp_rust_tpu_torch.models.icp2d import icp2d
 from icp_rust_tpu_torch.ops import align2d, align3d
 from icp_rust_tpu_torch.parallel.collectives import all_gather_tiled
 from icp_rust_tpu_torch.parallel.mesh import axis, block, check_mesh, \
@@ -60,15 +61,6 @@ def _gather_pairs(t, pair):
                    all_gather_tiled(t.t, pair.group, 0))
 
 
-def _fixed_point(outer, t0, config: ICPConfig):
-    """The JAX package's outer loop without an aux carry: ``outer(t) ->
-    (dt o t, dt == identity)`` until every lane is fixed or
-    ``outer_iters``."""
-    t, _, _, _ = _outer_fixed_point(lambda t, _aux: (*outer(t), None), t0,
-                                    config.outer_iters, None)
-    return t
-
-
 def _ring_icp_se2(src, dst, src_mask, dst_mask, t0: RigidTransform2,
                   config: ICPConfig, sp, planar: bool) -> RigidTransform2:
     """The point-sharded SE(2) outer loop on this rank's blocks (physical
@@ -76,7 +68,7 @@ def _ring_icp_se2(src, dst, src_mask, dst_mask, t0: RigidTransform2,
     carrying only the matched xy."""
     s = config.point_scale
     src_s, dst_s = src / s, dst / s
-    t = RigidTransform2(t0.rot, t0.t / s)
+    t = scale_transform(t0, s)
     payload = dst_s[..., :2] if planar else None
 
     def outer(t):
@@ -87,10 +79,11 @@ def _ring_icp_se2(src, dst, src_mask, dst_mask, t0: RigidTransform2,
             payload=payload)
         dt = align2d.estimate_transform(xy, matched[..., :2], src_mask,
                                         config, group=sp.group)
-        return dt.compose(t), _is_identity(dt)
+        return dt.compose(t), is_identity(dt)
 
-    t = _fixed_point(outer, t, config)
-    return RigidTransform2(t.rot, t.t * s)
+    t = fixed_point(lambda t, _aux, _warm: (*outer(t), None), t,
+                    config.outer_iters, None)[0]
+    return unscale_transform(t, s)
 
 
 def sharded_estimate_transform(src, dst, mask, config: ICPConfig, mesh,
@@ -199,10 +192,11 @@ def dp_sp_icp_p2l(src, dst, src_mask, dst_mask,
         dt_ = align3d.estimate_transform_p2l(
             src_t, matched, matched_n, src_mask & matched_ok, config,
             group=sp.group)
-        return dt_.compose(t), _is_identity(dt_)
+        return dt_.compose(t), is_identity(dt_)
 
-    t = _fixed_point(outer, t, config)
-    return _gather_pairs(RigidTransform3(t.rot, t.t * s), pair)
+    t = fixed_point(lambda t, _aux, _warm: (*outer(t), None), t,
+                    config.outer_iters, None)[0]
+    return _gather_pairs(unscale_transform(t, s), pair)
 
 
 def batched_icp2d(src, dst, src_mask, dst_mask,

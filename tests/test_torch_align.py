@@ -26,6 +26,7 @@ from icp_rust_tpu.ops import align2d_pallas as j_pallas
 from icp_rust_tpu.utils import oracle_np as oracle
 from icp_rust_tpu_torch.config import REFERENCE_CONFIG, ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2 as TT
+from icp_rust_tpu_torch.models.icp2d import icp2d_frame_plain
 from icp_rust_tpu_torch.ops import align2d, align2d_cuda
 
 F64_TOL = 1e-12
@@ -193,8 +194,8 @@ def test_frame_plain_matches_pallas_interpret(seed, warm):
         rot0 = np.array([[c, -s], [s, c]], np.float32)
         t0 = np.array([0.35, 0.15], np.float32)
     cfg = ICPConfig(det_rel_eps=1e-9)
-    rot, t, it = align2d_cuda.icp2d_frame(_t(sp), _t(dp), _t(sm), _t(dm),
-                                          TT(_t(rot0), _t(t0)), cfg)
+    rot, t, it = icp2d_frame_plain(_t(sp), _t(dp), _t(sm), _t(dm),
+                                   TT(_t(rot0), _t(t0)), cfg)
     jrot, jt, jit = j_pallas.icp2d_frame_pallas(
         jnp.asarray(sp), jnp.asarray(dp), jnp.asarray(sm), jnp.asarray(dm),
         jnp.asarray(rot0), jnp.asarray(t0), huber_k=cfg.huber_k,

@@ -40,6 +40,7 @@ from icp_rust_tpu.ops import nn_pallas as j_pallas
 from icp_rust_tpu_torch import convert
 from icp_rust_tpu_torch.config import REFERENCE_CONFIG, ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2 as TT
+from icp_rust_tpu_torch.models import driver
 from icp_rust_tpu_torch.models import icp2d as m
 from icp_rust_tpu_torch.ops import align2d_cuda, nn, nn_pairs_cuda
 from icp_rust_tpu_torch.parallel import batched_icp2d
@@ -50,6 +51,7 @@ F32_TOL = 1e-5
 F64_TOL = 1e-9
 CPU = {"device": "cpu"}
 KERNEL_CFG = ICPConfig(det_rel_eps=1e-9)  # "auto" f32: the kernel route
+CUDA_NN = ICPConfig(nn_backend="cuda")
 PLAIN_CFG = KERNEL_CFG.with_(nn_backend="torch", align_backend="torch",
                              frame_backend="off")
 J_CFG = JaxConfig(det_rel_eps=1e-9)
@@ -103,7 +105,7 @@ def test_pairs_nn_matches_jax_interpret(case, d):
     want, want_p = j_pallas.nn_pallas_matched_pairs(
         *jargs, payload=jnp.asarray(pay),
         q_bound=None if qb is None else jnp.asarray(qb), interpret=True)
-    assert nn.use_pairs_nn(_t(q), _t(db), "cuda")
+    assert nn.route(_t(q), _t(db), pay.shape[-1], CUDA_NN).kind == "pairs"
     got, got_p = nn.nearest_neighbor_matched(
         _t(q), _t(db), _t(dm), payload=_t(pay), backend="cuda",
         q_bound=None if qb is None else _t(qb))
@@ -162,10 +164,12 @@ def test_pairs_nn_shared_db_and_float64():
 
 def test_batched_kernel_route_refuses_large_dbs():
     q = torch.zeros((2, 256, 2))
-    assert not nn.use_pairs_nn(q, torch.zeros((2, 4097, 2)), "cuda")
-    assert nn.use_pairs_nn(q, torch.zeros((2, 4096, 2)), "cuda")
-    assert not nn.use_pairs_nn(q, torch.zeros((2, 512, 2)), "torch")
-    assert not nn.use_pairs_nn(q.double(), torch.zeros((2, 512, 2)), "auto")
+    assert nn.route(q, torch.zeros((2, 4097, 2)), 2, CUDA_NN).kind == "sweep"
+    assert nn.route(q, torch.zeros((2, 4096, 2)), 2, CUDA_NN).kind == "pairs"
+    assert nn.route(q, torch.zeros((2, 512, 2)), 2,
+                    CUDA_NN.with_(nn_backend="torch")).kind == "torch"
+    assert nn.route(q.double(), torch.zeros((2, 512, 2)), 2,
+                    ICPConfig()).kind == "torch"
     # Larger dbs leave the pair-grid route for the plain sweep with the
     # batch as a grid axis (kernel 4), as nn_pallas_matched vmaps it.
     rng = np.random.default_rng(12)
@@ -178,10 +182,8 @@ def test_batched_kernel_route_refuses_large_dbs():
     assert torch.equal(got.dist_sq, want.dist_sq)
     assert torch.equal(got_p, torch.take_along_dim(
         db, want.index[..., None].long(), dim=1))
-    assert nn.build_db_pack(q, torch.zeros((2, 8192, 2)),
-                            backend="cuda") is None
-    assert nn.build_db_pack(q, torch.zeros((2, 512, 2)),
-                            backend="cuda") is None
+    assert not nn.route(q, torch.zeros((2, 8192, 2)), 2, CUDA_NN).pack
+    assert not nn.route(q, torch.zeros((2, 512, 2)), 2, CUDA_NN).pack
 
 
 # --------------------------------------------------------------- IRLS
@@ -283,7 +285,7 @@ def test_frame_pairs_plain_matches_jax_interpret():
         det_rel_eps=jcfg.det_rel_eps, tol_d2=jcfg.inner_delta_sq_tol,
         inner_max_iter=jcfg.inner_max_iter, outer_iters=jcfg.outer_iters,
         point_scale=1.0, interpret=True)
-    _, _, its = align2d_cuda.icp2d_frame_pairs(
+    _, _, its = m.icp2d_frame(
         _t(sp), _t(dp), _t(sm), _t(dm), TT.identity((b,)), KERNEL_CFG)
     np.testing.assert_array_equal(its.numpy(), np.array(j_its))
 
@@ -312,7 +314,7 @@ def test_batched_drivers_float32_match_jax_and_unbatched(planar):
     b = sp.shape[0]
     port = m.icp3d_planar if planar else m.icp2d
     jfn = j_icp.icp3d_planar if planar else j_icp.icp2d
-    assert m._sort_enabled(_t(sp), _t(dp), KERNEL_CFG) == "morton"
+    assert nn.route(_t(sp), _t(dp), 2, KERNEL_CFG).sort == "morton"
     got, st = port(sp, dp, sm, dm, TT.identity((b,)), KERNEL_CFG,
                    return_stats=True, **CPU)
     want, jst = jfn(jnp.asarray(sp), jnp.asarray(dp), jnp.asarray(sm),
@@ -380,14 +382,15 @@ def test_per_lane_fixed_point_and_lane_counts():
     sp, dp, sm, dm = _pairs2d(b=3, seed=13)
     dp[1], dm[1] = sp[1], sm[1]  # perfect fit: fixed at iteration 1
     b = sp.shape[0]
-    t, it, lane_it = m._icp2d_solver(_t(sp), _t(dp), _t(sm), _t(dm),
-                                     TT.identity((b,)), PLAIN_CFG)
+    t, it, _, lane_it = m._icp_loop(_t(sp), _t(dp), _t(sm), _t(dm),
+                                    TT.identity((b,)), PLAIN_CFG,
+                                    src_presorted=False, planar=False)
     assert int(lane_it[1]) == 1 and it == int(lane_it.max()) > 1
     assert torch.equal(t.rot[1], torch.eye(2))
     assert torch.equal(t.t[1], torch.zeros(2))
     ident = TT.identity((2,))
     moved = TT(ident.rot, ident.t + torch.tensor([[0.0, 0.0], [0.0, 1e-30]]))
-    assert m._is_identity(moved).tolist() == [True, False]
+    assert driver.is_identity(moved).tolist() == [True, False]
 
 
 def test_convert_maps_pair_backends():

@@ -47,6 +47,8 @@ import torch
 from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2
 from icp_rust_tpu_torch.geometry.transform3d import RigidTransform3
+from icp_rust_tpu_torch.models import icp2d as m_icp
+from icp_rust_tpu_torch.models.driver import spatial_sort
 from icp_rust_tpu_torch.models.odometry import ate_rmse, \
     run_odometry_fused, run_odometry_p2l_fused
 from icp_rust_tpu_torch.ops import align2d, align2d_cuda, align3d, \
@@ -288,14 +290,12 @@ def test_icp2d_frame_kernel_matches_plain(dev, n, pad, case):
     cfg = ICPConfig(det_rel_eps=1e-9)
     t0 = RigidTransform2.identity(device=dev)
     if case == "fixed-point":
-        rot_0, t_0, _ = align2d_cuda.icp2d_frame_plain(sp, dp, sm, dm, t0,
-                                                       cfg)
+        rot_0, t_0, _ = m_icp.icp2d_frame_plain(sp, dp, sm, dm, t0, cfg)
         t0 = RigidTransform2(rot_0, t_0)
     before = cuda_build.LAUNCHES["icp2d_frame"]
     rot, t, it = align2d_cuda.icp2d_frame(sp, dp, sm, dm, t0, cfg)
     assert cuda_build.LAUNCHES["icp2d_frame"] == before + 1
-    rot_p, t_p, it_p = align2d_cuda.icp2d_frame_plain(sp, dp, sm, dm, t0,
-                                                      cfg)
+    rot_p, t_p, it_p = m_icp.icp2d_frame_plain(sp, dp, sm, dm, t0, cfg)
     assert int(it) == it_p
     if case == "fixed-point":
         assert int(it) <= 2
@@ -327,14 +327,12 @@ def test_odometry_on_the_card_tracks_the_plain_path(dev):
 
 def _pair_clouds(dev, b=5, n=700, m=900, d=2, seed=4):
     """Per-pair queries and Morton-sorted, partly masked dbs."""
-    from icp_rust_tpu_torch.models.icp2d import _spatial_sort
-
     rng = np.random.default_rng(seed)
     db = torch.as_tensor(rng.uniform(-3, 3, (b, m, d)), dtype=torch.float32,
                          device=dev)
     mask = torch.as_tensor(rng.random((b, m)) > 0.2, device=dev)
     mask[1] = False
-    db, mask, _ = _spatial_sort(db, mask)
+    db, mask, _ = spatial_sort(db, mask)
     query = db[:, :n] + torch.as_tensor(rng.normal(0, 0.05, (b, n, d)),
                                         dtype=torch.float32, device=dev)
     return query, db, mask
@@ -501,7 +499,7 @@ def test_icp2d_frame_pairs_settings_match_plain(dev, b, n):
     before = cuda_build.LAUNCHES["icp2d_frame_pairs"]
     rot, t, its = align2d_cuda.icp2d_frame_pairs(*args)
     assert cuda_build.LAUNCHES["icp2d_frame_pairs"] == before + 1
-    rot_p, t_p, its_p = align2d_cuda.icp2d_frame_pairs_plain(*args)
+    rot_p, t_p, its_p = m_icp.icp2d_frame_pairs_plain(*args)
     assert torch.equal(its.to(torch.int32), its_p)
     torch.testing.assert_close(rot, rot_p, atol=SOLVER_TOL, rtol=0)
     torch.testing.assert_close(t, t_p, atol=SOLVER_TOL, rtol=0)
@@ -547,7 +545,7 @@ def _plain_inner_iterations(src, dst, smask, dmask, t0, cfg):
 
     align2d.irls_loop_torch = spy
     try:
-        align2d_cuda.icp2d_frame_plain(src, dst, smask, dmask, t0, cfg)
+        m_icp.icp2d_frame_plain(src, dst, smask, dmask, t0, cfg)
     finally:
         align2d.irls_loop_torch = real
     return sum(inner)
@@ -576,7 +574,7 @@ def test_frame_kernels_match_plain_at_1536_points(dev, big_pairs, kernel):
         args = (sp[pair], dp[pair], sm[pair], dm[pair], t0, cfg)
         row = 0
     out = align2d_cuda.icp2d_frame_raw(*args).reshape(-1, 8)
-    plain = align2d_cuda.icp2d_frame_plain(*args)
+    plain = m_icp.icp2d_frame_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(out[:, 6].to(torch.int32), plain[2].reshape(-1))
     _, failed = chip_smoke.frame_gate(args, out[:, :4].reshape(-1, 2, 2),
@@ -696,8 +694,8 @@ def test_icp2d_frame_pairs_kernel_matches_plain(dev):
     cfg = ICPConfig(det_rel_eps=1e-9)
     t0 = RigidTransform2.identity((sp.shape[0],), device=dev)
     rot, t, its = align2d_cuda.icp2d_frame_pairs(sp, dp, sm, dm, t0, cfg)
-    rot_p, t_p, its_p = align2d_cuda.icp2d_frame_pairs_plain(sp, dp, sm, dm,
-                                                             t0, cfg)
+    rot_p, t_p, its_p = m_icp.icp2d_frame_pairs_plain(sp, dp, sm, dm, t0,
+                                                      cfg)
     assert torch.equal(its.to(torch.int32), its_p)
     torch.testing.assert_close(rot, rot_p, atol=SOLVER_TOL, rtol=0)
     torch.testing.assert_close(t, t_p, atol=SOLVER_TOL, rtol=0)
@@ -969,15 +967,13 @@ def test_p2l_loop_reads_strided_views_and_a_bool_mask(dev):
 def _sweep_cloud(dev, b=None, q=700, m=1500, d=3, seed=5, sort=False):
     """Queries near a partly masked db (optionally Morton-sorted), with a
     4-row payload; a leading batch axis of ``b``."""
-    from icp_rust_tpu_torch.models.icp2d import _spatial_sort
-
     rng = np.random.default_rng(seed)
     shape = () if b is None else (b,)
     db = torch.as_tensor(rng.uniform(-3, 3, (*shape, m, d)),
                          dtype=torch.float32, device=dev)
     mask = torch.as_tensor(rng.random((*shape, m)) > 0.2, device=dev)
     if sort:
-        db, mask, _ = _spatial_sort(db, mask)
+        db, mask, _ = spatial_sort(db, mask)
     query = db[..., :q, :] + torch.as_tensor(
         rng.normal(0, 0.05, (*shape, q, d)), dtype=torch.float32, device=dev)
     pay = torch.as_tensor(rng.normal(size=(*shape, m, 4)),
@@ -1390,7 +1386,7 @@ def test_irls_cuh_kernels_agree_after_the_stats_refactor(dev):
         s, d = sp.expand(*b, *sp.shape), dp.expand(*b, *dp.shape)
         ms, md = sm.expand(*b, *sm.shape), dm.expand(*b, *dm.shape)
         rot, t, _ = align2d_cuda.icp2d_frame(s, d, ms, md, t0, cfg)
-        rot_p, t_p, _ = align2d_cuda.icp2d_frame_plain(s, d, ms, md, t0, cfg)
+        rot_p, t_p, _ = m_icp.icp2d_frame_plain(s, d, ms, md, t0, cfg)
         torch.testing.assert_close(rot, rot_p, atol=SOLVER_TOL, rtol=0)
         torch.testing.assert_close(t, t_p, atol=SOLVER_TOL, rtol=0)
     ident = RigidTransform2.identity(device=dev)

@@ -27,7 +27,9 @@ from icp_rust_tpu.geometry.transform2d import RigidTransform2 as JT
 from icp_rust_tpu.utils import oracle_np as oracle
 from icp_rust_tpu_torch.config import REFERENCE_CONFIG, ICPConfig
 from icp_rust_tpu_torch.geometry.transform2d import RigidTransform2 as TT
+from icp_rust_tpu_torch.models import driver
 from icp_rust_tpu_torch.models import icp2d as m
+from icp_rust_tpu_torch.ops import nn
 
 F64_TOL = 1e-9
 F32_TOL = 1e-5
@@ -126,10 +128,10 @@ def test_kernel_structured_cpu_path_tracks_plain_path():
     pts, mask = _frames3d()
     kern = ICPConfig(nn_dst_tile=256, det_rel_eps=1e-9)  # "auto": kernels
     plain = kern.with_(nn_backend="torch", align_backend="torch")
-    assert m._sort_enabled(torch.as_tensor(pts[0], dtype=torch.float32),
-                           torch.as_tensor(pts[1]), kern) == "morton"
-    assert m._sort_enabled(torch.as_tensor(pts[0], dtype=torch.float32),
-                           torch.as_tensor(pts[1]), plain) is None
+    assert nn.route(torch.as_tensor(pts[0], dtype=torch.float32),
+                    torch.as_tensor(pts[1]), 2, kern).sort == "morton"
+    assert nn.route(torch.as_tensor(pts[0], dtype=torch.float32),
+                    torch.as_tensor(pts[1]), 2, plain).sort is None
     t0 = TT.identity()
     got, st = m.icp3d_planar(pts[0], pts[1], mask[0], mask[1], t0, kern,
                              return_stats=True, **CPU)
@@ -166,7 +168,8 @@ def test_presorted_src_is_bitwise_identical():
     cfg = ICPConfig(nn_dst_tile=256)
     src = torch.as_tensor(pts[0], dtype=torch.float32)
     smask = torch.as_tensor(mask[0])
-    s2, m2, pre = m.presort_src(src, smask, torch.as_tensor(pts[1]), cfg)
+    s2, m2, pre = driver.presort_src(src, smask, torch.as_tensor(pts[1]),
+                                     cfg)
     assert pre
     a = m.icp3d_planar(src, pts[1], smask, mask[1], TT.identity(), cfg, **CPU)
     b = m.icp3d_planar(s2, pts[1], m2, mask[1], TT.identity(), cfg,
@@ -178,8 +181,8 @@ def test_spatial_sort_prefix_mask():
     rng = np.random.default_rng(3)
     pts = torch.as_tensor(rng.uniform(-3, 3, (500, 3)))
     mask = torch.as_tensor(rng.random(500) > 0.3)
-    srt, msk, (extra,) = m._spatial_sort(pts, mask, extras=(pts[:, 0],))
-    order = m.spatial_order(pts, mask, "morton").to(torch.int64)
+    srt, msk, (extra,) = driver.spatial_sort(pts, mask, extras=(pts[:, 0],))
+    order = nn.spatial_order(pts, mask, "morton").to(torch.int64)
     assert torch.equal(msk, mask[order])
     assert torch.equal(extra, pts[order, 0]) and torch.equal(srt, pts[order])
 
@@ -196,8 +199,8 @@ def test_fixed_point_exit_is_exact():
                 cfg.with_(outer_iters=3 * cfg.outer_iters), **CPU)
     assert torch.equal(a.rot, b.rot) and torch.equal(a.t, b.t)
     dt = TT.identity(dtype=torch.float64)
-    assert bool(m._is_identity(dt))
-    assert not bool(m._is_identity(TT(dt.rot, dt.t + 1e-300)))
+    assert bool(driver.is_identity(dt))
+    assert not bool(driver.is_identity(TT(dt.rot, dt.t + 1e-300)))
 
 
 def test_frame_kernel_gate_and_route():
@@ -325,7 +328,7 @@ def near_tie_pair():
     cfg = cs._config()
     runs = {}
     for dt in (torch.float32, torch.float64):
-        rot, t, it = m.align2d_cuda.icp2d_frame_plain(
+        rot, t, it = m.icp2d_frame_plain(
             torch.as_tensor(src, dtype=dt), torch.as_tensor(dst, dtype=dt),
             torch.as_tensor(mask), torch.as_tensor(mask),
             TT.identity(dtype=dt), cfg)

@@ -116,17 +116,17 @@ def test_nn_routes_follow_jax(monkeypatch, backend, method, dtype):
               "cuda": "pairs" if small else "pallas"}[backend]
         j_pairs = j_nn.use_pairs_nn(jq, jdb, jb, method)
         j_kernel = j_pairs or j_nn.use_pallas_nn(jq, jdb, jb, method)
-        kernel = nn.use_cuda_nn(q, db, backend, method)
-        pairs = nn.use_pairs_nn(q, db, backend, method)
+        route = nn.route(q, db, sdb[-1], ICPConfig(nn_backend=backend,
+                                                   nn_method=method))
+        kernel, pairs = route.kind != "torch", route.kind == "pairs"
         if dtype == "float64" and backend == "cuda":
             assert kernel and not j_kernel
             assert pairs == small
             continue
         assert kernel == j_kernel, (sq, sdb)
         assert pairs == j_pairs, (sq, sdb)
-        pack = nn.build_db_pack(q, db, backend=backend, method=method)
         j_pack = j_nn.build_db_pack(jq, jdb, backend=jb, method=method)
-        assert (pack is None) == (j_pack is None), (sq, sdb)
+        assert route.pack == (j_pack is not None), (sq, sdb)
 
 
 def test_matched_and_unmatched_routes_take_mxu(monkeypatch):

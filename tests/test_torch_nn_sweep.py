@@ -17,6 +17,7 @@ import torch
 
 from icp_rust_tpu.ops import nn as j_nn
 from icp_rust_tpu.ops import nn_pallas as j_pallas
+from icp_rust_tpu_torch.config import ICPConfig
 from icp_rust_tpu_torch.ops import nn, nn_cuda, nn_sweep_cuda as sw
 
 DB_TILE = 512
@@ -312,8 +313,9 @@ def test_batched_routes_match_vmapped_kernels(d):
     np.testing.assert_array_equal(got.index.numpy(), np.array(want.index))
     np.testing.assert_array_equal(got_p.numpy(), np.array(want_p))
     _close(got.dist_sq.numpy(), want.dist_sq, d)
-    assert nn.use_pairs_nn(_t(query), _t(db), "cuda")
-    assert not nn.use_pairs_nn(_t(query[:2]), _t(big), "cuda")
+    cuda = ICPConfig(nn_backend="cuda", nn_dst_tile=2048)
+    assert nn.route(_t(query), _t(db), d, cuda).kind == "pairs"
+    assert nn.route(_t(query[:2]), _t(big), d, cuda).kind == "sweep"
 
 
 def test_ties_pick_the_lowest_index_in_every_sweep():

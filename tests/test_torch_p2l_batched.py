@@ -259,7 +259,8 @@ def test_pairs_nn_at_the_plane_payload_matches_jax_interpret(case):
         payload=jnp.asarray(pay),
         q_bound=None if qb is None else jnp.asarray(qb), interpret=True)
     t = torch.as_tensor
-    assert nn.use_pairs_nn(t(q), t(db), "cuda")
+    assert nn.route(t(q), t(db), 4, ICPConfig(nn_backend="cuda")).kind \
+        == "pairs"
     got, got_p = nn.nearest_neighbor_matched(
         t(q), t(db), t(dm), payload=t(pay), backend="cuda",
         q_bound=None if qb is None else t(qb))
@@ -347,13 +348,13 @@ def test_batched_p2l_warm_searches_above_4096_points_take_kernel_8(
             seen.append((_name, walk))
             return _real(*args)
         monkeypatch.setattr(mod, name, spy)
-    real_nn = icp_p2l.nearest_neighbor_matched
+    real_search = nn.NNIndex.search
 
-    def nn_spy(query, db, db_mask, **kw):
-        out = real_nn(query, db, db_mask, **kw)
-        searches.append((query, db, db_mask, kw["payload"], out))
+    def search_spy(index, query, q_bound=None, warm=None):
+        out = real_search(index, query, q_bound, warm)
+        searches.append((query, index.db, index.db_mask, index.payload, out))
         return out
-    monkeypatch.setattr(icp_p2l, "nearest_neighbor_matched", nn_spy)
+    monkeypatch.setattr(nn.NNIndex, "search", search_spy)
 
     def run():
         seen.clear()
@@ -383,7 +384,9 @@ def test_batched_p2l_warm_searches_above_4096_points_take_kernel_8(
     same = (db[0][None] == db[0][win][:, None]).all(-1)
     assert bool((same.sum(1) == 2).all())
     assert torch.equal(torch.argmax(same.to(torch.int8), dim=1), win)
-    monkeypatch.setattr(nn, "use_pruned_pairs_nn", lambda *a, **kw: False)
+    real_route = nn.route
+    monkeypatch.setattr(nn, "route", lambda *a, **kw: real_route(
+        *a, **kw)._replace(pruned_warm=False))
     t4, st4 = run()
     assert [n for n, _ in seen] == ["nn_matched"] * k
     assert torch.equal(t4.rot, t.rot) and torch.equal(t4.t, t.t)

@@ -64,6 +64,65 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert not bad, bad
 
 
+# The drivers' stack points one way: entries, then models/driver, then
+# ops/ (the NN route and index, the solvers), the kernel wrappers and
+# csrc/; geometry/ and utils/ sit under all of them.
+_LOWER = ("ops", "geometry", "utils")
+_UPPER = ("icp_rust_tpu_torch.models", "icp_rust_tpu_torch.parallel")
+
+
+def _under(name: str, prefix: str) -> bool:
+    return name == prefix or name.startswith(prefix + ".")
+
+
+def _layer_violations(layer: str, source: str) -> list:
+    """Imports of a module in package directory ``layer`` that break the
+    layering, function-level ones included: from ops/, geometry/ or
+    utils/, anything of models/ or parallel/; from anywhere, a
+    ``_``-prefixed name of models/."""
+    bad = []
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            pairs = [(a.name, None) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            pairs = [(node.module or "", a.name) for a in node.names]
+        else:
+            continue
+        for mod, name in pairs:
+            full = mod if name is None else f"{mod}.{name}"
+            upward = layer in _LOWER and any(
+                _under(n, u) for n in (mod, full) for u in _UPPER)
+            private = (name is not None and name.startswith("_")
+                       and _under(mod, "icp_rust_tpu_torch.models"))
+            if upward or private:
+                bad.append(f"{node.lineno} {full}")
+    return bad
+
+
+def test_layers_import_one_way():
+    bad = []
+    for path in _port_files():
+        layer = os.path.relpath(path, PKG).split(os.sep)[0]
+        with open(path) as f:
+            bad += [f"{path}:{v}" for v in _layer_violations(layer, f.read())]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("layer,source,want", [
+    ("ops", "def f():\n    from icp_rust_tpu_torch.models import icp2d\n",
+     True),
+    ("utils", "from icp_rust_tpu_torch import parallel\n", True),
+    ("geometry", "import icp_rust_tpu_torch.models.driver\n", True),
+    ("parallel", "from icp_rust_tpu_torch.models.icp2d import _icp_loop\n",
+     True),
+    ("models", "from icp_rust_tpu_torch.models.driver import prepare\n",
+     False),
+    ("ops", "from icp_rust_tpu_torch.ops.nn_cuda import _SENTINEL\n", False),
+])
+def test_layer_rule_flags_upward_and_private_imports(layer, source, want):
+    assert bool(_layer_violations(layer, source)) is want
+
+
 @pytest.mark.parametrize("name,want", [
     ("jax", True), ("jax.numpy", True), ("jaxlib", False),
     ("icp_rust_tpu", True), ("icp_rust_tpu.ops.nn", True),
